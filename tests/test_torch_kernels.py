@@ -1,0 +1,206 @@
+"""The PyTorch port's CUDA kernels against their plain versions, and the port's
+import hygiene. This file imports nothing of JAX, so it also runs where JAX is
+not installed (the GPU machine):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Tests marked ``gpu`` decide in the ``cuda`` fixture whether a card is present
+and skip without one; on the CPU only the hygiene tests run. Inputs are made
+with numpy from a seed; each test states its tolerance."""
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from thr3ed_atom_tpu_torch.models.voxels import resolve_device, voxel_grid_from_numpy
+from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap, relu_trap_plain
+from thr3ed_atom_tpu_torch.rendering import gnomonic as gn
+from thr3ed_atom_tpu_torch.rendering import warp_matmul as wm
+from thr3ed_atom_tpu_torch.utils.camera import pose_spherical
+
+REPO = Path(__file__).resolve().parent.parent
+H = W = 128
+FOCAL = 140.0
+SS = 1.25
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _trap_pairs(n=100_000, seed=0):
+    """Seeded (a, b) pairs: generic, near-equal endpoints, zero crossings in
+    both directions, both negative, and exact ties."""
+    rng = np.random.default_rng(seed)
+    k = n // 5
+    a = rng.uniform(-4, 4, n).astype(np.float32)
+    b = rng.uniform(-4, 4, n).astype(np.float32)
+    b[:k] = a[:k] + rng.uniform(-2e-6, 2e-6, k).astype(np.float32)
+    a[k:2 * k] = np.abs(a[k:2 * k])
+    b[k:2 * k] = -np.abs(b[k:2 * k])
+    a[2 * k:3 * k] = -np.abs(a[2 * k:3 * k])
+    b[2 * k:3 * k] = np.abs(b[2 * k:3 * k])
+    a[3 * k:4 * k] = -np.abs(a[3 * k:4 * k])
+    b[3 * k:4 * k] = -np.abs(b[3 * k:4 * k])
+    b[4 * k:4 * k + 100] = a[4 * k:4 * k + 100]
+    return a, b
+
+
+def _resample_inputs(seed, NB=8, CH=8, K=256, N=128, order=3):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(NB, CH, K)).astype(np.float32)
+    X[:, :, : K // 4] = 0.0
+    lo, hi = wm._clip_range(order, K)
+    pos = rng.uniform(lo - 3, hi + 3, (NB, 1, N)).astype(np.float32)
+    pos[:, :, :8] = np.arange(8, dtype=np.float32) + 2.0
+    return X, np.clip(pos, lo, hi)
+
+
+def _grid(size, seed=3, device="cpu", density_scale=1.0):
+    """Carved relu scene (density -1 outside a ball), numpy from a seed;
+    ``density_scale`` makes the ball opaque."""
+    rng = np.random.default_rng(seed)
+    densities = rng.uniform(-2.0, 4.0, (size,) * 3 + (1,)).astype(np.float32)
+    densities *= np.float32(density_scale)
+    coords = np.stack(np.meshgrid(*[np.arange(size)] * 3, indexing="ij"), -1)
+    dist = np.linalg.norm(coords - (size - 1) / 2, axis=-1, keepdims=True)
+    densities = np.where(dist < size / 4, densities, -1.0).astype(np.float32)
+    features = (rng.normal(size=(size,) * 3 + (27,)) * 0.4).astype(np.float32)
+    config = dict(voxel_size=(2.0 / size,) * 3, grid_location=(0.0, 0.0, 0.0),
+                  density_preactivation="identity", density_postactivation="relu",
+                  feature_preactivation="identity", feature_postactivation="identity",
+                  expected_density_scale=1.0, radiance_transfer_function=None)
+    return voxel_grid_from_numpy(densities, features, config, device=device)
+
+
+def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py's imports, load without
+    JAX or the JAX package."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "thr3ed_atom_tpu_torch").rglob("*.py")
+    )
+    code = (
+        "import sys, importlib, runpy\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "smoke = runpy.run_path('chip_smoke.py', run_name='chip_smoke_imports')\n"
+        "smoke['load_port']()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'jaxlib' or m.startswith('jaxlib.')\n"
+        "       or m == 'thr3ed_atom_tpu' or m.startswith('thr3ed_atom_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(modules) >= 15
+
+
+def test_entry_points_default_to_cuda():
+    """``device=None`` resolves to the CUDA card; nothing falls back to the CPU."""
+    import inspect
+
+    from thr3ed_atom_tpu_torch.models.voxels import voxel_grid_from_numpy
+    from thr3ed_atom_tpu_torch.modules.volumetric_model import (
+        VolumetricModel,
+        create_volumetric_model_from_saved_model,
+    )
+
+    assert resolve_device(None) == torch.device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    for fn in (VolumetricModel.__init__, create_volumetric_model_from_saved_model,
+               voxel_grid_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default is None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu", [True, False])
+def test_relu_trap_kernel_matches_plain(cuda, relu):
+    """-fmad=false and the reference's operation order: equal to f32 ulp."""
+    a, b = _trap_pairs()
+    a_t, b_t = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got = relu_trap(a_t, b_t, relu)
+    torch.cuda.synchronize()
+    want = relu_trap_plain(a_t, b_t, relu)
+    for w, g in zip(want, got):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 3, 5])
+@pytest.mark.parametrize("taps", [False, True])
+def test_resample_rows_kernel_matches_plain(cuda, order, taps):
+    """Same taps, same order of summation, no contraction: atol 1e-6."""
+    X, pos = _resample_inputs(7, NB=64, K=512, N=512, order=order)
+    X_t, p_t = torch.from_numpy(X).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = wm.resample_rows(X_t, p_t, order, taps)
+    torch.cuda.synchronize()
+    want = wm.resample_rows_plain(X_t, p_t, order, taps)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+def _composite_case(device, P, diffuse, exit_eps, density_scale):
+    """One pose's composite inputs; the opaque scene is seen from closer, so
+    its disc covers whole exit tiles."""
+    tgrid = _grid(32, device=device, density_scale=density_scale)
+    pose = pose_spherical(140.0, -30.0, 3.5 if density_scale == 1.0 else 2.2)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=diffuse,
+                             pos_per_cell=P, exit_eps=exit_eps, qb=128)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    slices = gn.repack_position_slices(tgrid, st)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
+                               torch.from_numpy(org).to(device), st, H, W,
+                               torch.tensor(FOCAL, device=device), SS)
+    occ = gn.gnomonic_occupancy_lite(slices, geo.geom, st, Pn, Qn, PB, Pb, QB, Qb)
+    return (slices, None, None, geo.geom, st, Pn, Qn, PB, Pb, occ), geo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,diffuse,exit_eps,density_scale",
+                         [(2, False, 1e-4, 1.0), (1, True, 0.0, 1.0), (2, False, 1e-4, 30.0)])
+def test_composite_kernel_matches_plain(cuda, P, diffuse, exit_eps, density_scale):
+    """CUDA composite against the plain version at the kernel's exit grain:
+    the same roundings and no contraction; exp/sigmoid differ by ulps.
+    Bound: colour/acc 1e-4, depth 1e-3. The opaque scene (density x 30) must
+    end some tiles early, so the exit's grain is held too."""
+    args, geo = _composite_case(cuda, P, diffuse, exit_eps, density_scale)
+    got = gn.composite_positions_fused(*args, xr=geo.xr, yr=geo.yr)
+    torch.cuda.synchronize()
+    want, work = gn.composite_positions_fused_plain(
+        *args, xr=geo.xr, yr=geo.yr, exit_tile=gn.CUDA_EXIT_TILE, return_work=True)
+    if density_scale > 1.0:
+        st = args[4]
+        _, work_all = gn.composite_positions_fused_plain(
+            *args[:4], st._replace(exit_eps=0.0), *args[5:], xr=geo.xr, yr=geo.yr,
+            return_work=True)
+        assert int(work.sum()) < int(work_all.sum())
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3, gap
+
+
+def test_composite_early_exit_grain_on_opaque_scene():
+    """On the CPU: the opaque scene ends tiles early at the CUDA grain, and the
+    exit changes each texel by no more than exit_eps in T and acc (colour by
+    exit_eps per unit radiance, depth by exit_eps times the far distance)."""
+    args, geo = _composite_case("cpu", 2, False, 1e-4, 30.0)
+    st = args[4]
+    state, work = gn.composite_positions_fused_plain(
+        *args, xr=geo.xr, yr=geo.yr, exit_tile=gn.CUDA_EXIT_TILE, return_work=True)
+    full, work_all = gn.composite_positions_fused_plain(
+        *args[:4], st._replace(exit_eps=0.0), *args[5:], xr=geo.xr, yr=geo.yr,
+        return_work=True)
+    assert work.shape == work_all.shape == (gn._num_positions(st),) + state.shape[1:]
+    assert bool((work <= work_all).all()) and int(work.sum()) < int(work_all.sum())
+    gap = (state - full).abs().amax(dim=(1, 2)).numpy()
+    assert gap[:5].max() <= 1e-4 and gap[5] <= 1e-4 * 10.0, gap

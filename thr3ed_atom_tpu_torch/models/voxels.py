@@ -1,0 +1,182 @@
+"""Dense SH-feature voxel grid as a ``torch.nn.Module``.
+
+Counterpart of thr3ed_atom_tpu/models/voxels.py: the trainable tensors
+``densities`` [X, Y, Z, 1] and ``features`` [X, Y, Z, F] are parameters; the
+voxel size, grid location and activation names are plain attributes.
+Activations are registry names, never pickled callables, so checkpoints are
+arrays + JSON in the JAX package's format and load in either package.
+
+Conventions (shared with the JAX package): x = width, y = depth, z = height;
+AABB = grid_dims * voxel_size centred at grid_location; the density
+preactivation applies to ``densities * expected_density_scale`` on the whole
+grid before interpolation, the postactivation after.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from thr3ed_atom_tpu_torch.utils.constants import CONFIG_DICT, STATE_DICT, THRE3D_REPR
+
+
+class VoxelSize(NamedTuple):
+    """Edge lengths of a single voxel along x, y, z (anisotropic voxels allowed)."""
+
+    x_size: float = 1.0
+    y_size: float = 1.0
+    z_size: float = 1.0
+
+
+class VoxelGridLocation(NamedTuple):
+    """World-coordinate location of the grid's center; the grid is axis aligned."""
+
+    x_coord: float = 0.0
+    y_coord: float = 0.0
+    z_coord: float = 0.0
+
+
+class AxisAlignedBoundingBox(NamedTuple):
+    x_range: Tuple[float, float]
+    y_range: Tuple[float, float]
+    z_range: Tuple[float, float]
+
+
+# registry of activation functions by name — checkpoints store the name
+ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "identity": lambda x: x,
+    "abs": torch.abs,
+    "relu": F.relu,
+    "softplus": F.softplus,
+    "sigmoid": torch.sigmoid,
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the CUDA card."""
+    return torch.device("cuda" if device is None else device)
+
+
+class VoxelGrid(nn.Module):
+    def __init__(
+        self,
+        densities: torch.Tensor,
+        features: torch.Tensor,
+        voxel_size: VoxelSize = VoxelSize(),
+        grid_location: VoxelGridLocation = VoxelGridLocation(),
+        density_preactivation: str = "abs",
+        density_postactivation: str = "identity",
+        feature_preactivation: str = "identity",
+        feature_postactivation: str = "identity",
+        expected_density_scale: float = 1.0,
+        radiance_transfer_function: Optional[str] = None,
+    ) -> None:
+        super().__init__()
+        if densities.shape[:3] != features.shape[:3] or densities.shape[-1] != 1:
+            raise ValueError(
+                f"densities {tuple(densities.shape)} must be [X, Y, Z, 1] over "
+                f"the features' [X, Y, Z, F] {tuple(features.shape)}"
+            )
+        for name in (density_preactivation, density_postactivation,
+                     feature_preactivation, feature_postactivation):
+            if name not in ACTIVATIONS:
+                raise ValueError(f"unknown activation '{name}'")
+        if radiance_transfer_function is not None:
+            raise NotImplementedError(
+                "radiance transfer functions are not ported (ROADMAP.md, "
+                "'Modules to port', item 2: models/voxels.py)"
+            )
+        self.densities = nn.Parameter(densities, requires_grad=False)
+        self.features = nn.Parameter(features, requires_grad=False)
+        self.voxel_size = VoxelSize(*voxel_size)
+        self.grid_location = VoxelGridLocation(*grid_location)
+        self.density_preactivation = density_preactivation
+        self.density_postactivation = density_postactivation
+        self.feature_preactivation = feature_preactivation
+        self.feature_postactivation = feature_postactivation
+        self.expected_density_scale = float(expected_density_scale)
+        self.radiance_transfer_function = radiance_transfer_function
+
+    # ------------------------------------------------------------------ properties
+
+    @property
+    def grid_dims(self) -> Tuple[int, int, int]:
+        return tuple(self.features.shape[:3])
+
+    @property
+    def num_features(self) -> int:
+        return self.features.shape[-1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.features.device
+
+    @property
+    def aabb(self) -> AxisAlignedBoundingBox:
+        dims, vs, loc = self.grid_dims, self.voxel_size, self.grid_location
+        half = [(dims[i] * vs[i]) / 2 for i in range(3)]
+        return AxisAlignedBoundingBox(
+            x_range=(loc.x_coord - half[0], loc.x_coord + half[0]),
+            y_range=(loc.y_coord - half[1], loc.y_coord + half[1]),
+            z_range=(loc.z_coord - half[2], loc.z_coord + half[2]),
+        )
+
+    def activated_grids(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pre-activated (density, feature) grids ready for interpolation."""
+        pre_densities = ACTIVATIONS[self.density_preactivation](
+            self.densities * self.expected_density_scale
+        )
+        pre_features = ACTIVATIONS[self.feature_preactivation](self.features)
+        return pre_densities, pre_features
+
+    # ------------------------------------------------------------------ config / io
+
+    def get_config_dict(self) -> Dict[str, Any]:
+        return {
+            "grid_location": tuple(self.grid_location),
+            "density_preactivation": self.density_preactivation,
+            "density_postactivation": self.density_postactivation,
+            "feature_preactivation": self.feature_preactivation,
+            "feature_postactivation": self.feature_postactivation,
+            "expected_density_scale": self.expected_density_scale,
+            "radiance_transfer_function": self.radiance_transfer_function,
+        }
+
+    def get_save_config_dict(self) -> Dict[str, Any]:
+        config = self.get_config_dict()
+        config["voxel_size"] = tuple(self.voxel_size)
+        return config
+
+
+def voxel_grid_from_numpy(
+    densities: np.ndarray,
+    features: np.ndarray,
+    config_dict: Dict[str, Any],
+    device=None,
+) -> VoxelGrid:
+    """A VoxelGrid on ``device`` (None: the CUDA card) from numpy arrays and a
+    ``get_save_config_dict()`` — e.g. the JAX package's grid carried across."""
+    config = dict(config_dict)
+    voxel_size = VoxelSize(*config.pop("voxel_size"))
+    grid_location = VoxelGridLocation(*config.pop("grid_location"))
+    dev = resolve_device(device)
+    return VoxelGrid(
+        densities=torch.as_tensor(np.asarray(densities, np.float32)).to(dev),
+        features=torch.as_tensor(np.asarray(features, np.float32)).to(dev),
+        voxel_size=voxel_size,
+        grid_location=grid_location,
+        **config,
+    )
+
+
+def create_voxel_grid_from_saved_info_dict(saved_info: Dict[str, Any],
+                                           device=None) -> VoxelGrid:
+    """Rebuild a VoxelGrid from a checkpoint dict of arrays + config (no pickle)."""
+    state = saved_info[THRE3D_REPR][STATE_DICT]
+    return voxel_grid_from_numpy(
+        state["densities"], state["features"],
+        saved_info[THRE3D_REPR][CONFIG_DICT], device,
+    )

@@ -1,0 +1,187 @@
+"""VolumetricModel: a voxel grid + a named render procedure + its config.
+
+Counterpart of thr3ed_atom_tpu/modules/volumetric_model.py for the
+pose-structured (gnomonic) procedure. Checkpoints keep the JAX package's
+format: <path>.npz holds the arrays, <path>.json the grid config, the render
+procedure's registry name and the render config; no pickles. Either package
+loads the other's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from thr3ed_atom_tpu_torch.models.voxels import (
+    VoxelGrid,
+    create_voxel_grid_from_saved_info_dict,
+    resolve_device,
+)
+from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
+from thr3ed_atom_tpu_torch.rendering.renderer import (
+    SHVoxGridRenderConfig,
+    get_render_procedure,
+)
+from thr3ed_atom_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics, CameraPose
+from thr3ed_atom_tpu_torch.utils.constants import (
+    CONFIG_DICT,
+    EXTRA_INFO,
+    RENDER_CONFIG,
+    RENDER_PROCEDURE,
+    STATE_DICT,
+    THRE3D_REPR,
+)
+
+
+class VolumetricModel:
+    """Owns (voxel grid, render procedure name, render config) on one device.
+
+    ``device=None`` means the CUDA card; the grid is moved there."""
+
+    def __init__(
+        self,
+        thre3d_repr: VoxelGrid,
+        render_procedure: str = "render_sh_voxel_grid_gnomonic",
+        render_config: Optional[SHVoxGridRenderConfig] = None,
+        device=None,
+    ) -> None:
+        get_render_procedure(render_procedure)  # raises for unported procedures
+        self.device = resolve_device(device)
+        self._thre3d_repr = thre3d_repr.to(self.device)
+        self._render_procedure_name = render_procedure
+        self._render_config = render_config
+        self._image_render_cache: dict = {}
+
+    @property
+    def thre3d_repr(self) -> VoxelGrid:
+        return self._thre3d_repr
+
+    @property
+    def render_procedure(self):
+        return get_render_procedure(self._render_procedure_name)
+
+    @property
+    def render_procedure_name(self) -> str:
+        return self._render_procedure_name
+
+    @property
+    def render_config(self) -> SHVoxGridRenderConfig:
+        return self._render_config
+
+    def _config(self, overrides) -> SHVoxGridRenderConfig:
+        overrides = dict(overrides)
+        overrides.setdefault("perturb_sampled_points", False)
+        return self._render_config.replace(**overrides)
+
+    def render(self, camera_pose: CameraPose, camera_intrinsics: CameraIntrinsics,
+               **config_overrides) -> RenderOut:
+        """Full-image render of one pose: outputs [H, W, .] on the model's device."""
+        return self.render_procedure.render_image(
+            self._thre3d_repr, camera_pose, camera_intrinsics,
+            self._config(config_overrides), cache=self._image_render_cache,
+        )
+
+    def render_poses(self, camera_poses, camera_intrinsics: CameraIntrinsics,
+                     **config_overrides) -> RenderOut:
+        """Render a sequence of poses; every output gains a leading pose axis."""
+        return self.render_procedure.render_poses(
+            self._thre3d_repr, list(camera_poses), camera_intrinsics,
+            self._config(config_overrides), cache=self._image_render_cache,
+        )
+
+    def drop_prepared_cache(self) -> None:
+        """Free the cached vertex slices of every march variant."""
+        self._image_render_cache.clear()
+
+    # ------------------------------------------------------------------ io
+
+    def get_save_info(self, extra_info: Optional[Dict[str, Any]] = None
+                      ) -> Dict[str, Any]:
+        grid = self._thre3d_repr
+        info = {
+            THRE3D_REPR: {
+                STATE_DICT: {
+                    "densities": grid.densities.detach().cpu().numpy(),
+                    "features": grid.features.detach().cpu().numpy(),
+                },
+                CONFIG_DICT: grid.get_save_config_dict(),
+            },
+            RENDER_PROCEDURE: self._render_procedure_name,
+            RENDER_CONFIG: _render_config_to_jsonable(self._render_config),
+        }
+        if extra_info is not None:
+            info[EXTRA_INFO] = extra_info
+        return info
+
+    def save(self, path: Path, extra_info: Optional[Dict[str, Any]] = None) -> None:
+        save_model(self, path, extra_info)
+
+
+def _render_config_to_jsonable(config: SHVoxGridRenderConfig) -> Dict[str, Any]:
+    d = dataclasses.asdict(config)
+    d["camera_bounds"] = [config.camera_bounds.near, config.camera_bounds.far]
+    return d
+
+
+def _render_config_from_jsonable(d: Dict[str, Any]) -> SHVoxGridRenderConfig:
+    d = dict(d)
+    d["camera_bounds"] = CameraBounds(*[float(v) for v in d["camera_bounds"]])
+    return SHVoxGridRenderConfig(**d)
+
+
+def _jsonable(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy().tolist()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    return obj
+
+
+def save_model(vol_mod: VolumetricModel, path: Path,
+               extra_info: Optional[Dict[str, Any]] = None) -> None:
+    """Write <path>.npz (arrays) + <path>.json (config). No pickles anywhere."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    info = vol_mod.get_save_info(extra_info)
+    np.savez(str(path.with_suffix(".npz")), **info[THRE3D_REPR][STATE_DICT])
+    meta = {
+        THRE3D_REPR: {CONFIG_DICT: info[THRE3D_REPR][CONFIG_DICT]},
+        RENDER_PROCEDURE: info[RENDER_PROCEDURE],
+        RENDER_CONFIG: info[RENDER_CONFIG],
+        EXTRA_INFO: _jsonable(info.get(EXTRA_INFO, {})),
+    }
+    with open(path.with_suffix(".json"), "w") as f:
+        json.dump(meta, f, indent=2)
+
+
+def create_volumetric_model_from_saved_model(
+    model_path: Path, device=None,
+) -> Tuple[VolumetricModel, Dict[str, Any]]:
+    """Rebuild a VolumetricModel on ``device`` (None: the CUDA card) from
+    <path>.npz + <path>.json, as written by either package."""
+    model_path = Path(model_path)
+    with open(model_path.with_suffix(".json")) as f:
+        meta = json.load(f)
+    with np.load(str(model_path.with_suffix(".npz"))) as arrays:
+        state = {k: arrays[k] for k in arrays.files}
+    saved_info = {
+        THRE3D_REPR: {STATE_DICT: state, CONFIG_DICT: meta[THRE3D_REPR][CONFIG_DICT]}
+    }
+    thre3d_repr = create_voxel_grid_from_saved_info_dict(saved_info, device)
+    vol_mod = VolumetricModel(
+        thre3d_repr=thre3d_repr,
+        render_procedure=meta[RENDER_PROCEDURE],
+        render_config=_render_config_from_jsonable(meta[RENDER_CONFIG]),
+        device=device,
+    )
+    return vol_mod, meta.get(EXTRA_INFO, {})

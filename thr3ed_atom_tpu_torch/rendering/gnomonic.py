@@ -1,0 +1,774 @@
+"""Gnomonic shear-warp renderer: the serving path of the port.
+
+Counterpart of thr3ed_atom_tpu/rendering/gnomonic.py, fused (v3) pipeline
+only. Per pose:
+
+  1. the pose's dominant march axis selects a "virtual axis-aligned camera"
+     whose texel (p, q) is the ray ``D = g*e_axis + x_p*e_u + y_q*e_v``; every
+     such ray crosses march position j at in-plane grid coordinates that are
+     affine in (p, q): ``U = bu + ku*p``, ``V = bv + kv*q``
+     (``gnomonic_geometry``);
+  2. ``repack_position_slices`` turns the grid into bf16 vertex slices along
+     the march axis, once per march variant (cached);
+  3. ``gnomonic_occupancy_lite`` flags the (128 x qb texel block, position)
+     pairs whose cells can hold density — a lossless skip rule;
+  4. ``composite_positions_fused`` (CUDA kernel csrc/composite_fused.cu)
+     lerps interior positions, resamples each slice to the texels with the
+     two tents (bf16 where the reference rounds), folds the SH basis and
+     composites front to back with the relu-trapezoid cell integral;
+  5. ``warp_state_matmul`` (rendering/warp_matmul.py, CUDA kernel
+     csrc/resample_rows.cu) resamples the composited texel image to the
+     camera's pixels in two scanline passes.
+
+Out of this slice (each raises NotImplementedError): the v2 stripe kernels
+(``gnomonic_qb=0``), warp order 5, the gather warp, flat ray batches through
+the procedure object, and the training operands (materialized SH basis).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from thr3ed_atom_tpu_torch import kernels
+from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
+from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap_plain
+from thr3ed_atom_tpu_torch.ops.sh import C0 as _C0, C1 as _C1, C2 as _C2, C3 as _C3
+from thr3ed_atom_tpu_torch.rendering.axes import _uv_axes, dominant_axis_for_pose
+from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
+from thr3ed_atom_tpu_torch.utils.constants import (
+    EXTRA_ACCUMULATED_WEIGHTS,
+    EXTRA_DIFFUSE_COLOUR,
+    EXTRA_DISPARITY,
+    ZERO_PLUS,
+)
+
+F32 = torch.float32
+
+# the CUDA composite's texel tile (p rows x q columns): one thread per texel,
+# and the grain of its early exit (csrc/composite_fused.cu TP, TQ)
+CUDA_EXIT_TILE = (8, 32)
+
+
+class GnomonicStatics(NamedTuple):
+    """Per-variant constants of one gnomonic render program."""
+
+    dims: Tuple[int, int, int]
+    aabb: Tuple[Tuple[float, float], Tuple[float, float], Tuple[float, float]]
+    axis: int
+    flip: bool
+    ncoeff: int
+    relu_sigma: bool
+    with_diffuse: bool
+    pos_per_cell: int
+    # early exit: a texel tile stops marching once every texel's
+    # transmittance is at most this (0 disables)
+    exit_eps: float = 0.0
+    # q-block width of the occupancy flags, in texels (multiple of 128)
+    qb: int = 128
+
+
+def statics_for_grid(
+    voxel_grid: VoxelGrid,
+    axis: int,
+    flip: bool,
+    *,
+    with_diffuse: bool = False,
+    pos_per_cell: int = 0,
+    exit_eps: float = 0.0,
+    qb: int = 128,
+) -> GnomonicStatics:
+    num_features = voxel_grid.num_features
+    if num_features % 3 != 0:
+        raise ValueError("SH feature count must be 3 * (degree + 1)^2")
+    ncoeff = num_features // 3
+    if ncoeff not in (1, 4, 9, 16):
+        raise ValueError("gnomonic renderer supports SH degree <= 3")
+    post = voxel_grid.density_postactivation
+    if post not in ("identity", "relu"):
+        raise ValueError(
+            f"gnomonic renderer supports identity/relu density postactivation, got {post}"
+        )
+    if voxel_grid.feature_postactivation != "identity":
+        raise ValueError("gnomonic renderer needs an identity feature postactivation")
+    if qb == 0:
+        raise NotImplementedError(
+            "gnomonic_qb=0 selects the v2 stripe kernels, not ported yet "
+            "(ROADMAP.md, 'TPU kernels to port', K5-K8)"
+        )
+    if qb < 0 or qb % 128 != 0:
+        raise ValueError("gnomonic qb must be a positive multiple of 128")
+    dims = voxel_grid.grid_dims
+    if pos_per_cell == 0:
+        # AUTO: ~256 positions across the grid (32^3 -> 8, 128^3 -> 2, 256^3 -> 1)
+        n_cells = dims[axis] - 1
+        pos_per_cell = max(1, min(8, 2 ** round(math.log2(max(1.0, 256 / n_cells)))))
+    if pos_per_cell not in (1, 2, 4, 8):
+        raise ValueError(f"pos_per_cell must be 1, 2, 4 or 8, got {pos_per_cell}")
+    return GnomonicStatics(
+        dims=tuple(dims),
+        aabb=tuple((float(lo), float(hi)) for (lo, hi) in voxel_grid.aabb),
+        axis=axis,
+        flip=bool(flip),
+        ncoeff=int(ncoeff),
+        relu_sigma=(post == "relu"),
+        with_diffuse=bool(with_diffuse),
+        pos_per_cell=int(pos_per_cell),
+        exit_eps=float(exit_eps),
+        qb=int(qb),
+    )
+
+
+def _num_positions(statics: GnomonicStatics) -> int:
+    return (statics.dims[statics.axis] - 1) * statics.pos_per_cell + 1
+
+
+def _padded_channels(statics: GnomonicStatics) -> int:
+    nf = 3 * statics.ncoeff + 1
+    return -(-nf // 8) * 8  # 4 -> 8, 13 -> 16, 28 -> 32
+
+
+def _sprows(with_diffuse: bool) -> int:
+    # state rows: [T, colR, colG, colB, acc, dep, (difR, difG, difB)]
+    return 9 if with_diffuse else 6
+
+
+# ------------------------------------------------------------------ grid repack
+
+
+def repack_position_slices(voxel_grid: VoxelGrid, statics: GnomonicStatics,
+                           round_output: bool = True,
+                           vertex_only: bool = True) -> torch.Tensor:
+    """The vertex slices [nvert, nu, C, nv] front to back along the march axis
+    (pre-activated, C = 3*ncoeff + 1 padded to a multiple of 8), bf16 unless
+    ``round_output`` is False. Interior quadrature positions are lerped by the
+    composite, so only the vertex stack exists.
+
+    The values are the JAX package's; the storage is channel-last: the result
+    is a permuted view of a contiguous [nvert, nu, nv, C] tensor, the layout
+    the CUDA composite gathers from (one 16-byte load per 8 channels)."""
+    if not vertex_only:
+        raise NotImplementedError(
+            "the interleaved position stack feeds the v2 stripe kernels, not "
+            "ported yet (ROADMAP.md, 'TPU kernels to port', K5-K8)"
+        )
+    axis = statics.axis
+    u_ax, v_ax = _uv_axes(axis)
+    pre_densities, pre_features = voxel_grid.activated_grids()
+    unified = torch.cat([pre_features, pre_densities], dim=-1)
+    C = _padded_channels(statics)
+    unified = F.pad(unified, (0, C - unified.shape[-1]))
+    slices = unified.permute(axis, u_ax, v_ax, 3)  # [nvert, nu, nv, C]
+    if statics.flip:
+        slices = torch.flip(slices, dims=(0,))
+    out_dtype = torch.bfloat16 if round_output else F32
+    slices = slices.to(out_dtype, memory_format=torch.contiguous_format)
+    return slices.permute(0, 1, 3, 2)
+
+
+# ------------------------------------------------------------------ geometry
+
+
+def frame_rounding(height: int, width: int, supersample: float,
+                   statics: GnomonicStatics):
+    """Texel-grid rounding (128-multiples in u and v) and channel padding:
+    (Pn_raw, Qn, nv, C)."""
+    Pn_raw = -(-int(math.ceil(width * supersample)) // 128) * 128
+    Qn = -(-int(math.ceil(height * supersample)) // 128) * 128
+    _, v_ax = _uv_axes(statics.axis)
+    nv = statics.dims[v_ax]
+    C = _padded_channels(statics)
+    return Pn_raw, Qn, nv, C
+
+
+def gnomonic_frame(rotation, height: int, width: int, focal: float,
+                   supersample: float, statics: GnomonicStatics):
+    """(Pn, Qn, PB, Pb): the texel grid and its u-blocking into Pb = 128 rows
+    (the grain of the occupancy flags)."""
+    del rotation, focal
+    Pn_raw, Qn, _, _ = frame_rounding(height, width, supersample, statics)
+    Pb = 128
+    PB = -(-Pn_raw // Pb)
+    return PB * Pb, Qn, PB, Pb
+
+
+def _qb_blocks(statics: GnomonicStatics, Qn: int) -> Tuple[int, int]:
+    """(QB, Qb): QB q-blocks of Qb texels (one block when qb does not divide Qn)."""
+    qb = statics.qb
+    if qb <= 0 or Qn <= qb or Qn % qb != 0:
+        return 1, Qn
+    return Qn // qb, qb
+
+
+def _corner_ranges(rotation, height, width, focal, statics):
+    """Gnomonic (x, y) ranges of the image corners."""
+    axis, (u_ax, v_ax) = statics.axis, _uv_axes(statics.axis)
+    g = -1.0 if statics.flip else 1.0
+    dev = rotation.device
+    cx = torch.tensor([0.0, width, 0.0, width], dtype=F32, device=dev)
+    cy = torch.tensor([0.0, 0.0, height, height], dtype=F32, device=dev)
+    dirs_cam = torch.stack(
+        [(cx - width / 2) / focal, -(cy - height / 2) / focal,
+         -torch.ones(4, dtype=F32, device=dev)], dim=-1,
+    )
+    d = torch.matmul(dirs_cam, rotation.T)
+    x_c = g * d[:, u_ax] / d[:, axis]
+    y_c = g * d[:, v_ax] / d[:, axis]
+    return (x_c.min(), x_c.max()), (y_c.min(), y_c.max())
+
+
+class GnomonicGeometry(NamedTuple):
+    """Per-pose operands of the fused march."""
+
+    geom: torch.Tensor  # [NP, 8] f32: s_j, cell_step, bu, ku, bv, kv, 0, 0
+    xr: Tuple[torch.Tensor, torch.Tensor]  # gnomonic x range of the frame
+    yr: Tuple[torch.Tensor, torch.Tensor]
+
+
+def gnomonic_geometry(
+    rotation, origin, statics: GnomonicStatics, height: int, width: int,
+    focal, supersample: float, lite: bool = True, skip_basis: bool = True,
+) -> GnomonicGeometry:
+    """The affine texel -> grid coefficients of every position and the frame's
+    ranges. ``rotation`` [3, 3], ``origin`` [3] and ``focal`` (0-d) are f32
+    tensors on the render device; arithmetic follows the JAX reference's
+    order in f32."""
+    if not (lite and skip_basis):
+        raise NotImplementedError(
+            "the materialized tent / SH-basis operands feed the v2 kernels and "
+            "the training step, not ported yet (ROADMAP.md, 'Modules to port', "
+            "item 5)"
+        )
+    axis = statics.axis
+    u_ax, v_ax = _uv_axes(axis)
+    g = -1.0 if statics.flip else 1.0
+    P = statics.pos_per_cell
+    aabb, dims = statics.aabb, statics.dims
+    NP = _num_positions(statics)
+    Pn, Qn, _PB, _Pb = gnomonic_frame(None, height, width, focal, supersample,
+                                      statics)
+    lo_a, hi_a = aabb[axis]
+    cell_a = (hi_a - lo_a) / dims[axis]
+    su = dims[u_ax] / (aabb[u_ax][1] - aabb[u_ax][0])
+    sv = dims[v_ax] / (aabb[v_ax][1] - aabb[v_ax][0])
+
+    (x0, x1), (y0, y1) = _corner_ranges(rotation, height, width, focal, statics)
+    mx = _div(x1 - x0, Pn)
+    my = _div(y1 - y0, Qn)
+    x0, x1 = x0 - mx, x1 + mx
+    y0, y1 = y0 - my, y1 + my
+
+    j = torch.arange(NP, dtype=F32, device=rotation.device)
+    c_j = (NP - 1 - j) / P if statics.flip else j / P
+    w_j = lo_a + (c_j + 0.5) * cell_a
+    s_j = (w_j - origin[axis]) / g
+
+    a_u = (origin[u_ax] - aabb[u_ax][0]) * su - 0.5
+    a_v = (origin[v_ax] - aabb[v_ax][0]) * sv - 0.5
+    cell_step = torch.full((NP,), cell_a / P, dtype=F32, device=rotation.device)
+    bu = a_u + (s_j * su) * x0
+    ku = (s_j * su) * _div(x1 - x0, Pn - 1)
+    bv = a_v + (s_j * sv) * y0
+    kv = (s_j * sv) * _div(y1 - y0, Qn - 1)
+    zeros = torch.zeros_like(s_j)
+    geom = torch.stack([s_j, cell_step, bu, ku, bv, kv, zeros, zeros], dim=-1)
+    return GnomonicGeometry(geom=geom, xr=(x0, x1), yr=(y0, y1))
+
+
+def gnomonic_occupancy_lite(slices, geom, statics: GnomonicStatics, Pn: int,
+                            Qn: int, PB: int, Pb: int, QB: int, Qb: int):
+    """Exact-zero skip flags from the affine geom scalars: a (u-block, q-block,
+    position) is live iff some density > 0 lies inside the rectangle of grid
+    columns the block's tent taps can reach. Returns (cell_live, pos_needed,
+    pos_any): [PB, QB, NP], [PB, QB, NP], [PB, NP] int32.
+
+    ``slices`` is the vertex stack [nvert, nu, C, nv]; an interior position's
+    density sign is bounded by the union of its two endpoint planes."""
+    NP = _num_positions(statics)
+    nu, nv = slices.shape[1], slices.shape[3]
+    P = statics.pos_per_cell
+    dev = geom.device
+    sigv = slices[:, :, 3 * statics.ncoeff, :]  # [nvert, nu, nv] pre-relu
+    sigv_pos = (sigv > 0.0).to(F32)
+    if P == 1:
+        sig_pos = sigv_pos
+    else:
+        idx = np.arange(NP)
+        ia = torch.as_tensor(idx // P, device=dev)
+        ib = torch.as_tensor(np.minimum(idx // P + 1, slices.shape[0] - 1), device=dev)
+        interior = torch.as_tensor((idx % P) > 0, dtype=F32, device=dev)[:, None, None]
+        sig_pos = torch.maximum(sigv_pos[ia], interior * sigv_pos[ib])
+    bu, ku = geom[:, 2], geom[:, 3]
+    bv, kv = geom[:, 4], geom[:, 5]
+
+    def interval_mask(b, k, n_blocks, blk, n_idx):
+        # [NP, n_blocks, n_idx] mask of indices within the blocks' tent reach
+        p0 = torch.arange(n_blocks, dtype=F32, device=dev) * blk
+        p1 = p0 + (blk - 1)
+        e0 = b[:, None] + k[:, None] * p0[None, :]
+        e1 = b[:, None] + k[:, None] * p1[None, :]
+        lo = torch.minimum(e0, e1) - 1.0
+        hi = torch.maximum(e0, e1) + 1.0
+        idx_f = torch.arange(n_idx, dtype=F32, device=dev)
+        return ((idx_f[None, None, :] >= lo[..., None])
+                & (idx_f[None, None, :] <= hi[..., None])).to(F32)
+
+    umask = interval_mask(bu, ku, PB, Pb, nu)  # [NP, PB, nu]
+    vmask = interval_mask(bv, kv, QB, Qb, nv)  # [NP, QB, nv]
+    uq = torch.einsum("juv,jqv->juq", sig_pos, vmask)
+    slab_live = (torch.einsum("jbu,juq->jbq", umask, uq) > 0.0).to(torch.int32)
+    zero = torch.zeros((1, PB, QB), dtype=torch.int32, device=dev)
+    prev_l = torch.cat([zero, slab_live[:-1]], 0)
+    next_l = torch.cat([slab_live[1:], zero], 0)
+    cell_live = (prev_l | slab_live).permute(1, 2, 0).contiguous()
+    pos_needed = (prev_l | slab_live | next_l).permute(1, 2, 0).contiguous()
+    pos_any = (pos_needed.sum(dim=1) > 0).to(torch.int32)  # [PB, NP]
+    return cell_live, pos_needed, pos_any
+
+
+def _ybasis_rows(x_, y_, z_, ncoeff):
+    """SH basis values of the texel directions, stacked [ncoeff, Pn, Qn]."""
+    rows = [_C0 * torch.ones_like(x_)]
+    if ncoeff > 1:
+        rows += [-_C1 * y_, _C1 * z_, -_C1 * x_]
+    if ncoeff > 4:
+        rows += [
+            _C2[0] * x_ * y_,
+            _C2[1] * y_ * z_,
+            _C2[2] * (2.0 * z_ * z_ - x_ * x_ - y_ * y_),
+            _C2[3] * x_ * z_,
+            _C2[4] * (x_ * x_ - y_ * y_),
+        ]
+    if ncoeff > 9:
+        xx, yy, zz = x_ * x_, y_ * y_, z_ * z_
+        rows += [
+            _C3[0] * y_ * (3.0 * xx - yy),
+            _C3[1] * x_ * y_ * z_,
+            _C3[2] * y_ * (4.0 * zz - xx - yy),
+            _C3[3] * z_ * (2.0 * zz - 3.0 * xx - 3.0 * yy),
+            _C3[4] * x_ * (4.0 * zz - xx - yy),
+            _C3[5] * z_ * (xx - yy),
+            _C3[6] * x_ * (xx - 3.0 * yy),
+        ]
+    return torch.stack(rows, dim=0)
+
+
+# ------------------------------------------------------------ fused composite
+
+
+def _div(x: torch.Tensor, n) -> torch.Tensor:
+    """x / n with a true f32 division: on CUDA, x / <python number> multiplies
+    by the f32 reciprocal, which rounds differently from the reference."""
+    return x / torch.full((), float(n), dtype=x.dtype, device=x.device)
+
+
+def _bf16r(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(F32)
+
+
+def _tent_taps(pos: torch.Tensor, n: int):
+    """The two non-zero taps of the tent max(0, 1 - |pos - k|) over k in [0, n):
+    clamped indices and bf16-rounded weights, zero where the tap lies outside."""
+    k0 = torch.floor(pos)
+    k1 = k0 + 1.0
+    w0 = _bf16r(torch.clamp_min(1.0 - torch.abs(pos - k0), 0.0))
+    w1 = _bf16r(torch.clamp_min(1.0 - torch.abs(pos - k1), 0.0))
+    w0 = torch.where((k0 >= 0) & (k0 <= n - 1), w0, 0.0)
+    w1 = torch.where((k1 >= 0) & (k1 <= n - 1), w1, 0.0)
+    i0 = k0.clamp(0, n - 1).long()
+    i1 = k1.clamp(0, n - 1).long()
+    return i0, i1, w0, w1
+
+
+def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
+                                    Qn, PB, Pb, occupancy, xr=None, yr=None,
+                                    exit_tile=None, return_work=False):
+    """Plain PyTorch version of the fused composite (the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions_fused). Marches
+    the whole frame position by position with the reference's roundings: the
+    lerped slice, the u-tent and the u-resample round to bf16, the v-resample
+    sums in f32; both tents have two taps, so the gather form below equals the
+    reference's tent matmuls exactly.
+
+    ``exit_tile`` (rows, cols) is the early exit's grain: the JAX kernel's
+    (Pb, Qb) by default, ``CUDA_EXIT_TILE`` to reproduce the CUDA kernel.
+    ``return_work`` also returns which (position, texel) pairs were marched,
+    a [NP, Pn, Qn] bool tensor.
+    Returns the state [SROWS, Pn, Qn] f32."""
+    if ybasis is not None or norm is not None or xr is None or yr is None:
+        raise NotImplementedError(
+            "materialized SH-basis operands belong to the training step, not "
+            "ported yet (ROADMAP.md, 'Modules to port', item 5); pass xr/yr"
+        )
+    nvert, nu, C, nv = slices.shape
+    NP = _num_positions(statics)
+    P = statics.pos_per_cell
+    QB, Qb = _qb_blocks(statics, Qn)
+    nc = statics.ncoeff
+    used = 3 * nc + 1
+    dev = slices.device
+    u_ax, v_ax = _uv_axes(statics.axis)
+    g = -1.0 if statics.flip else 1.0
+    cell_live, pos_needed, _ = occupancy
+    ep, eq = exit_tile if exit_tile is not None else (Pb, Qb)
+
+    x0, x1 = xr
+    y0, y1 = yr
+    pf = torch.arange(Pn, dtype=F32, device=dev)
+    qf = torch.arange(Qn, dtype=F32, device=dev)
+    xs = (x0 + pf * _div(x1 - x0, Pn - 1))[:, None].expand(Pn, Qn)
+    ys = (y0 + qf * _div(y1 - y0, Qn - 1))[None, :].expand(Pn, Qn)
+    nm = torch.sqrt(1.0 + xs * xs + ys * ys)
+    comp = [None, None, None]
+    comp[u_ax] = xs / nm
+    comp[v_ax] = ys / nm
+    comp[statics.axis] = g / nm
+    yb = _ybasis_rows(comp[0], comp[1], comp[2], nc)
+
+    def blocks(flags):  # [PB, QB] -> [Pn, Qn]
+        return flags.repeat_interleave(Pb, 0).repeat_interleave(Qb, 1)
+
+    zeros = torch.zeros((Pn, Qn), dtype=F32, device=dev)
+    T = torch.ones((Pn, Qn), dtype=F32, device=dev)
+    col = [zeros] * 3
+    dif = [zeros] * 3
+    acc = dep = zeros
+    prev_sig = prev_live = zeros
+    prev_rgb = [zeros] * 3
+    prev_dif = [zeros] * 3
+    marched = []
+    slices_u = slices[:, :, :used, :]
+    for j in range(NP):
+        work = blocks(pos_needed[:, :, j] > 0)
+        if statics.exit_eps > 0.0:
+            tmax = T.reshape(Pn // ep, ep, Qn // eq, eq).amax(dim=(1, 3))
+            running = tmax > statics.exit_eps
+            work = work & running.repeat_interleave(ep, 0).repeat_interleave(eq, 1)
+        if return_work:
+            marched.append(work)
+        s_j, cell_step, bu, ku, bv, kv = geom[j, :6]
+        U = bu + ku * pf  # [Pn]
+        V = bv + kv * qf  # [Qn]
+        live = (((U >= -0.5) & (U <= nu - 0.5) & (s_j > 0.0))[:, None]
+                & ((V >= -0.5) & (V <= nv - 0.5))[None, :]).to(F32)
+
+        ia = min(j // P, nvert - 1)
+        sl = slices_u[ia].to(F32)  # [nu, used, nv]
+        if P > 1:
+            f = (j % P) * (1.0 / P)
+            ib = min(j // P + 1, nvert - 1)
+            sl = _bf16r((1.0 - f) * sl + f * slices_u[ib].to(F32))
+        u0, u1, wu0, wu1 = _tent_taps(U, nu)
+        t1 = _bf16r(wu0[:, None, None] * sl[u0] + wu1[:, None, None] * sl[u1])
+        v0, v1, wv0, wv1 = _tent_taps(V, nv)
+        val = wv0 * t1[:, :, v0] + wv1 * t1[:, :, v1]  # [Pn, used, Qn]
+        val = val.permute(1, 0, 2)
+
+        sig = val[3 * nc]
+        rgb = []
+        for c in range(3):
+            a = yb[0] * val[c * nc]
+            for k in range(1, nc):
+                a = a + yb[k] * val[c * nc + k]
+            rgb.append(a)
+        dif_j = [yb[0] * val[c * nc] for c in range(3)]
+
+        if j > 0:
+            upd = work & blocks(cell_live[:, :, j] > 0)
+            integ, tbar, _, _ = relu_trap_plain(prev_sig, sig, statics.relu_sigma)
+            integ = integ * (prev_live * live)
+            delta = cell_step * nm
+            alpha = 1.0 - torch.exp(-integ * delta)
+            w = alpha * T
+            s_mid = (s_j - cell_step + tbar * cell_step) * nm
+            tb1 = 1.0 - tbar
+            col = [torch.where(upd, col[c] + torch.sigmoid(
+                tb1 * prev_rgb[c] + tbar * rgb[c]) * w, col[c]) for c in range(3)]
+            acc = torch.where(upd, acc + w, acc)
+            dep = torch.where(upd, dep + w * s_mid, dep)
+            if statics.with_diffuse:
+                dif = [torch.where(upd, dif[c] + torch.sigmoid(
+                    tb1 * prev_dif[c] + tbar * dif_j[c]) * w, dif[c])
+                    for c in range(3)]
+            T = torch.where(upd, T * (1.0 - alpha), T)
+
+        prev_sig = torch.where(work, sig, prev_sig)
+        prev_rgb = [torch.where(work, rgb[c], prev_rgb[c]) for c in range(3)]
+        prev_dif = [torch.where(work, dif_j[c], prev_dif[c]) for c in range(3)]
+        prev_live = torch.where(work, live, prev_live)
+
+    rows = [T, *col, acc, dep] + (dif if statics.with_diffuse else [])
+    state = torch.stack(rows, dim=0)
+    return (state, torch.stack(marched)) if return_work else state
+
+
+def _composite_lib():
+    lib = kernels.load("composite_fused")
+    fn = lib.composite_fused_launch
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 18
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
+                              PB, Pb, occupancy, xr=None, yr=None):
+    """The fused composite: vertex slices in, composited state [SROWS, Pn, Qn]
+    f32 out. On a CUDA tensor one launch of csrc/composite_fused.cu; on a CPU
+    tensor ``composite_positions_fused_plain``.
+
+    ``slices`` [nvert, nu, C, nv] bf16 must have channel-last storage (as
+    ``repack_position_slices`` returns it); occupancy = (cell_live,
+    pos_needed, pos_any) from ``gnomonic_occupancy_lite``. The kernel exits
+    early per ``CUDA_EXIT_TILE`` texel tile."""
+    if slices.device.type == "cpu":
+        return composite_positions_fused_plain(
+            slices, ybasis, norm, geom, statics, Pn, Qn, PB, Pb, occupancy,
+            xr=xr, yr=yr,
+        )
+    if ybasis is not None or norm is not None or xr is None or yr is None:
+        raise NotImplementedError(
+            "materialized SH-basis operands belong to the training step, not "
+            "ported yet (ROADMAP.md, 'Modules to port', item 5); pass xr/yr"
+        )
+    if slices.device.type != "cuda":
+        raise ValueError(f"composite_positions_fused: unsupported device {slices.device}")
+    dev = slices.device
+    nvert, nu, C, nv = slices.shape
+    NP = _num_positions(statics)
+    QB, Qb = _qb_blocks(statics, Qn)
+    vert = slices.permute(0, 1, 3, 2)  # [nvert, nu, nv, C]
+    if slices.dtype != torch.bfloat16 or not vert.is_contiguous():
+        raise ValueError(
+            "composite_positions_fused: bf16 slices with channel-last storage "
+            "required (repack_position_slices returns them so)"
+        )
+    if C != _padded_channels(statics) or vert.data_ptr() % 16 != 0:
+        raise ValueError("composite_positions_fused: slices channels/alignment")
+    TP, TQ = CUDA_EXIT_TILE
+    if PB * Pb != Pn or QB * Qb != Qn or Pb % TP or Qb % TQ:
+        raise ValueError(f"composite_positions_fused: frame {Pn}x{Qn} blocks {Pb}x{Qb}")
+    cell_live, pos_needed, _ = occupancy
+    flags = []
+    for fl in (cell_live, pos_needed):
+        if fl.shape != (PB, QB, NP) or fl.device != dev:
+            raise ValueError(f"composite_positions_fused: flags {tuple(fl.shape)}")
+        flags.append(fl.to(torch.int32).contiguous())
+    if geom.shape != (NP, 8) or geom.device != dev:
+        raise ValueError(f"composite_positions_fused: geom {tuple(geom.shape)}")
+    geom = geom.to(F32).contiguous()
+    (x0, x1), (y0, y1) = xr, yr
+    zero = torch.zeros((), dtype=F32, device=dev)
+    fs = torch.stack([x0, _div(x1 - x0, Pn - 1), y0, _div(y1 - y0, Qn - 1),
+                      zero, zero, zero, zero]).to(F32).contiguous()
+    out = torch.empty((_sprows(statics.with_diffuse), Pn, Qn), dtype=F32, device=dev)
+    u_ax, v_ax = _uv_axes(statics.axis)
+    fn = _composite_lib()
+    err = fn(
+        vert.data_ptr(), geom.data_ptr(), flags[0].data_ptr(),
+        flags[1].data_ptr(), fs.data_ptr(), out.data_ptr(),
+        statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
+        NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, PB, QB,
+        u_ax, v_ax, statics.axis,
+        -1.0 if statics.flip else 1.0, float(statics.exit_eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "composite_fused")
+    composite_positions_fused.launches += 1
+    return out
+
+
+composite_positions_fused.launches = 0
+
+
+# ------------------------------------------------------------------ pipeline
+
+
+DEFAULT_SUPERSAMPLE = 1.25
+
+# texel-density floor: the warp's reconstruction error on voxel-sharp content
+# is set by texels per voxel, not texels per pixel; the floor engages only when
+# the image is small relative to the grid, capped to bound the texel cost
+_TEXELS_PER_VOXEL_FLOOR = 2.5
+_SUPERSAMPLE_CAP = 4.0
+
+
+def effective_supersample(config_ss: float, statics: GnomonicStatics,
+                          height: int, width: int) -> float:
+    u_ax, v_ax = _uv_axes(statics.axis)
+    nmax = max(statics.dims[u_ax], statics.dims[v_ax])
+    floor = _TEXELS_PER_VOXEL_FLOOR * nmax / max(1, min(height, width))
+    return float(max(config_ss, min(_SUPERSAMPLE_CAP, floor)))
+
+
+def _finalize_warped(out, dnorm, statics: GnomonicStatics, white_bkgd: bool):
+    """Post-warp channel unpacking: colour, acc, depth (, diffuse)."""
+    colour = out[..., 0:3]
+    acc = out[..., 3:4]
+    depth = out[..., 4:5] / dnorm
+    if white_bkgd:
+        colour = colour + (1.0 - acc)
+    disparity = 1.0 / torch.clamp_min(depth / torch.clamp_min(acc, ZERO_PLUS),
+                                      ZERO_PLUS)
+    extra = {
+        EXTRA_DISPARITY: disparity,
+        EXTRA_ACCUMULATED_WEIGHTS: acc,
+    }
+    if statics.with_diffuse:
+        diffuse = out[..., 5:8]
+        if white_bkgd:
+            diffuse = diffuse + (1.0 - acc)
+        extra[EXTRA_DIFFUSE_COLOUR] = diffuse
+    return RenderOut(colour=colour, depth=depth, extra=extra)
+
+
+def _warp_to_camera(state, xr, yr, rotation, statics: GnomonicStatics,
+                    height: int, width: int, focal, supersample: float,
+                    white_bkgd: bool, warp_order: int = 3,
+                    warp_impl: str = "matmul", warp_swap: bool = False,
+                    plain: bool = False) -> RenderOut:
+    """Resample the composited state [SROWS, Pn, Qn] to the camera's pixels."""
+    if warp_impl != "matmul":
+        raise NotImplementedError(
+            f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "
+            "not ported yet (ROADMAP.md, 'Later slices': the gather warp)"
+        )
+    from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_state_matmul
+
+    Pn, Qn, _PB, _Pb = gnomonic_frame(None, height, width, focal, supersample,
+                                      statics)
+    out = warp_state_matmul(state, xr, yr, rotation, statics, height, width,
+                            focal, Pn, Qn, int(warp_order), bool(warp_swap),
+                            plain=plain)
+    # |R @ dirs_cam| = |dirs_cam| (R orthonormal) — no pixel-dir field
+    dev = state.device
+    px = torch.arange(width, dtype=F32, device=dev) + 0.5
+    py = torch.arange(height, dtype=F32, device=dev) + 0.5
+    cx = (px[None, :] - width / 2) / focal
+    cy = -(py[:, None] - height / 2) / focal
+    dnorm = torch.sqrt(1.0 + cx * cx + cy * cy)[..., None]
+    return _finalize_warped(out, dnorm, statics, white_bkgd)
+
+
+def _strict_f32() -> None:
+    """True f32 on the geometry, occupancy and warp paths: TF32 keeps ~3
+    decimal digits, which quantizes texel positions and caps image quality."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _variant_statics(voxel_grid, axis, flip, config) -> GnomonicStatics:
+    want_diffuse = bool(getattr(config, "also_render_diffuse", False)
+                        or getattr(config, "render_diffuse", False))
+    return statics_for_grid(
+        voxel_grid, axis, flip,
+        with_diffuse=want_diffuse,
+        pos_per_cell=getattr(config, "gnomonic_pos_per_cell", 0),
+        exit_eps=float(getattr(config, "gnomonic_exit_eps", 0.0)),
+        qb=int(getattr(config, "gnomonic_qb", 128)),
+    )
+
+
+def _cached_slices(voxel_grid, statics, cache):
+    """The variant's vertex slices, from ``cache`` while the grid's tensors are
+    unchanged (same storage, same version counter)."""
+    stamp = tuple((t.data_ptr(), t._version)
+                  for t in (voxel_grid.densities, voxel_grid.features))
+    key = ("gnomonic", statics.axis, statics.flip, statics.pos_per_cell)
+    if cache is not None:
+        entry = cache.get(key)
+        if entry is not None and entry[0] == stamp:
+            return entry[1]
+    slices = repack_position_slices(voxel_grid, statics)
+    if cache is not None:
+        cache[key] = (stamp, slices)
+    return slices
+
+
+@torch.no_grad()
+def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
+                          config, cache: Optional[dict] = None,
+                          plain: bool = False) -> RenderOut:
+    """Full-image render of one pose through the gnomonic pipeline, on the
+    grid's device. Outputs are [H, W, .]. ``plain`` runs the kernels' plain
+    PyTorch versions instead (a reference for checking the kernels on the
+    card); ``cache`` keeps each march variant's vertex slices."""
+    from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_swap_for_pose
+
+    _strict_f32()
+    rotation = np.asarray(camera_pose.rotation, np.float32).reshape(3, 3)
+    origin = np.asarray(camera_pose.translation, np.float32).reshape(3)
+    axis, flip = dominant_axis_for_pose(rotation)
+    statics = _variant_statics(voxel_grid, axis, flip, config)
+    slices = _cached_slices(voxel_grid, statics, cache)
+
+    dev = voxel_grid.device
+    height, width = int(camera_intrinsics.height), int(camera_intrinsics.width)
+    focal_f = float(camera_intrinsics.focal)
+    supersample = effective_supersample(
+        float(getattr(config, "gnomonic_supersample", DEFAULT_SUPERSAMPLE)),
+        statics, height, width,
+    )
+    rot = torch.as_tensor(rotation).to(dev)
+    focal = torch.tensor(focal_f, dtype=F32, device=dev)
+    Pn, Qn, PB, Pb = gnomonic_frame(None, height, width, focal_f, supersample,
+                                    statics)
+    QB, Qb = _qb_blocks(statics, Qn)
+    geo = gnomonic_geometry(rot, torch.as_tensor(origin).to(dev), statics,
+                            height, width, focal, supersample)
+    occupancy = gnomonic_occupancy_lite(slices, geo.geom, statics, Pn, Qn, PB,
+                                        Pb, QB, Qb)
+    composite = composite_positions_fused_plain if plain else composite_positions_fused
+    state = composite(slices, None, None, geo.geom, statics, Pn, Qn, PB, Pb,
+                      occupancy, xr=geo.xr, yr=geo.yr)
+    warp_impl = str(getattr(config, "gnomonic_warp_impl", "auto"))
+    swap = warp_swap_for_pose(rotation, axis, flip, height, width, focal_f)
+    return _warp_to_camera(
+        state, geo.xr, geo.yr, rot, statics, height, width, focal, supersample,
+        bool(config.white_bkgd),
+        warp_order=int(getattr(config, "gnomonic_warp_order", 3)),
+        warp_impl="matmul" if warp_impl == "auto" else warp_impl,
+        warp_swap=swap, plain=plain,
+    )
+
+
+@torch.no_grad()
+def render_poses_gnomonic(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics,
+                          config, cache: Optional[dict] = None,
+                          plain: bool = False) -> RenderOut:
+    """Render a sequence of poses; every output gains a leading pose axis.
+    Poses of one march variant share one repack of the grid."""
+    cache = {} if cache is None else cache
+    outs = [render_image_gnomonic(voxel_grid, pose, camera_intrinsics, config,
+                                  cache=cache, plain=plain)
+            for pose in camera_poses]
+    return RenderOut(
+        colour=torch.stack([o.colour for o in outs]),
+        depth=torch.stack([o.depth for o in outs]),
+        extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
+    )
+
+
+class _GnomonicProcedure:
+    """RENDER_PROCEDURES entry: the gnomonic renderer is pose-structured, so
+    VolumetricModel renders whole poses through ``render_image`` /
+    ``render_poses``."""
+
+    render_image = staticmethod(render_image_gnomonic)
+    render_poses = staticmethod(render_poses_gnomonic)
+
+    def __call__(self, voxel_grid, rays, render_config, key=None, prepared=None):
+        raise NotImplementedError(
+            "flat ray batches go to the fast two-phase renderer, not ported yet "
+            "(ROADMAP.md, 'Modules to port', item 8)"
+        )
+
+
+render_sh_voxel_grid_gnomonic = _GnomonicProcedure()
