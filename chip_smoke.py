@@ -2,17 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from thr3ed_atom_tpu_torch/csrc with nvcc,
-holds each against its plain PyTorch version on the card at the serving
-path's shapes (the composite also on an opaque copy of the scene, where its
-early exit must end tiles), then drives the serving path through the entry
-points a user calls: a 128^3 SH-degree-2 model (random blob scene from a seed,
-bench.py's configuration) saved with save_model, loaded with
-create_volumetric_model_from_saved_model and rendered with render_poses at
-400 x 400 (P = 2, qb = 128, exit_eps = 1e-4, Catmull-Rom matmul warp). The
-launch counts of that run show it went through the kernels; its images are
-held against the same render through the plain versions. One more pass under
-torch.profiler prints the device time per pose and the device's busy share.
+Builds the port's CUDA kernels from thr3ed_atom_tpu_torch/csrc with nvcc (one
+nvcc per source, all at once) and holds each against its plain PyTorch
+version on the card at the main paths' shapes:
+  1-4. the build, relu_trap (K1a), the warp resample (K2) and the fused
+       composite (K1; also on an opaque copy of the scene, where its early
+       exit must end tiles);
+  5.   the serving path through the entry points a user calls: a 128^3
+       SH-degree-2 model (random blob scene from a seed, bench.py's
+       configuration) saved with save_model, loaded with
+       create_volumetric_model_from_saved_model and rendered with
+       render_poses at 400 x 400 (P = 2, qb = 128, exit_eps = 1e-4,
+       Catmull-Rom matmul warp), held against the same render through the
+       plain versions;
+  6.   the warp adjoint (K4);
+  7.   K1's training branch (materialized SH basis and norm) and the replay
+       backward (K3) on one pose with a seeded state cotangent;
+  8.   the training path, bench_train.py's configuration: 10
+       gnomonic_train_step_multi steps of 4 views (400 x 400, P = 2, diffuse
+       regularization, Adam lr 0.03, phase jitter) on a 128^3 grid started at
+       uniform(-1, 1), towards views rendered in phase 5; the loss must fall
+       and the first step's gradient must match the plain versions' step.
+The launch counts of phases 5 and 8, each reset just before its run, show the
+paths went through the kernels; one more pass of each under torch.profiler
+prints the device time and the device's busy share.
 
 Prints the card's name and power limit first, one JSON line of per-kernel
 results before the last line, and as the last line
@@ -39,17 +52,19 @@ GRID_SIZE, IMAGE_SIZE, NUM_POSES = 128, 400, 8
 def load_port():
     """Import the port's modules (the repository root must be on sys.path)."""
     from thr3ed_atom_tpu_torch import kernels
-    from thr3ed_atom_tpu_torch.models.voxels import voxel_grid_from_numpy
+    from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid, voxel_grid_from_numpy
+    from thr3ed_atom_tpu_torch.modules import trainer
     from thr3ed_atom_tpu_torch.modules import volumetric_model as vm
     from thr3ed_atom_tpu_torch.ops import relu_trap as rt
     from thr3ed_atom_tpu_torch.rendering import gnomonic as gn
+    from thr3ed_atom_tpu_torch.rendering import gnomonic_train as gt
     from thr3ed_atom_tpu_torch.rendering import warp_matmul as wm
     from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
     from thr3ed_atom_tpu_torch.utils import camera
 
     return dict(kernels=kernels, voxel_grid_from_numpy=voxel_grid_from_numpy,
-                vm=vm, rt=rt, gn=gn, wm=wm, Config=SHVoxGridRenderConfig,
-                camera=camera)
+                VoxelGrid=VoxelGrid, vm=vm, rt=rt, gn=gn, gt=gt, wm=wm,
+                trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera)
 
 
 def check(cond, msg):
@@ -139,6 +154,11 @@ def composite_records(torch, work, geom, nvert, nu, nv, P):
         if P > 1 and j % P:
             need[min(j // P + 1, nvert - 1)] |= hit
     return int(need.sum())
+
+
+def cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
 
 
 def resample_sources(torch, pos, order, K):
@@ -408,6 +428,253 @@ def main() -> int:
           f"depth max-abs {max_abs(out.depth, ref.depth):.3g}", flush=True)
     check(psnr >= 60.0, f"serving render vs plain PSNR {psnr:.2f} dB < 60")
 
+    # ---- phase 6: resample_rows_adjoint (K4) vs plain at [512, 3, 8, 512] -> [512, 8, 512]
+    dY3 = torch.randn(NB, 3, CH, N, generator=gen, device=dev)
+    dY1 = dY3[:, 0].contiguous()
+    adj_err = 0.0
+    for order in (1, 3):
+        p_o = pos.clamp(*wm._clip_range(order, K)).contiguous()
+        for taps in (False, True):
+            dY = dY3 if taps else dY1
+            got = wm.resample_rows_adjoint(dY, p_o, order, K, taps)
+            torch.cuda.synchronize()
+            want = wm.resample_rows_adjoint_plain(dY, p_o, order, K, taps)
+            # shared-memory atomics add in a varying order: f32 round-off
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+            adj_err = max(adj_err, max_abs(got, want))
+    adj_ms = time_ms(torch, lambda: wm.resample_rows_adjoint(dY3, p3, 3, K, True), 50)
+    adj_plain_ms = time_ms(torch, lambda: wm.resample_rows_adjoint_plain(dY3, p3, 3, K, True), 10)
+    # the library yardstick of the bilinear pass without taps: grid_sample's
+    # input gradient at the same positions (never used by the port)
+    g4 = dY1[:, :, None, :]
+    lib_adj = torch.ops.aten.grid_sampler_2d_backward(
+        g4, X4, gxy[:, None], 0, 0, True, [True, False])[0]
+    k4o = wm.resample_rows_adjoint(dY1, p1, 1, K)
+    adj_bil_ms = time_ms(torch, lambda: wm.resample_rows_adjoint(dY1, p1, 1, K), 50)
+    adj_lib_ms = time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+        g4, X4, gxy[:, None], 0, 0, True, [True, False]), 50)
+    print(f"# K4 resample_rows_adjoint: [{NB},3,{CH},{N}] -> [{NB},{CH},{K}] max_abs={adj_err:.3g} "
+          f"ms={adj_ms:.4f} plain_ms={adj_plain_ms:.4f}; order 1 without taps: kernel "
+          f"ms={adj_bil_ms:.4f}, grid_sample input gradient ms={adj_lib_ms:.4f} (max-abs "
+          f"{max_abs(k4o, lib_adj[:, :, 0]):.3g}: grid_sample renormalizes positions)", flush=True)
+    # bytes: the cotangent read, the positions, dX written. ops: the four
+    # weights (~40) and per channel 4 weighted taps (mul, add) + 2 tap adds
+    results["resample_rows_adjoint"] = dict(
+        err=adj_err, ms=adj_ms, plain_ms=adj_plain_ms,
+        bound=bound(4 * (NB * 3 * CH * N + NB * N + NB * CH * K),
+                    NB * N * (40 + CH * (4 * 2 + 2))),
+        extra=dict(order1_ms=adj_bil_ms, order1_library_ms=adj_lib_ms),
+    )
+    results["resample_rows"]["extra"] = dict(order1_ms=bil_ms, order1_library_ms=lib_ms)
+    del dY3, dY1, got, want
+
+    # ---- phase 7: the composite's training branch (K1, ybasis / norm
+    # operands) and its replay backward (K3) vs plain, one pose, diffuse on
+    gt, trainer = port["gt"], port["trainer"]
+    swap0 = wm.warp_swap_for_pose(rot0, axis, flip, IMAGE_SIZE, IMAGE_SIZE, intr.focal)
+    tstat = gt.make_gnomonic_train_statics(
+        grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+        white_bkgd=True, apply_diffuse_render_regularization=True, warp_swap=swap0)
+    stt = tstat.statics
+    Pn_t, Qn_t, PB_t, Pb_t = tstat.frame
+    slices_t = gn.repack_position_slices(grid, stt)
+    geo_t = gn.gnomonic_geometry(
+        torch.as_tensor(rot0, device=dev), torch.as_tensor(org0, device=dev), stt,
+        IMAGE_SIZE, IMAGE_SIZE, torch.tensor(intr.focal, dtype=torch.float32, device=dev),
+        tstat.supersample, phase=(0.25, -0.125), skip_basis=False)
+    occ_t = gn.gnomonic_occupancy_lite(slices_t, geo_t.geom, stt, Pn_t, Qn_t, PB_t, Pb_t,
+                                       *gn._qb_blocks(stt, Qn_t))
+    args7 = (slices_t, geo_t.ybasis, geo_t.norm, geo_t.geom, stt, Pn_t, Qn_t, PB_t, Pb_t, occ_t)
+    state_k = gn.composite_positions_fused(*args7)
+    torch.cuda.synchronize()
+    state_p, work_t = gn.composite_positions_fused_plain(*args7, return_work=True)
+    gap = (state_k - state_p).abs().amax(dim=(1, 2)).tolist()
+    check(max(gap[:5] + gap[6:]) <= 1e-4 and gap[5] <= 1e-3,
+          f"composite training branch vs plain: per-row max-abs {gap}")
+    k1op_ms = time_ms(torch, lambda: gn.composite_positions_fused(*args7), 20)
+    k1op_plain_ms = time_ms(torch, lambda: gn.composite_positions_fused_plain(*args7), 2)
+    nc_t, used_t = stt.ncoeff, 3 * stt.ncoeff + 1
+    NP_t = gn._num_positions(stt)
+    n_work_t = int(work_t.sum())
+    n_rec_t = composite_records(torch, work_t, geo_t.geom, nvert, nu, nv, stt.pos_per_cell)
+    # texels of the (u-block, q-block) tiles with a live cell / a needed
+    # position: only those need the basis, norm and cotangent operands
+    _, Qb_t = gn._qb_blocks(stt, Qn_t)
+    live_texels = int(occ_t[0].any(-1).sum()) * Pb_t * Qb_t
+    needed_texels = int(occ_t[1].any(-1).sum()) * Pb_t * Qb_t
+    # as K1's bound, plus the basis and norm operands read
+    k1op_bytes = (n_rec_t * used_t * 2 + NP_t * 8 * 4 + 2 * PB_t * Qn_t // 128 * NP_t * 4
+                  + (nc_t + 1) * live_texels * 4 + 9 * Pn_t * Qn_t * 4)
+    k1op_ops = n_work_t * (used_t * 8 + used_t * 4 + 3 * nc_t * 2)
+    print(f"# K1 composite, training branch (diffuse, phase-shifted frame {Pn_t}x{Qn_t}): "
+          f"max-abs per row {gap}; ms={k1op_ms:.4f} plain_ms={k1op_plain_ms:.4f}; "
+          f"{n_work_t} marched pairs, {n_rec_t} vertex records; operand texels "
+          f"{live_texels} live / {needed_texels} needed of {Pn_t * Qn_t}", flush=True)
+
+    gstate = torch.randn(state_p.shape, generator=gen, device=dev)
+    S_total = (gstate[1:] * state_p[1:]).sum(0)
+    gaux = torch.cat([gstate, S_total[None], state_p[0:1]])
+    args3 = args7[:4] + (gaux, occ_t) + args7[4:9]
+    got3 = gt.composite_backward_fused(*args3)
+    torch.cuda.synchronize()
+    want3 = gt.composite_backward_fused_plain(*args3)
+    k3_err = max_abs(got3.float(), want3.float())
+    k3_scale = float(want3.float().abs().max())
+    k3_cos = cosine(got3.float(), want3.float())
+    check(k3_scale > 0.0 and k3_err <= 1e-2 * k3_scale and k3_cos > 0.99999,
+          f"composite backward vs plain: max-abs {k3_err} (scale {k3_scale}), cosine {k3_cos}")
+    check(not bool(got3[:, :, used_t:].any()), "composite backward wrote pad channels")
+    k3_ms = time_ms(torch, lambda: gt.composite_backward_fused(*args3), 10)
+    k3_plain_ms = time_ms(torch, lambda: gt.composite_backward_fused_plain(*args3), 1)
+    _, n_slots = gt.dvals_slots(occ_t[1])
+    dvals_bytes = n_slots * used_t * Pb_t * 128 * 2
+    dsl_bytes = got3.numel() * 2
+    live_rows = int(occ_t[2].sum()) * Pb_t  # (position, texel row) pairs the u-fold reads
+    # bytes: the vertex records the replayed pairs read, geometry, flags, the
+    # basis, norm and cotangent operands of the tiles with a needed position,
+    # the dslices written. ops: the
+    # replay (as K1), ~120 per pair for the cell's backward, the v-fold (2
+    # taps x mul+add per channel) per pair and the u-fold per live row
+    k3_bytes = (n_rec_t * used_t * 2 + NP_t * 8 * 4 + 2 * PB_t * Qn_t // 128 * NP_t * 4
+                + (nc_t + 1 + gaux.shape[0]) * needed_texels * 4 + dsl_bytes)
+    k3_ops = (n_work_t * (used_t * 8 + used_t * 4 + 3 * nc_t * 2 + 120 + used_t * 4)
+              + live_rows * used_t * nv * 4)
+    print(f"# K3 composite_backward_fused: max-abs {k3_err:.3g} of {k3_scale:.3g}, cosine "
+          f"{k3_cos:.9f}; ms={k3_ms:.4f} plain_ms={k3_plain_ms:.4f}; cotangent buffer "
+          f"{n_slots} slots = {dvals_bytes} bytes, dslices {dsl_bytes} bytes", flush=True)
+    results["composite_fused"]["extra"] = dict(
+        training_branch_ms=k1op_ms, training_branch_plain_ms=k1op_plain_ms,
+        training_branch_bound_ms=bound(k1op_bytes, k1op_ops)[0],
+        training_branch_max_abs_err=max(gap))
+    results["composite_backward_fused"] = dict(
+        err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound(k3_bytes, k3_ops),
+        extra=dict(cosine_vs_plain=k3_cos, dvals_bytes=dvals_bytes, dslices_bytes=dsl_bytes))
+    del args3, args7, got3, want3, state_k, state_p, work_t, gstate, gaux, slices_t, geo_t, occ_t
+
+    # ---- phase 8: training end to end. Targets: 8 views of one march
+    # variant rendered by the serving path; the grid starts at uniform(-1, 1)
+    # (the trainer's init); 10 gnomonic_train_step_multi steps of k = 4 views
+    # with Adam at lr 0.03 and phase jitter, the first step also through the
+    # plain versions
+    rng = np.random.default_rng(0)
+    buckets = {}
+    for _ in range(96):
+        pose = camera.pose_spherical(rng.uniform(0, 360), rng.uniform(-90, 0), 4.0)
+        R = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+        ax, fl = gn.dominant_axis_for_pose(R)
+        key = (ax, fl, wm.warp_swap_for_pose(R, ax, fl, IMAGE_SIZE, IMAGE_SIZE, intr.focal))
+        buckets.setdefault(key, []).append(pose)
+    (ax, fl, sw), views = max(buckets.items(), key=lambda kv: len(kv[1]))
+    check(len(views) >= 8, f"largest march variant has {len(views)} views")
+    views = views[:8]
+    targets = model.render_poses(views, intr).colour.contiguous()  # [8, H, W, 3]
+    rots = np.stack([np.asarray(v.rotation, np.float32).reshape(3, 3) for v in views])
+    orgs = np.stack([np.asarray(v.translation, np.float32).reshape(3) for v in views])
+    k_views, n_steps = trainer._GN_MIN_POSES_PER_STEP, 10
+    picks = [rng.choice(8, k_views, replace=False) for _ in range(n_steps)]
+    phase_gen = torch.Generator(device=dev).manual_seed(11)
+    phases = [[gt.draw_phase(phase_gen) for _ in range(k_views)] for _ in range(n_steps)]
+    del model, out, ref
+
+    def init_grid():
+        g = torch.Generator(device=dev).manual_seed(7)
+        shape = (GRID_SIZE,) * 3
+        return port["VoxelGrid"](
+            torch.rand(shape + (1,), generator=g, device=dev) * 2.0 - 1.0,
+            torch.rand(shape + (27,), generator=g, device=dev) * 2.0 - 1.0,
+            voxel_size=grid_config["voxel_size"], grid_location=grid_config["grid_location"],
+            density_preactivation="identity", density_postactivation="relu")
+
+    def train_step(g, opt, sched, i, plain=False):
+        idx = picks[i]
+        return gt.gnomonic_train_step_multi(
+            tstat8, opt, g, targets[idx], rots[idx], orgs[idx], intr.focal,
+            phases=phases[i], scheduler=sched, plain=plain)
+
+    g_plain = init_grid()
+    tstat8 = gt.make_gnomonic_train_statics(
+        g_plain, ax, fl, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+        apply_diffuse_render_regularization=True, warp_swap=sw)
+    opt_p, sched_p = trainer.make_gnomonic_optimizer(g_plain, 0.03)
+    t0 = time.perf_counter()
+    m_plain = train_step(g_plain, opt_p, sched_p, 0, plain=True)
+    torch.cuda.synchronize()
+    plain_step_ms = (time.perf_counter() - t0) * 1e3
+    ref_grads = (g_plain.densities.grad.clone(), g_plain.features.grad.clone())
+    del g_plain, opt_p, sched_p
+
+    g_k = init_grid()
+    opt, sched = trainer.make_gnomonic_optimizer(g_k, 0.03)
+    # the replay backward's cotangent buffer on this (dense) starting grid
+    with torch.no_grad():
+        st8 = tstat8.statics
+        sl8 = gn.repack_position_slices(g_k, st8)
+        geo8 = gn.gnomonic_geometry(
+            torch.as_tensor(rots[picks[0][0]], device=dev),
+            torch.as_tensor(orgs[picks[0][0]], device=dev), st8, IMAGE_SIZE, IMAGE_SIZE,
+            torch.tensor(intr.focal, dtype=torch.float32, device=dev), tstat8.supersample)
+        occ8 = gn.gnomonic_occupancy_lite(sl8, geo8.geom, st8, *tstat8.frame,
+                                          *gn._qb_blocks(st8, tstat8.frame[1]))
+        _, slots8 = gt.dvals_slots(occ8[1])
+    print(f"# training grid: cotangent buffer {slots8} of {occ8[1].numel()} slots = "
+          f"{slots8 * (3 * st8.ncoeff + 1) * tstat8.frame[3] * 128 * 2} bytes", flush=True)
+    del sl8, geo8, occ8
+    train_counters = {"composite_fused": gn.composite_positions_fused,
+                      "composite_backward_fused": gt.composite_backward_fused,
+                      "resample_rows": wm.resample_rows,
+                      "resample_rows_adjoint": wm.resample_rows_adjoint}
+    torch.cuda.reset_peak_memory_stats()
+    for c in train_counters.values():
+        c.launches = 0
+    losses, step_ms, grad_cos = [], [], None
+    for i in range(n_steps):
+        t0 = time.perf_counter()
+        m = train_step(g_k, opt, sched, i)
+        losses.append(float(m["total_loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        grads = (g_k.densities.grad, g_k.features.grad)
+        check(all(bool(torch.isfinite(x).all()) for x in grads) and np.isfinite(losses[-1]),
+              f"step {i}: non-finite loss or gradient")
+        if i == 0:
+            grad_cos = [cosine(a, b) for a, b in zip(grads, ref_grads)]
+            check(min(grad_cos) > 0.99999 and abs(losses[0] - float(m_plain["total_loss"]))
+                  <= 1e-5 * losses[0],
+                  f"first step kernels vs plain: gradient cosines {grad_cos}, loss "
+                  f"{losses[0]} vs {float(m_plain['total_loss'])}")
+    train_launches = {name: c.launches for name, c in train_counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(v > 0 for v in train_launches.values()), f"a kernel was not launched: {train_launches}")
+    per_step = {name: v / n_steps for name, v in train_launches.items()}
+    check(per_step == {"composite_fused": k_views, "composite_backward_fused": k_views,
+                       "resample_rows": 2 * k_views, "resample_rows_adjoint": 2 * k_views},
+          f"launches per step {per_step}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    ms_per_step = float(np.mean(step_ms[1:]))
+    print(f"# training: 128^3 grid from uniform(-1, 1), {IMAGE_SIZE}x{IMAGE_SIZE}, k={k_views} "
+          f"views of variant {(ax, fl, sw)}, P={tstat8.statics.pos_per_cell}, frame "
+          f"{tstat8.frame}, Adam lr 0.03, jitter on; losses {[round(x, 5) for x in losses]}; "
+          f"first-step gradient cosine vs plain (densities, features) {grad_cos}; "
+          f"plain step {plain_step_ms:.1f} ms; {ms_per_step:.3f} ms/step over steps 2-{n_steps} "
+          f"(host clock, synchronized; step 1 {step_ms[0]:.1f} ms); launches per step "
+          f"{per_step}; peak memory {peak_gb:.2f} GB", flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            train_step(g_k, opt, sched, i)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / 2
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    train_dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / 2
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"# training profile: device {train_dev_ms:.4f} ms/step summed over kernels, "
+          f"{prof_ms:.3f} ms/step under the profiler, busy share {train_dev_ms / prof_ms:.3f} "
+          f"(of the profiled wall time), {sum(e.count for e in dev_events) / 2:.1f} device "
+          f"launches/step; top: "
+          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / 2:.4f} ms/step"
+                      for e in top), flush=True)
+
     rows = []
     meta = {
         "composite_fused": ("cuda", "thr3ed_atom_tpu_torch/csrc/composite_fused.cu",
@@ -416,18 +683,32 @@ def main() -> int:
                       "thr3ed_atom_tpu/ops/pallas/plane_march.py:83"),
         "resample_rows": ("cuda", "thr3ed_atom_tpu_torch/csrc/resample_rows.cu",
                           "thr3ed_atom_tpu/rendering/warp_matmul.py:206"),
+        "composite_backward_fused": (
+            "cuda", "thr3ed_atom_tpu_torch/csrc/composite_backward_fused.cu",
+            "thr3ed_atom_tpu/rendering/gnomonic_train.py:966"),
+        "resample_rows_adjoint": ("cuda", "thr3ed_atom_tpu_torch/csrc/resample_rows_adjoint.cu",
+                                  "thr3ed_atom_tpu/rendering/warp_matmul.py:206"),
     }
+    # launches: the training run's counts (phase 8, 10 steps); the serving
+    # run's (phase 5) stand beside them for the kernels it launches
+    # relu_trap (K1a) is a device function of both composite kernels
+    train_launches["relu_trap"] = (train_launches["composite_fused"]
+                                   + train_launches["composite_backward_fused"])
     for name, r in results.items():
         route, source, replaces = meta[name]
         rows.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
+            launches=train_launches[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None,
         ))
+        if name in launches:
+            rows[-1]["launches_serving"] = launches[name]
         if name == "relu_trap":
-            rows[-1]["launches_inside"] = "composite_fused"
-    print(f"# serving ms/pose {ms_per_pose:.3f}; total {time.perf_counter() - t_start:.1f} s")
+            rows[-1]["launches_inside"] = "composite_fused, composite_backward_fused"
+        rows[-1].update(r.get("extra", {}))
+    print(f"# serving ms/pose {ms_per_pose:.3f}; training ms/step {ms_per_step:.3f}; "
+          f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

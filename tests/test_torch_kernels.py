@@ -17,7 +17,9 @@ import torch
 
 from thr3ed_atom_tpu_torch.models.voxels import resolve_device, voxel_grid_from_numpy
 from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap, relu_trap_plain
+from thr3ed_atom_tpu_torch.modules.trainer import make_gnomonic_optimizer
 from thr3ed_atom_tpu_torch.rendering import gnomonic as gn
+from thr3ed_atom_tpu_torch.rendering import gnomonic_train as gt
 from thr3ed_atom_tpu_torch.rendering import warp_matmul as wm
 from thr3ed_atom_tpu_torch.utils.camera import pose_spherical
 
@@ -100,7 +102,9 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 19
+    for name in ("rendering.gnomonic_train", "modules.trainer", "utils.metrics"):
+        assert f"thr3ed_atom_tpu_torch.{name}" in modules
 
 
 def test_entry_points_default_to_cuda():
@@ -118,6 +122,21 @@ def test_entry_points_default_to_cuda():
     for fn in (VolumetricModel.__init__, create_volumetric_model_from_saved_model,
                voxel_grid_from_numpy):
         assert inspect.signature(fn).parameters["device"].default is None
+
+
+@pytest.mark.parametrize("round_output", [True, False])
+def test_repack_returns_channel_last_storage(round_output):
+    """Every march axis and direction, bf16 or f32: the vertex slices are a
+    permuted view of a contiguous [nvert, nu, nv, C] tensor (the layout the
+    CUDA composites gather from), and rounding them to bf16 keeps it."""
+    grid = _grid(8)
+    for axis in range(3):
+        for flip in (False, True):
+            st = gn.statics_for_grid(grid, axis, flip, pos_per_cell=2)
+            sl = gn.repack_position_slices(grid, st, round_output=round_output)
+            assert sl.dtype == (torch.bfloat16 if round_output else torch.float32)
+            assert sl.permute(0, 1, 3, 2).is_contiguous()
+            assert sl.to(torch.bfloat16).permute(0, 1, 3, 2).is_contiguous()
 
 
 @pytest.mark.gpu
@@ -204,3 +223,128 @@ def test_composite_early_exit_grain_on_opaque_scene():
     assert bool((work <= work_all).all()) and int(work.sum()) < int(work_all.sum())
     gap = (state - full).abs().amax(dim=(1, 2)).numpy()
     assert gap[:5].max() <= 1e-4 and gap[5] <= 1e-4 * 10.0, gap
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 3])
+@pytest.mark.parametrize("taps", [False, True])
+def test_resample_rows_adjoint_kernel_matches_plain(cuda, order, taps):
+    """The adjoint resample (K4) against its plain version, with a clipped run
+    of positions piling onto one tap: the shared-memory atomics add in a
+    varying order, so rtol 1e-5, atol 1e-5. The resample's backward launches
+    the kernel."""
+    X, pos = _resample_inputs(7, NB=64, K=512, N=512, order=order)
+    pos[:, :, 8:40] = wm._clip_range(order, 512)[0]
+    rng = np.random.default_rng(8)
+    dY = rng.normal(size=(64, 3, 8, 512) if taps else (64, 8, 512)).astype(np.float32)
+    dY_t, p_t = torch.from_numpy(dY).to(cuda), torch.from_numpy(pos).to(cuda)
+    got = wm.resample_rows_adjoint(dY_t, p_t, order, 512, taps)
+    torch.cuda.synchronize()
+    want = wm.resample_rows_adjoint_plain(dY_t, p_t, order, 512, taps)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    X_t = torch.from_numpy(X).to(cuda).requires_grad_(True)
+    before = wm.resample_rows_adjoint.launches
+    wm.resample_rows(X_t, p_t, order, taps).backward(dY_t)
+    assert wm.resample_rows_adjoint.launches == before + 1
+    torch.testing.assert_close(X_t.grad, want, rtol=1e-5, atol=1e-5)
+
+
+def _train_case(device, P, diffuse, size=32, seed=3):
+    """One pose's training operands: slices, materialized geometry, flags."""
+    tgrid = _grid(size, seed=seed, device=device)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=diffuse, pos_per_cell=P, qb=128)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    slices = gn.repack_position_slices(tgrid, st)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
+                               torch.from_numpy(org).to(device), st, H, W,
+                               torch.tensor(FOCAL, device=device), SS,
+                               phase=(0.25, -0.125), skip_basis=False)
+    occ = gn.gnomonic_occupancy_lite(slices, geo.geom, st, Pn, Qn, PB, Pb, QB, Qb)
+    return (slices, geo.ybasis, geo.norm, geo.geom, st, Pn, Qn, PB, Pb, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,diffuse", [(2, True), (1, False)])
+def test_composite_operand_branch_kernel_matches_plain(cuda, P, diffuse):
+    """K1's training branch (basis and norm read from the operands) against
+    the plain version: colour/acc 1e-4, depth 1e-3, as the serving branch."""
+    args = _train_case(cuda, P, diffuse)
+    got = gn.composite_positions_fused(*args)
+    torch.cuda.synchronize()
+    want = gn.composite_positions_fused_plain(*args)
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max(initial=0.0) < 1e-4, gap
+    assert float(want[4].max()) > 0.5
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm() + 1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,diffuse", [(2, True), (1, False)])
+def test_composite_backward_kernel_matches_plain(cuda, P, diffuse):
+    """The replay backward (K3) against its plain version on a seeded state
+    cotangent. The replay and the per-texel cotangents are the same
+    operations; the two tent sums run in different orders, and a last-bit
+    difference can move a bf16 rounding of the q-summed cotangent by one
+    bf16 unit. Bound: max-abs <= 1e-2 of the largest element, cosine >
+    0.99999; pad channels are zero."""
+    slices, yb, nm, geom, st, Pn, Qn, PB, Pb, occ = _train_case(cuda, P, diffuse)
+    state = gn.composite_positions_fused_plain(slices, yb, nm, geom, st, Pn, Qn, PB, Pb, occ)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    S_total = (gstate[1:] * state[1:]).sum(0)
+    gaux = torch.cat([gstate, S_total[None], state[0:1]])
+    before = gt.composite_backward_fused.launches
+    got = gt.composite_backward_fused(slices, yb, nm, geom, gaux, occ, st, Pn, Qn, PB, Pb)
+    torch.cuda.synchronize()
+    assert gt.composite_backward_fused.launches == before + 1
+    want = gt.composite_backward_fused_plain(slices, yb, nm, geom, gaux, occ, st, Pn, Qn,
+                                             PB, Pb)
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, :, 3 * st.ncoeff + 1:].any()
+
+
+@pytest.mark.gpu
+def test_train_step_kernels_match_plain(cuda):
+    """One gnomonic_train_step_multi (k = 2) through the kernels against the
+    same step through the plain versions, from the same grid: the grid
+    gradients within cosine > 0.99999, the losses within rtol 1e-5; the step
+    launched K1, K3, K2 and K4."""
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    images = torch.rand((2, H, W, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    grads, losses = [], []
+    counters = (gn.composite_positions_fused, gt.composite_backward_fused,
+                wm.resample_rows, wm.resample_rows_adjoint)
+    for plain in (False, True):
+        tgrid = _grid(32, device=cuda)
+        ts = gt.make_gnomonic_train_statics(tgrid, axis, flip, image_height=H,
+                                            image_width=W, white_bkgd=True, pos_per_cell=2)
+        opt, sched = make_gnomonic_optimizer(tgrid)
+        before = [c.launches for c in counters]
+        m = gt.gnomonic_train_step_multi(ts, opt, tgrid, images, np.stack([rot] * 2),
+                                         np.stack([org] * 2), FOCAL,
+                                         phases=[(0.1, 0.2), (-0.3, 0.4)],
+                                         scheduler=sched, plain=plain)
+        torch.cuda.synchronize()
+        counts = [c.launches - b for c, b in zip(counters, before)]
+        assert counts == ([2, 2, 4, 4] if not plain else [0, 0, 0, 0]), counts
+        grads.append((tgrid.densities.grad.clone(), tgrid.features.grad.clone()))
+        losses.append(float(m["total_loss"]))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999

@@ -19,7 +19,10 @@
 //     are exact in f32 and the single sum rounds once);
 //   * v-resample: val = w_v0 t1(v0) + w_v1 t1(v0 + 1) in f32, likewise exact;
 //   * the SH fold with the basis built from the texel direction (4 frame
-//     scalars), and the relu-trapezoid composite of cell (j-1, j).
+//     scalars, the serving path) or read from the materialized ybasis and
+//     norm operands (OPERANDS, the training path: its replay backward,
+//     composite_backward_fused.cu, folds against the same operands), and the
+//     relu-trapezoid composite of cell (j-1, j).
 // Occupancy flags of the 128 x Qb block that holds the tile gate the work
 // (lossless); with exit_eps > 0 the tile stops once every texel's
 // transmittance is <= exit_eps (a finer grain than the TPU's 128 x 128 block;
@@ -35,84 +38,34 @@
 // position geometry sit in shared memory; a texel tile of TP x TQ threads
 // lies inside one flag block, so every branch on flags is uniform. Sharing the
 // u-resample of a tile through shared memory is left to a later version.
-// Built with -fmad=false: each f32 operation rounds as in the plain PyTorch
-// version.
-#include <cuda_bf16.h>
+// The per-position gather, tents and SH fold live in gnomonic_march.cuh,
+// shared with the replay backward. Built with -fmad=false: each f32
+// operation rounds as in the plain PyTorch version.
 #include <cuda_runtime.h>
-#include <stdint.h>
 
+#include "gnomonic_march.cuh"
 #include "relu_trap.cuh"
 
 namespace {
 
-constexpr int TP = 8;   // texel rows (p) per block  — CUDA_EXIT_TILE in gnomonic.py
-constexpr int TQ = 32;  // texel columns (q) per block
-constexpr int GEOM_COLS = 6;  // s_j, cell_step, bu, ku, bv, kv
-
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// SH basis of unit direction (x, y, z), PlenOctree convention; the constants
-// are the double values rounded to float, as the reference's weak-typed ones
-template <int NCOEFF>
-__device__ __forceinline__ void sh_basis(float x, float y, float z, float* yb) {
-  yb[0] = (float)0.28209479177387814 * 1.0f;
-  if constexpr (NCOEFF > 1) {
-    const float c1 = (float)0.4886025119029199;
-    yb[1] = -c1 * y;
-    yb[2] = c1 * z;
-    yb[3] = -c1 * x;
-  }
-  if constexpr (NCOEFF > 4) {
-    yb[4] = (float)1.0925484305920792 * x * y;
-    yb[5] = (float)-1.0925484305920792 * y * z;
-    yb[6] = (float)0.31539156525252005 * (2.0f * z * z - x * x - y * y);
-    yb[7] = (float)-1.0925484305920792 * x * z;
-    yb[8] = (float)0.5462742152960396 * (x * x - y * y);
-  }
-  if constexpr (NCOEFF > 9) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    yb[9] = (float)-0.5900435899266435 * y * (3.0f * xx - yy);
-    yb[10] = (float)2.890611442640554 * x * y * z;
-    yb[11] = (float)-0.4570457994644658 * y * (4.0f * zz - xx - yy);
-    yb[12] = (float)0.3731763325901154 * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
-    yb[13] = (float)-0.4570457994644658 * x * (4.0f * zz - xx - yy);
-    yb[14] = (float)1.445305721320277 * z * (xx - yy);
-    yb[15] = (float)-0.5900435899266435 * x * (xx - 3.0f * yy);
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
+using namespace gnomonic;
 
 struct Params {
   const uint4* vert;  // [nvert, nu, nv, C] bf16, C / 8 uint4 per record
   const float* geom;  // [NP, 8]
   const int* cell_live;   // [PB, QB, NP]
   const int* pos_needed;  // [PB, QB, NP]
-  const float* fs;        // [8]: x0, dx, y0, dy
+  const float* fs;        // [8]: x0, dx, y0, dy (serving)
+  const float* ybasis;    // [ncoeff, Pn, Qn] (OPERANDS)
+  const float* norm;      // [Pn, Qn] (OPERANDS)
   float* out;             // [SROWS, Pn, Qn]
   int NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB;
   int u_ax, v_ax, axis;
   float g, exit_eps;
 };
 
-template <int NCOEFF, bool DIFFUSE, bool RELU>
+template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
-  constexpr int USED = 3 * NCOEFF + 1;
-  constexpr int NG = (USED + 7) / 8;  // uint4 groups of 8 channels read
   extern __shared__ float smem[];
   float* s_geom = smem;  // [NP, GEOM_COLS]
   int* s_cl = reinterpret_cast<int*>(s_geom + prm.NP * GEOM_COLS);
@@ -134,104 +87,27 @@ __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
   __syncthreads();
 
   const float pf = (float)p, qf = (float)q;
+  const size_t plane = (size_t)prm.Pn * prm.Qn;
+  const size_t pix = (size_t)p * prm.Qn + q;
   // texel direction -> norm and SH basis (reference: built at j == 0)
-  const float xs = prm.fs[0] + pf * prm.fs[1];
-  const float ys = prm.fs[2] + qf * prm.fs[3];
-  const float nm = sqrtf(1.0f + xs * xs + ys * ys);
-  const float cu = xs / nm, cv = ys / nm, ca = prm.g / nm;
-  const float dx = prm.u_ax == 0 ? cu : (prm.v_ax == 0 ? cv : ca);
-  const float dy = prm.u_ax == 1 ? cu : (prm.v_ax == 1 ? cv : ca);
-  const float dz = prm.u_ax == 2 ? cu : (prm.v_ax == 2 ? cv : ca);
   float yb[NCOEFF];
-  sh_basis<NCOEFF>(dx, dy, dz, yb);
+  const float nm = texel_basis<NCOEFF, OPERANDS>(
+      prm.ybasis, prm.norm, prm.fs, pix, plane, pf, qf, prm.u_ax, prm.v_ax,
+      prm.g, yb);
+  const VertexStack vs{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P};
 
   float T = 1.0f, acc = 0.0f, dep = 0.0f;
   float col[3] = {0.0f, 0.0f, 0.0f}, dif[3] = {0.0f, 0.0f, 0.0f};
   float prev_sig = 0.0f, prev_live = 0.0f;
   float prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dif[3] = {0.0f, 0.0f, 0.0f};
-  const float nu_hi = (float)prm.nu - 0.5f, nv_hi = (float)prm.nv - 0.5f;
-  const float inv_p = (float)(1.0 / prm.P);
-  const int recs_per_row = prm.nv * (prm.C / 8);  // uint4 per (vertex, u)
 
   for (int j = 0; j < prm.NP; ++j) {
     if (!s_pn[j]) continue;  // uniform over the tile
     if (prm.exit_eps > 0.0f && !__syncthreads_or(T > prm.exit_eps)) break;
     const float* G = s_geom + j * GEOM_COLS;
     const float s_j = G[0], cell_step = G[1];
-    const float U = G[2] + G[3] * pf;
-    const float V = G[4] + G[5] * qf;
-    const float live = (U >= -0.5f && U <= nu_hi && s_j > 0.0f &&
-                        V >= -0.5f && V <= nv_hi) ? 1.0f : 0.0f;
-
-    // the two taps of each tent; out-of-range taps weigh zero
-    const float u0f = floorf(U), v0f = floorf(V);
-    float wu[2], wv[2];
-    bool oku[2], okv[2];
-    int iu[2], iv[2];
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const float uf = u0f + (float)t, vf = v0f + (float)t;
-      wu[t] = bf16r(fmaxf(0.0f, 1.0f - fabsf(U - uf)));
-      wv[t] = bf16r(fmaxf(0.0f, 1.0f - fabsf(V - vf)));
-      oku[t] = uf >= 0.0f && uf <= (float)(prm.nu - 1);
-      okv[t] = vf >= 0.0f && vf <= (float)(prm.nv - 1);
-      iu[t] = oku[t] ? (int)uf : 0;
-      iv[t] = okv[t] ? (int)vf : 0;
-    }
-    const int jd = j / prm.P;
-    const int ia = min(jd, prm.nvert - 1), ib = min(jd + 1, prm.nvert - 1);
-    const float fb = (float)(j - jd * prm.P) * inv_p;
-    const float fa = 1.0f - fb;
-    const bool mix = prm.P > 1 && fb != 0.0f;  // fb == 0 lerps to vertex a
-
-    float sig = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f}, dif_j[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int grp = 0; grp < NG; ++grp) {
-      float t1[2][8];
-#pragma unroll
-      for (int tv = 0; tv < 2; ++tv) {
-        float a8[8];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) a8[i] = 0.0f;
-        if (okv[tv]) {
-#pragma unroll
-          for (int tu = 0; tu < 2; ++tu) {
-            if (!oku[tu]) continue;
-            const size_t rec = (size_t)iu[tu] * recs_per_row +
-                               (size_t)iv[tv] * (prm.C / 8) + grp;
-            float sa[8];
-            unpack8(prm.vert[(size_t)ia * prm.nu * recs_per_row + rec], sa);
-            if (mix) {
-              float sb[8];
-              unpack8(prm.vert[(size_t)ib * prm.nu * recs_per_row + rec], sb);
-#pragma unroll
-              for (int i = 0; i < 8; ++i) sa[i] = bf16r(fa * sa[i] + fb * sb[i]);
-            }
-#pragma unroll
-            for (int i = 0; i < 8; ++i) a8[i] = a8[i] + wu[tu] * sa[i];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) t1[tv][i] = bf16r(a8[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = grp * 8 + i;
-        if (c >= USED) break;
-        const float val = 0.0f + wv[0] * t1[0][i] + wv[1] * t1[1][i];
-        if (c == 3 * NCOEFF) {
-          sig = val;
-        } else {
-          const int colour = c / NCOEFF, k = c % NCOEFF;
-          if (k == 0) {
-            rgb[colour] = yb[0] * val;
-            dif_j[colour] = yb[0] * val;
-          } else {
-            rgb[colour] = rgb[colour] + yb[k] * val;
-          }
-        }
-      }
-    }
+    float sig, rgb[3], dif_j[3], live;
+    position_values<NCOEFF>(vs, G, j, pf, qf, yb, sig, rgb, dif_j, live);
 
     if (j > 0 && s_cl[j]) {
       float integ, tbar, dIda, dIdb;
@@ -263,8 +139,7 @@ __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
     }
   }
 
-  const size_t plane = (size_t)prm.Pn * prm.Qn;
-  float* o = prm.out + (size_t)p * prm.Qn + q;
+  float* o = prm.out + pix;
   o[0] = T;
   o[plane] = col[0];
   o[2 * plane] = col[1];
@@ -278,10 +153,10 @@ __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
   }
 }
 
-template <int NCOEFF, bool DIFFUSE, bool RELU>
+template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 int launch(const Params& prm, cudaStream_t stream) {
   const size_t smem = (size_t)prm.NP * (GEOM_COLS * sizeof(float) + 2 * sizeof(int));
-  auto kern = composite_fused_kernel<NCOEFF, DIFFUSE, RELU>;
+  auto kern = composite_fused_kernel<NCOEFF, DIFFUSE, RELU, OPERANDS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -293,31 +168,44 @@ int launch(const Params& prm, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int NCOEFF>
+template <int NCOEFF, bool OPERANDS>
 int dispatch(const Params& prm, int with_diffuse, int relu, cudaStream_t s) {
   if (with_diffuse)
-    return relu ? launch<NCOEFF, true, true>(prm, s) : launch<NCOEFF, true, false>(prm, s);
-  return relu ? launch<NCOEFF, false, true>(prm, s) : launch<NCOEFF, false, false>(prm, s);
+    return relu ? launch<NCOEFF, true, true, OPERANDS>(prm, s)
+                : launch<NCOEFF, true, false, OPERANDS>(prm, s);
+  return relu ? launch<NCOEFF, false, true, OPERANDS>(prm, s)
+              : launch<NCOEFF, false, false, OPERANDS>(prm, s);
+}
+
+template <bool OPERANDS>
+int dispatch_ncoeff(const Params& prm, int ncoeff, int with_diffuse, int relu,
+                    cudaStream_t s) {
+  switch (ncoeff) {
+    case 1: return dispatch<1, OPERANDS>(prm, with_diffuse, relu, s);
+    case 4: return dispatch<4, OPERANDS>(prm, with_diffuse, relu, s);
+    case 9: return dispatch<9, OPERANDS>(prm, with_diffuse, relu, s);
+    case 16: return dispatch<16, OPERANDS>(prm, with_diffuse, relu, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
+// fs (4 frame scalars) drives the serving branch; with fs == NULL the basis
+// and norm come from ybasis / norm (the training branch).
 extern "C" int composite_fused_launch(
     const void* vert, const float* geom, const int* cell_live,
-    const int* pos_needed, const float* fs, float* out, int ncoeff,
-    int with_diffuse, int relu, int NP, int P, int nvert, int nu, int nv, int C,
-    int Pn, int Qn, int Pb, int Qb, int PB, int QB, int u_ax, int v_ax,
-    int axis, float g, float exit_eps, void* stream) {
+    const int* pos_needed, const float* fs, const float* ybasis,
+    const float* norm, float* out, int ncoeff, int with_diffuse, int relu,
+    int NP, int P, int nvert, int nu, int nv, int C, int Pn, int Qn, int Pb,
+    int Qb, int PB, int QB, int u_ax, int v_ax, int axis, float g,
+    float exit_eps, void* stream) {
   (void)PB;
   Params prm{reinterpret_cast<const uint4*>(vert), geom, cell_live, pos_needed,
-             fs, out, NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB,
-             u_ax, v_ax, axis, g, exit_eps};
+             fs, ybasis, norm, out, NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb,
+             QB, u_ax, v_ax, axis, g, exit_eps};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (ncoeff) {
-    case 1: return dispatch<1>(prm, with_diffuse, relu, s);
-    case 4: return dispatch<4>(prm, with_diffuse, relu, s);
-    case 9: return dispatch<9>(prm, with_diffuse, relu, s);
-    case 16: return dispatch<16>(prm, with_diffuse, relu, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (fs != nullptr) return dispatch_ncoeff<false>(prm, ncoeff, with_diffuse, relu, s);
+  if (ybasis == nullptr || norm == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_ncoeff<true>(prm, ncoeff, with_diffuse, relu, s);
 }

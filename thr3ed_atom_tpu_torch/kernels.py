@@ -26,8 +26,11 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one library per source; each lists the headers it includes (for the hash)
 SOURCES: Dict[str, List[str]] = {
     "relu_trap": ["relu_trap.cu", "relu_trap.cuh"],
-    "composite_fused": ["composite_fused.cu", "relu_trap.cuh"],
+    "composite_fused": ["composite_fused.cu", "gnomonic_march.cuh", "relu_trap.cuh"],
+    "composite_backward_fused": ["composite_backward_fused.cu", "gnomonic_march.cuh",
+                                 "relu_trap.cuh"],
     "resample_rows": ["resample_rows.cu"],
+    "resample_rows_adjoint": ["resample_rows_adjoint.cu"],
 }
 
 # -fmad=false: no multiply-add contraction, so every f32 operation rounds where

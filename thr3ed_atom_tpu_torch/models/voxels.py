@@ -6,6 +6,9 @@ voxel size, grid location and activation names are plain attributes.
 Activations are registry names, never pickled callables, so checkpoints are
 arrays + JSON in the JAX package's format and load in either package.
 
+The tensors are created without gradients, so serving builds no autograd
+graph; ``trainable()`` enables them for the duration of a train step.
+
 Conventions (shared with the JAX package): x = width, y = depth, z = height;
 AABB = grid_dims * voxel_size centred at grid_location; the density
 preactivation applies to ``densities * expected_density_scale`` on the whole
@@ -13,7 +16,8 @@ grid before interpolation, the postactivation after.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -123,6 +127,20 @@ class VoxelGrid(nn.Module):
             y_range=(loc.y_coord - half[1], loc.y_coord + half[1]),
             z_range=(loc.z_coord - half[2], loc.z_coord + half[2]),
         )
+
+    @contextlib.contextmanager
+    def trainable(self) -> Iterator["VoxelGrid"]:
+        """Gradients on ``densities`` and ``features`` for the duration (a
+        train step); their previous setting is restored on exit."""
+        params = (self.densities, self.features)
+        before = [t.requires_grad for t in params]
+        for t in params:
+            t.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            for t, flag in zip(params, before):
+                t.requires_grad_(flag)
 
     def activated_grids(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Pre-activated (density, feature) grids ready for interpolation."""

@@ -20,9 +20,13 @@ only. Per pose:
      csrc/resample_rows.cu) resamples the composited texel image to the
      camera's pixels in two scanline passes.
 
+The training path (rendering/gnomonic_train.py) runs the same stages with the
+materialized SH basis and norm (``gnomonic_geometry(skip_basis=False)``) as
+operands of the composite, and a sub-texel phase shift of the frame.
+
 Out of this slice (each raises NotImplementedError): the v2 stripe kernels
 (``gnomonic_qb=0``), warp order 5, the gather warp, flat ray batches through
-the procedure object, and the training operands (materialized SH basis).
+the procedure object, and the per-position tent tensors (``lite=False``).
 """
 from __future__ import annotations
 
@@ -166,7 +170,12 @@ def repack_position_slices(voxel_grid: VoxelGrid, statics: GnomonicStatics,
     if statics.flip:
         slices = torch.flip(slices, dims=(0,))
     out_dtype = torch.bfloat16 if round_output else F32
-    slices = slices.to(out_dtype, memory_format=torch.contiguous_format)
+    # one copy into contiguous [nvert, nu, nv, C]; a same-dtype .to() would
+    # return the permuted view itself
+    if slices.dtype == out_dtype:
+        slices = slices.contiguous()
+    else:
+        slices = slices.to(out_dtype, memory_format=torch.contiguous_format)
     return slices.permute(0, 1, 3, 2)
 
 
@@ -227,21 +236,26 @@ class GnomonicGeometry(NamedTuple):
     geom: torch.Tensor  # [NP, 8] f32: s_j, cell_step, bu, ku, bv, kv, 0, 0
     xr: Tuple[torch.Tensor, torch.Tensor]  # gnomonic x range of the frame
     yr: Tuple[torch.Tensor, torch.Tensor]
+    ybasis: Optional[torch.Tensor] = None  # [ncoeff, Pn, Qn] f32 (skip_basis=False)
+    norm: Optional[torch.Tensor] = None  # [Pn, Qn] f32 (skip_basis=False)
 
 
 def gnomonic_geometry(
     rotation, origin, statics: GnomonicStatics, height: int, width: int,
-    focal, supersample: float, lite: bool = True, skip_basis: bool = True,
+    focal, supersample: float, phase=None, lite: bool = True,
+    skip_basis: bool = True,
 ) -> GnomonicGeometry:
     """The affine texel -> grid coefficients of every position and the frame's
     ranges. ``rotation`` [3, 3], ``origin`` [3] and ``focal`` (0-d) are f32
     tensors on the render device; arithmetic follows the JAX reference's
-    order in f32."""
-    if not (lite and skip_basis):
+    order in f32. ``phase`` (two numbers in [-0.5, 0.5], texel units) shifts
+    the whole texel frame sub-texel, which the warp compensates exactly (the
+    training path's jitter); ``skip_basis=False`` also materializes the SH
+    basis and norm of every texel direction (the training operands)."""
+    if not lite:
         raise NotImplementedError(
-            "the materialized tent / SH-basis operands feed the v2 kernels and "
-            "the training step, not ported yet (ROADMAP.md, 'Modules to port', "
-            "item 5)"
+            "the per-position tent tensors (lite=False) feed the v2 kernels, "
+            "not ported yet (ROADMAP.md, 'TPU kernels to port', K5-K8)"
         )
     axis = statics.axis
     u_ax, v_ax = _uv_axes(axis)
@@ -249,6 +263,7 @@ def gnomonic_geometry(
     P = statics.pos_per_cell
     aabb, dims = statics.aabb, statics.dims
     NP = _num_positions(statics)
+    dev = rotation.device
     Pn, Qn, _PB, _Pb = gnomonic_frame(None, height, width, focal, supersample,
                                       statics)
     lo_a, hi_a = aabb[axis]
@@ -261,22 +276,39 @@ def gnomonic_geometry(
     my = _div(y1 - y0, Qn)
     x0, x1 = x0 - mx, x1 + mx
     y0, y1 = y0 - my, y1 + my
+    if phase is not None:
+        dxt = mx * torch.as_tensor(phase[0], dtype=F32, device=dev)
+        dyt = my * torch.as_tensor(phase[1], dtype=F32, device=dev)
+        x0, x1 = x0 + dxt, x1 + dxt
+        y0, y1 = y0 + dyt, y1 + dyt
 
-    j = torch.arange(NP, dtype=F32, device=rotation.device)
+    ybasis = norm = None
+    if not skip_basis:
+        xs = x0 + _div((x1 - x0) * torch.arange(Pn, dtype=F32, device=dev), Pn - 1)
+        ys = y0 + _div((y1 - y0) * torch.arange(Qn, dtype=F32, device=dev), Qn - 1)
+        norm = torch.sqrt(1.0 + xs[:, None] ** 2 + ys[None, :] ** 2)
+        comp = [None, None, None]
+        comp[u_ax] = xs[:, None] / norm
+        comp[v_ax] = ys[None, :].expand(Pn, Qn) / norm
+        comp[axis] = g / norm
+        ybasis = _ybasis_rows(comp[0], comp[1], comp[2], statics.ncoeff)
+
+    j = torch.arange(NP, dtype=F32, device=dev)
     c_j = (NP - 1 - j) / P if statics.flip else j / P
     w_j = lo_a + (c_j + 0.5) * cell_a
     s_j = (w_j - origin[axis]) / g
 
     a_u = (origin[u_ax] - aabb[u_ax][0]) * su - 0.5
     a_v = (origin[v_ax] - aabb[v_ax][0]) * sv - 0.5
-    cell_step = torch.full((NP,), cell_a / P, dtype=F32, device=rotation.device)
+    cell_step = torch.full((NP,), cell_a / P, dtype=F32, device=dev)
     bu = a_u + (s_j * su) * x0
     ku = (s_j * su) * _div(x1 - x0, Pn - 1)
     bv = a_v + (s_j * sv) * y0
     kv = (s_j * sv) * _div(y1 - y0, Qn - 1)
     zeros = torch.zeros_like(s_j)
     geom = torch.stack([s_j, cell_step, bu, ku, bv, kv, zeros, zeros], dim=-1)
-    return GnomonicGeometry(geom=geom, xr=(x0, x1), yr=(y0, y1))
+    return GnomonicGeometry(geom=geom, xr=(x0, x1), yr=(y0, y1),
+                            ybasis=ybasis, norm=norm)
 
 
 def gnomonic_occupancy_lite(slices, geom, statics: GnomonicStatics, Pn: int,
@@ -384,38 +416,16 @@ def _tent_taps(pos: torch.Tensor, n: int):
     return i0, i1, w0, w1
 
 
-def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
-                                    Qn, PB, Pb, occupancy, xr=None, yr=None,
-                                    exit_tile=None, return_work=False):
-    """Plain PyTorch version of the fused composite (the TPU kernel
-    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions_fused). Marches
-    the whole frame position by position with the reference's roundings: the
-    lerped slice, the u-tent and the u-resample round to bf16, the v-resample
-    sums in f32; both tents have two taps, so the gather form below equals the
-    reference's tent matmuls exactly.
-
-    ``exit_tile`` (rows, cols) is the early exit's grain: the JAX kernel's
-    (Pb, Qb) by default, ``CUDA_EXIT_TILE`` to reproduce the CUDA kernel.
-    ``return_work`` also returns which (position, texel) pairs were marched,
-    a [NP, Pn, Qn] bool tensor.
-    Returns the state [SROWS, Pn, Qn] f32."""
-    if ybasis is not None or norm is not None or xr is None or yr is None:
-        raise NotImplementedError(
-            "materialized SH-basis operands belong to the training step, not "
-            "ported yet (ROADMAP.md, 'Modules to port', item 5); pass xr/yr"
-        )
-    nvert, nu, C, nv = slices.shape
-    NP = _num_positions(statics)
-    P = statics.pos_per_cell
-    QB, Qb = _qb_blocks(statics, Qn)
-    nc = statics.ncoeff
-    used = 3 * nc + 1
-    dev = slices.device
+def _texel_basis_plain(ybasis, norm, xr, yr, statics: GnomonicStatics, Pn: int,
+                       Qn: int, dev):
+    """(yb [ncoeff, Pn, Qn], nm [Pn, Qn]): the materialized operands, or built
+    from the frame ranges as the kernel's serving branch builds them."""
+    if ybasis is not None and norm is not None:
+        return ybasis, norm
+    if xr is None or yr is None:
+        raise ValueError("the composite needs ybasis and norm, or xr and yr")
     u_ax, v_ax = _uv_axes(statics.axis)
     g = -1.0 if statics.flip else 1.0
-    cell_live, pos_needed, _ = occupancy
-    ep, eq = exit_tile if exit_tile is not None else (Pb, Qb)
-
     x0, x1 = xr
     y0, y1 = yr
     pf = torch.arange(Pn, dtype=F32, device=dev)
@@ -427,10 +437,78 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
     comp[u_ax] = xs / nm
     comp[v_ax] = ys / nm
     comp[statics.axis] = g / nm
-    yb = _ybasis_rows(comp[0], comp[1], comp[2], nc)
+    return _ybasis_rows(comp[0], comp[1], comp[2], statics.ncoeff), nm
 
-    def blocks(flags):  # [PB, QB] -> [Pn, Qn]
-        return flags.repeat_interleave(Pb, 0).repeat_interleave(Qb, 1)
+
+def _position_values(slices_u, geom, j: int, statics: GnomonicStatics, yb):
+    """Position j's values over the whole frame, as csrc/gnomonic_march.cuh
+    computes them per texel: (sig, rgb [3], dif [3], live), each [Pn, Qn].
+    ``slices_u`` is the vertex stack's used channels [nvert, nu, used, nv]."""
+    nvert, nu, _, nv = slices_u.shape
+    P = statics.pos_per_cell
+    nc = statics.ncoeff
+    Pn, Qn = yb.shape[1:]
+    dev = slices_u.device
+    pf = torch.arange(Pn, dtype=F32, device=dev)
+    qf = torch.arange(Qn, dtype=F32, device=dev)
+    s_j, _, bu, ku, bv, kv = geom[j, :6]
+    U = bu + ku * pf  # [Pn]
+    V = bv + kv * qf  # [Qn]
+    live = (((U >= -0.5) & (U <= nu - 0.5) & (s_j > 0.0))[:, None]
+            & ((V >= -0.5) & (V <= nv - 0.5))[None, :]).to(F32)
+
+    ia = min(j // P, nvert - 1)
+    sl = slices_u[ia].to(F32)  # [nu, used, nv]
+    if P > 1:
+        f = (j % P) * (1.0 / P)
+        ib = min(j // P + 1, nvert - 1)
+        sl = _bf16r((1.0 - f) * sl + f * slices_u[ib].to(F32))
+    u0, u1, wu0, wu1 = _tent_taps(U, nu)
+    t1 = _bf16r(wu0[:, None, None] * sl[u0] + wu1[:, None, None] * sl[u1])
+    v0, v1, wv0, wv1 = _tent_taps(V, nv)
+    val = wv0 * t1[:, :, v0] + wv1 * t1[:, :, v1]  # [Pn, used, Qn]
+    val = val.permute(1, 0, 2)
+
+    sig = val[3 * nc]
+    rgb = []
+    for c in range(3):
+        a = yb[0] * val[c * nc]
+        for k in range(1, nc):
+            a = a + yb[k] * val[c * nc + k]
+        rgb.append(a)
+    dif = [yb[0] * val[c * nc] for c in range(3)]
+    return sig, rgb, dif, live
+
+
+def _flag_blocks(flags, Pb: int, Qb: int):
+    """[PB, QB] block flags -> [Pn, Qn] bool per texel."""
+    return (flags > 0).repeat_interleave(Pb, 0).repeat_interleave(Qb, 1)
+
+
+def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
+                                    Qn, PB, Pb, occupancy, xr=None, yr=None,
+                                    exit_tile=None, return_work=False):
+    """Plain PyTorch version of the fused composite (the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions_fused). Marches
+    the whole frame position by position with the reference's roundings: the
+    lerped slice, the u-tent and the u-resample round to bf16, the v-resample
+    sums in f32; both tents have two taps, so the gather form equals the
+    reference's tent matmuls exactly. The SH basis and norm are the
+    ``ybasis`` [ncoeff, Pn, Qn] / ``norm`` [Pn, Qn] operands (training), or
+    are built from the frame ranges ``xr`` / ``yr`` (serving).
+
+    ``exit_tile`` (rows, cols) is the early exit's grain: the JAX kernel's
+    (Pb, Qb) by default, ``CUDA_EXIT_TILE`` to reproduce the CUDA kernel.
+    ``return_work`` also returns which (position, texel) pairs were marched,
+    a [NP, Pn, Qn] bool tensor.
+    Returns the state [SROWS, Pn, Qn] f32."""
+    NP = _num_positions(statics)
+    QB, Qb = _qb_blocks(statics, Qn)
+    used = 3 * statics.ncoeff + 1
+    dev = slices.device
+    cell_live, pos_needed, _ = occupancy
+    ep, eq = exit_tile if exit_tile is not None else (Pb, Qb)
+    yb, nm = _texel_basis_plain(ybasis, norm, xr, yr, statics, Pn, Qn, dev)
 
     zeros = torch.zeros((Pn, Qn), dtype=F32, device=dev)
     T = torch.ones((Pn, Qn), dtype=F32, device=dev)
@@ -443,42 +521,18 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
     marched = []
     slices_u = slices[:, :, :used, :]
     for j in range(NP):
-        work = blocks(pos_needed[:, :, j] > 0)
+        work = _flag_blocks(pos_needed[:, :, j], Pb, Qb)
         if statics.exit_eps > 0.0:
             tmax = T.reshape(Pn // ep, ep, Qn // eq, eq).amax(dim=(1, 3))
             running = tmax > statics.exit_eps
             work = work & running.repeat_interleave(ep, 0).repeat_interleave(eq, 1)
         if return_work:
             marched.append(work)
-        s_j, cell_step, bu, ku, bv, kv = geom[j, :6]
-        U = bu + ku * pf  # [Pn]
-        V = bv + kv * qf  # [Qn]
-        live = (((U >= -0.5) & (U <= nu - 0.5) & (s_j > 0.0))[:, None]
-                & ((V >= -0.5) & (V <= nv - 0.5))[None, :]).to(F32)
-
-        ia = min(j // P, nvert - 1)
-        sl = slices_u[ia].to(F32)  # [nu, used, nv]
-        if P > 1:
-            f = (j % P) * (1.0 / P)
-            ib = min(j // P + 1, nvert - 1)
-            sl = _bf16r((1.0 - f) * sl + f * slices_u[ib].to(F32))
-        u0, u1, wu0, wu1 = _tent_taps(U, nu)
-        t1 = _bf16r(wu0[:, None, None] * sl[u0] + wu1[:, None, None] * sl[u1])
-        v0, v1, wv0, wv1 = _tent_taps(V, nv)
-        val = wv0 * t1[:, :, v0] + wv1 * t1[:, :, v1]  # [Pn, used, Qn]
-        val = val.permute(1, 0, 2)
-
-        sig = val[3 * nc]
-        rgb = []
-        for c in range(3):
-            a = yb[0] * val[c * nc]
-            for k in range(1, nc):
-                a = a + yb[k] * val[c * nc + k]
-            rgb.append(a)
-        dif_j = [yb[0] * val[c * nc] for c in range(3)]
+        s_j, cell_step = geom[j, 0], geom[j, 1]
+        sig, rgb, dif_j, live = _position_values(slices_u, geom, j, statics, yb)
 
         if j > 0:
-            upd = work & blocks(cell_live[:, :, j] > 0)
+            upd = work & _flag_blocks(cell_live[:, :, j], Pb, Qb)
             integ, tbar, _, _ = relu_trap_plain(prev_sig, sig, statics.relu_sigma)
             integ = integ * (prev_live * live)
             delta = cell_step * nm
@@ -506,11 +560,30 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
     return (state, torch.stack(marched)) if return_work else state
 
 
+def _vertex_stack(slices, statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                  Pb: int, what: str) -> torch.Tensor:
+    """The [nvert, nu, nv, C] storage of ``slices`` that the CUDA composites
+    gather from, after checking what they need of it and of the frame: bf16,
+    channel-last storage (as ``repack_position_slices`` returns it), the padded
+    channel count, 16-byte alignment, and texel tiles inside the flag blocks."""
+    vert = slices.permute(0, 1, 3, 2)
+    if slices.dtype != torch.bfloat16 or not vert.is_contiguous():
+        raise ValueError(f"{what}: bf16 slices with channel-last storage required "
+                         "(repack_position_slices returns them so)")
+    if slices.shape[2] != _padded_channels(statics) or vert.data_ptr() % 16 != 0:
+        raise ValueError(f"{what}: slices channels/alignment")
+    QB, Qb = _qb_blocks(statics, Qn)
+    TP, TQ = CUDA_EXIT_TILE
+    if PB * Pb != Pn or QB * Qb != Qn or Pb % TP or Qb % TQ:
+        raise ValueError(f"{what}: frame {Pn}x{Qn} blocks {Pb}x{Qb}")
+    return vert
+
+
 def _composite_lib():
     lib = kernels.load("composite_fused")
     fn = lib.composite_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 18
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     )
@@ -522,7 +595,9 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
                               PB, Pb, occupancy, xr=None, yr=None):
     """The fused composite: vertex slices in, composited state [SROWS, Pn, Qn]
     f32 out. On a CUDA tensor one launch of csrc/composite_fused.cu; on a CPU
-    tensor ``composite_positions_fused_plain``.
+    tensor ``composite_positions_fused_plain``. The SH basis and norm come
+    from the ``ybasis`` / ``norm`` operands (the training branch) or are built
+    in the kernel from the frame ranges ``xr`` / ``yr`` (serving).
 
     ``slices`` [nvert, nu, C, nv] bf16 must have channel-last storage (as
     ``repack_position_slices`` returns it); occupancy = (cell_live,
@@ -533,28 +608,16 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
             slices, ybasis, norm, geom, statics, Pn, Qn, PB, Pb, occupancy,
             xr=xr, yr=yr,
         )
-    if ybasis is not None or norm is not None or xr is None or yr is None:
-        raise NotImplementedError(
-            "materialized SH-basis operands belong to the training step, not "
-            "ported yet (ROADMAP.md, 'Modules to port', item 5); pass xr/yr"
-        )
+    operands = ybasis is not None and norm is not None
+    if not operands and (xr is None or yr is None):
+        raise ValueError("composite_positions_fused: pass ybasis and norm, or xr and yr")
     if slices.device.type != "cuda":
         raise ValueError(f"composite_positions_fused: unsupported device {slices.device}")
     dev = slices.device
     nvert, nu, C, nv = slices.shape
     NP = _num_positions(statics)
     QB, Qb = _qb_blocks(statics, Qn)
-    vert = slices.permute(0, 1, 3, 2)  # [nvert, nu, nv, C]
-    if slices.dtype != torch.bfloat16 or not vert.is_contiguous():
-        raise ValueError(
-            "composite_positions_fused: bf16 slices with channel-last storage "
-            "required (repack_position_slices returns them so)"
-        )
-    if C != _padded_channels(statics) or vert.data_ptr() % 16 != 0:
-        raise ValueError("composite_positions_fused: slices channels/alignment")
-    TP, TQ = CUDA_EXIT_TILE
-    if PB * Pb != Pn or QB * Qb != Qn or Pb % TP or Qb % TQ:
-        raise ValueError(f"composite_positions_fused: frame {Pn}x{Qn} blocks {Pb}x{Qb}")
+    vert = _vertex_stack(slices, statics, Pn, Qn, PB, Pb, "composite_positions_fused")
     cell_live, pos_needed, _ = occupancy
     flags = []
     for fl in (cell_live, pos_needed):
@@ -564,16 +627,26 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
     if geom.shape != (NP, 8) or geom.device != dev:
         raise ValueError(f"composite_positions_fused: geom {tuple(geom.shape)}")
     geom = geom.to(F32).contiguous()
-    (x0, x1), (y0, y1) = xr, yr
-    zero = torch.zeros((), dtype=F32, device=dev)
-    fs = torch.stack([x0, _div(x1 - x0, Pn - 1), y0, _div(y1 - y0, Qn - 1),
-                      zero, zero, zero, zero]).to(F32).contiguous()
+    if operands:
+        # the training branch: basis and norm read from the operands, as the
+        # replay backward reads them
+        if ybasis.shape != (statics.ncoeff, Pn, Qn) or norm.shape != (Pn, Qn):
+            raise ValueError("composite_positions_fused: ybasis/norm shapes")
+        ybasis = ybasis.to(F32).contiguous()
+        norm = norm.to(F32).contiguous()
+        ptrs = (None, ybasis.data_ptr(), norm.data_ptr())
+    else:
+        (x0, x1), (y0, y1) = xr, yr
+        zero = torch.zeros((), dtype=F32, device=dev)
+        fs = torch.stack([x0, _div(x1 - x0, Pn - 1), y0, _div(y1 - y0, Qn - 1),
+                          zero, zero, zero, zero]).to(F32).contiguous()
+        ptrs = (fs.data_ptr(), None, None)
     out = torch.empty((_sprows(statics.with_diffuse), Pn, Qn), dtype=F32, device=dev)
     u_ax, v_ax = _uv_axes(statics.axis)
     fn = _composite_lib()
     err = fn(
         vert.data_ptr(), geom.data_ptr(), flags[0].data_ptr(),
-        flags[1].data_ptr(), fs.data_ptr(), out.data_ptr(),
+        flags[1].data_ptr(), *ptrs, out.data_ptr(),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
         NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, PB, QB,
         u_ax, v_ax, statics.axis,
@@ -634,7 +707,8 @@ def _warp_to_camera(state, xr, yr, rotation, statics: GnomonicStatics,
                     white_bkgd: bool, warp_order: int = 3,
                     warp_impl: str = "matmul", warp_swap: bool = False,
                     plain: bool = False) -> RenderOut:
-    """Resample the composited state [SROWS, Pn, Qn] to the camera's pixels."""
+    """Resample the composited state [SROWS, Pn, Qn] to the camera's pixels
+    (differentiable in ``state``)."""
     if warp_impl != "matmul":
         raise NotImplementedError(
             f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "

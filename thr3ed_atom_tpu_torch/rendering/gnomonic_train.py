@@ -1,0 +1,579 @@
+"""Differentiable gnomonic pipeline: the whole-pose training step of the port.
+
+Counterpart of thr3ed_atom_tpu/rendering/gnomonic_train.py, fused (v3)
+pipeline only. One pose's loss runs the serving path's stages with the
+training operands: repack -> geometry with the materialized SH basis and norm
+(and a sub-texel phase jitter) -> occupancy -> the fused composite (CUDA
+kernel csrc/composite_fused.cu, training branch) -> the two-pass warp (CUDA
+kernel csrc/resample_rows.cu) -> L1 loss on the pixels (specular + diffuse).
+
+The backward is not autograd of the forward. The composite is a
+``torch.autograd.Function`` whose backward is the reference's replay VJP
+(csrc/composite_backward_fused.cu): it marches again, rebuilds T and the
+running prefix, forms dL/d(integral) in the division-free suffix form and
+routes it to the cell's endpoints, with the emission centroid held constant
+(the reference's convention), then folds each position's cotangent through
+the SH basis and both tents into per-position slice cotangents; the
+position -> vertex fold of the interior lerp follows in PyTorch. The warp's
+resample is a ``torch.autograd.Function`` whose backward is the adjoint
+resample (csrc/resample_rows_adjoint.cu). On CPU tensors every kernel's plain
+PyTorch version runs instead; ``plain=True`` selects the plain versions on
+any device (a reference for checking the kernels on the card).
+
+Out of this module (each raises NotImplementedError): the v2 pipeline
+(``fused=False`` or ``qb=0``, kernels K5-K8), the gather warp, and the mesh
+step.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from thr3ed_atom_tpu_torch import kernels
+from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
+from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap_plain
+from thr3ed_atom_tpu_torch.rendering.gnomonic import (
+    GnomonicStatics,
+    _bf16r,
+    _flag_blocks,
+    _num_positions,
+    _position_values,
+    _qb_blocks,
+    _sprows,
+    _strict_f32,
+    _vertex_stack,
+    _warp_to_camera,
+    composite_positions_fused,
+    composite_positions_fused_plain,
+    effective_supersample,
+    gnomonic_frame,
+    gnomonic_geometry,
+    gnomonic_occupancy_lite,
+    repack_position_slices,
+    statics_for_grid,
+)
+from thr3ed_atom_tpu_torch.utils.constants import EXTRA_DIFFUSE_COLOUR
+from thr3ed_atom_tpu_torch.utils.metrics import mse2psnr
+
+F32 = torch.float32
+
+# above this repacked-slice size the multi-pose step feeds the poses bf16
+# slices (the renderer rounds them to bf16 anyway); the k-pose cotangent sum
+# stays f32 either way
+_BF16_SLICES_BYTES = 512 * 1024 * 1024
+
+_V2_KERNELS = ("the v2 gnomonic pipeline (K5-K8 in ROADMAP.md, 'TPU kernels "
+               "to port') is not ported; the fused pipeline needs qb > 0")
+
+
+# ------------------------------------------------------- replay backward (K3)
+
+
+def _tent_matrix(coord: torch.Tensor, n: int) -> torch.Tensor:
+    """[len(coord), n] bf16-rounded tent weights max(0, 1 - |coord - k|)."""
+    k = torch.arange(n, dtype=F32, device=coord.device)
+    return _bf16r(torch.clamp_min(1.0 - torch.abs(coord[:, None] - k[None, :]), 0.0))
+
+
+def _fold_tents(dvals: torch.Tensor, g_row: torch.Tensor, nu: int, nv: int):
+    """One position's cotangent [used, Pn, Qn] (bf16 values) through both
+    tents: the f32 q-sum rounded to bf16, then the f32 p-sum rounded to bf16.
+    Returns [nu, used, nv] f32 of bf16 values."""
+    used, Pn, Qn = dvals.shape
+    dev = dvals.device
+    _, _, bu, ku, bv, kv = g_row[:6]
+    Wv = _tent_matrix(bv + kv * torch.arange(Qn, dtype=F32, device=dev), nv)
+    Wu = _tent_matrix(bu + ku * torch.arange(Pn, dtype=F32, device=dev), nu)
+    dt1 = _bf16r(torch.matmul(dvals, Wv))  # [used, Pn, nv]
+    return _bf16r(torch.einsum("pu,cpv->ucv", Wu, dt1))
+
+
+def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
+                                   statics: GnomonicStatics, Pn: int, Qn: int,
+                                   PB: int, Pb: int) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic_train.py _composite_backward_fused:
+    the replay VJP of the fused composite, step by step as the kernel runs it
+    (autograd of the forward would differentiate the emission centroid and
+    give a different gradient).
+
+    ``gaux`` [SROWS + 2, Pn, Qn] is the state cotangent, S_total = sum over
+    rows >= 1 of cotangent x state, and the final transmittance. Per step j =
+    0 .. NP: replay position j as the forward computed it, composite cell
+    (j-1, j) again, form dinteg = delta * ((1 - alpha) T inner - suffix) and
+    route it to both endpoints with dI/da, dI/db; position j-1's cotangent
+    (its pending b-side plus cell j's a-side) folds through the SH basis,
+    rounds to bf16, and folds through position j-1's v- and u-tents
+    (``_fold_tents``). Masks are ``where`` selections applied after the
+    products. Returns per-position dslices [NP, nu, C, nv] bf16, zero for
+    dead positions and pad channels."""
+    nvert, nu, C, nv = slices.shape
+    NP = _num_positions(statics)
+    QB, Qb = _qb_blocks(statics, Qn)
+    nc = statics.ncoeff
+    used = 3 * nc + 1
+    SROWS = _sprows(statics.with_diffuse)
+    dev = slices.device
+    cell_live, pos_needed, _ = occupancy
+    yb, nm = ybasis, norm
+    g_T, g_acc, g_dep = gaux[0], gaux[4], gaux[5]
+    g_col = [gaux[1 + c] for c in range(3)]
+    g_dif = [gaux[6 + c] for c in range(3)] if statics.with_diffuse else []
+    S_total, T_fin = gaux[SROWS], gaux[SROWS + 1]
+
+    zeros = torch.zeros((Pn, Qn), dtype=F32, device=dev)
+    T, S = torch.ones_like(zeros), zeros
+    prev_sig = prev_live = zeros
+    prev_rgb, prev_dif = [zeros] * 3, [zeros] * 3
+    pend_sig, pend_rgb, pend_dif = zeros, [zeros] * 3, [zeros] * 3
+    dpos = torch.zeros((NP, nu, C, nv), dtype=F32, device=dev)
+    slices_u = slices[:, :, :used, :]
+    for j in range(NP + 1):
+        d_a = d_b = zeros
+        a_rgb = b_rgb = a_dif = b_dif = [zeros] * 3
+        if j < NP:
+            replay = _flag_blocks(pos_needed[:, :, j], Pb, Qb)
+            sig, rgb, dif_j, live = _position_values(slices_u, geom, j, statics, yb)
+        if 0 < j < NP:
+            cell = replay & _flag_blocks(cell_live[:, :, j], Pb, Qb)
+            s_j, cell_step = geom[j, 0], geom[j, 1]
+            integ_raw, tbar, dIda, dIdb = relu_trap_plain(prev_sig, sig,
+                                                          statics.relu_sigma)
+            live_pair = prev_live * live
+            integ = integ_raw * live_pair
+            delta = cell_step * nm
+            e = torch.exp(-integ * delta)
+            alpha = 1.0 - e
+            w = alpha * T
+            s_mid = (s_j - cell_step + tbar * cell_step) * nm
+            tb1 = 1.0 - tbar
+            mids = [torch.sigmoid(tb1 * prev_rgb[c] + tbar * rgb[c]) for c in range(3)]
+            inner = g_acc + g_dep * s_mid
+            for c in range(3):
+                inner = inner + g_col[c] * mids[c]
+            if statics.with_diffuse:
+                dmids = [torch.sigmoid(tb1 * prev_dif[c] + tbar * dif_j[c])
+                         for c in range(3)]
+                for c in range(3):
+                    inner = inner + g_dif[c] * dmids[c]
+            S_prefix = S + inner * w
+            suffix = (S_total - S_prefix) + g_T * T_fin
+            dinteg = delta * (e * T * inner - suffix) * live_pair
+
+            def m(x, cell=cell):
+                return torch.where(cell, x, 0.0)
+
+            d_a, d_b = m(dinteg * dIda), m(dinteg * dIdb)
+            dm = [g_col[c] * w * mids[c] * (1.0 - mids[c]) for c in range(3)]
+            a_rgb = [m(tb1 * dm[c]) for c in range(3)]
+            b_rgb = [m(tbar * dm[c]) for c in range(3)]
+            if statics.with_diffuse:
+                ddm = [g_dif[c] * w * dmids[c] * (1.0 - dmids[c]) for c in range(3)]
+                a_dif = [m(tb1 * ddm[c]) for c in range(3)]
+                b_dif = [m(tbar * ddm[c]) for c in range(3)]
+            T = torch.where(cell, T * (1.0 - alpha), T)
+            S = torch.where(cell, S_prefix, S)
+        if j > 0:
+            dsig = pend_sig + d_a
+            drgb = [pend_rgb[c] + a_rgb[c] for c in range(3)]
+            ddif = [pend_dif[c] + a_dif[c] for c in range(3)]
+            rows = []
+            for ch in range(3 * nc):
+                c, k = divmod(ch, nc)
+                blk = yb[k] * drgb[c]
+                if statics.with_diffuse and k == 0:
+                    blk = blk + yb[0] * ddif[c]
+                rows.append(blk)
+            rows.append(dsig)
+            flush = _flag_blocks(pos_needed[:, :, j - 1], Pb, Qb)
+            dvals = torch.where(flush, _bf16r(torch.stack(rows)), 0.0)
+            dpos[j - 1, :, :used, :] = _fold_tents(dvals, geom[j - 1], nu, nv)
+        pend_sig, pend_rgb, pend_dif = d_b, b_rgb, b_dif
+        if j < NP:
+            prev_sig = torch.where(replay, sig, prev_sig)
+            prev_rgb = [torch.where(replay, rgb[c], prev_rgb[c]) for c in range(3)]
+            prev_dif = [torch.where(replay, dif_j[c], prev_dif[c]) for c in range(3)]
+            prev_live = torch.where(replay, live, prev_live)
+    return dpos.to(torch.bfloat16)
+
+
+def _backward_fn():
+    lib = kernels.load("composite_backward_fused")
+    fn = lib.composite_backward_fused_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dvals_slots(pos_needed: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """The replay backward's compact cotangent buffer: one slot per needed
+    (u-block, q-block, position) of ``pos_needed`` [PB, QB, NP]. Returns the
+    slot table (same shape, int32, -1 where not needed) and the slot count
+    (read on the host)."""
+    flat = (pos_needed.reshape(-1) > 0).to(torch.int32)
+    slot = torch.cumsum(flat, 0, dtype=torch.int32) - 1
+    slot = torch.where(flat > 0, slot, -1).to(torch.int32)
+    return slot.reshape(pos_needed.shape).contiguous(), int(flat.sum())
+
+
+def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
+                             statics: GnomonicStatics, Pn: int, Qn: int,
+                             PB: int, Pb: int) -> torch.Tensor:
+    """The replay VJP of the fused composite (see
+    ``composite_backward_fused_plain``): per-position dslices
+    [NP, nu, C, nv] bf16. On a CUDA tensor one launch of
+    csrc/composite_backward_fused.cu (a march over the texels, then a fold
+    over (u, position)); on a CPU tensor the plain version. Its cotangent
+    buffer holds ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb]
+    bf16."""
+    if slices.device.type == "cpu":
+        return composite_backward_fused_plain(slices, ybasis, norm, geom, gaux,
+                                              occupancy, statics, Pn, Qn, PB, Pb)
+    if slices.device.type != "cuda":
+        raise ValueError(f"composite_backward_fused: unsupported device {slices.device}")
+    dev = slices.device
+    nvert, nu, C, nv = slices.shape
+    NP = _num_positions(statics)
+    QB, Qb = _qb_blocks(statics, Qn)
+    SROWS = _sprows(statics.with_diffuse)
+    vert = _vertex_stack(slices, statics, Pn, Qn, PB, Pb, "composite_backward_fused")
+    if (ybasis.shape != (statics.ncoeff, Pn, Qn) or norm.shape != (Pn, Qn)
+            or gaux.shape != (SROWS + 2, Pn, Qn) or geom.shape != (NP, 8)):
+        raise ValueError("composite_backward_fused: operand shapes")
+    cell_live, pos_needed, _ = occupancy
+    flags = [fl.to(device=dev, dtype=torch.int32).contiguous()
+             for fl in (cell_live, pos_needed)]
+    if any(fl.shape != (PB, QB, NP) for fl in flags):
+        raise ValueError("composite_backward_fused: flags shape")
+    slot, n_slots = dvals_slots(flags[1])
+    used = 3 * statics.ncoeff + 1
+    dvals = torch.empty((max(n_slots, 1), used, Pb, Qb), dtype=torch.bfloat16, device=dev)
+    dsl = torch.empty((NP, nu, C, nv), dtype=torch.bfloat16, device=dev)
+    ops = [t.to(F32).contiguous() for t in (geom, ybasis, norm, gaux)]
+    err = _backward_fn()(
+        vert.data_ptr(), ops[0].data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
+        slot.data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), ops[3].data_ptr(),
+        dvals.data_ptr(), dsl.data_ptr(),
+        statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
+        NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "composite_backward_fused")
+    composite_backward_fused.launches += 1
+    return dsl
+
+
+composite_backward_fused.launches = 0
+
+
+def position_to_vertex_cotangent(dpos: torch.Tensor, nvert: int, P: int) -> torch.Tensor:
+    """The interior lerp's adjoint: position j = (1 - f) vertex[j // P] +
+    f vertex[min(j // P + 1, nvert - 1)] with f = (j % P) / P, so the vertex
+    cotangent is the f32 sum of the bf16 per-position cotangents weighted by
+    the (bf16-exact) lerp weights, rounded to bf16 (the reference's einsum in
+    _cpf_bwd, here as P-term sums instead of a [nvert, NP] matmul)."""
+    if P == 1:
+        return dpos
+    d = dpos.to(F32)
+    main = d[:-1].reshape((nvert - 1, P) + tuple(d.shape[1:]))  # j = v P + k
+    f = (torch.arange(P, dtype=F32, device=d.device) / P).reshape(
+        (1, P) + (1,) * (d.dim() - 1))
+    out = torch.zeros((nvert,) + tuple(d.shape[1:]), dtype=F32, device=d.device)
+    out[:-1] += ((1.0 - f) * main).sum(1)
+    out[1:] += (f * main).sum(1)
+    out[-1] += d[-1]
+    return out.to(torch.bfloat16)
+
+
+class _CompositeFusedDiff(torch.autograd.Function):
+    """composite_positions_fused with the replay VJP with respect to the
+    slices (the only grid-dependent input)."""
+
+    @staticmethod
+    def forward(ctx, slices, ybasis, norm, geom, cell_live, pos_needed, pos_any,
+                statics, Pn, Qn, PB, Pb, plain):
+        occupancy = (cell_live, pos_needed, pos_any)
+        forward = composite_positions_fused_plain if plain else composite_positions_fused
+        state = forward(slices, ybasis, norm, geom, statics, Pn, Qn, PB, Pb, occupancy)
+        ctx.save_for_backward(slices, ybasis, norm, geom, cell_live, pos_needed,
+                              pos_any, state)
+        ctx.meta = (statics, Pn, Qn, PB, Pb, plain)
+        return state
+
+    @staticmethod
+    def backward(ctx, gstate):
+        slices, ybasis, norm, geom, cell_live, pos_needed, pos_any, state = ctx.saved_tensors
+        statics, Pn, Qn, PB, Pb, plain = ctx.meta
+        S_total = torch.sum(gstate[1:] * state[1:], dim=0)
+        gaux = torch.cat([gstate, S_total[None], state[0:1]], dim=0)
+        backward = composite_backward_fused_plain if plain else composite_backward_fused
+        dpos = backward(slices, ybasis, norm, geom, gaux,
+                        (cell_live, pos_needed, pos_any), statics, Pn, Qn, PB, Pb)
+        dslices = position_to_vertex_cotangent(dpos, slices.shape[0],
+                                               statics.pos_per_cell)
+        return (dslices,) + (None,) * 12
+
+
+def composite_positions_fused_diff(slices, ybasis, norm, geom, cell_live,
+                                   pos_needed, pos_any, statics: GnomonicStatics,
+                                   Pn: int, Qn: int, PB: int, Pb: int,
+                                   plain: bool = False) -> torch.Tensor:
+    """The fused composite (training operands ybasis / norm), differentiable
+    in ``slices`` through the replay VJP. ``plain`` runs both directions
+    through the plain versions."""
+    return _CompositeFusedDiff.apply(slices, ybasis, norm, geom, cell_live,
+                                     pos_needed, pos_any, statics, Pn, Qn, PB,
+                                     Pb, plain)
+
+
+# ----------------------------------------------------------------- train step
+
+
+class GnomonicTrainStatics(NamedTuple):
+    """Constants of one march variant's train step. ``frame`` is the serving
+    frame (``gnomonic_frame``): the TPU plan (``_fused_train_blocking``) sizes
+    its blocking to a 100 MB VMEM budget and needs nv % 128 == 0, but the CUDA
+    kernels keep no frame-resident state, so every frame and grid takes
+    Pb = 128, the occupancy grain (the plan the TPU picks wherever its budget
+    fits)."""
+
+    statics: GnomonicStatics
+    height: int
+    width: int
+    supersample: float
+    white_bkgd: bool
+    apply_diffuse_render_regularization: bool
+    frame: Tuple[int, int, int, int]  # Pn, Qn, PB, Pb
+    warp_order: int = 3
+    # the matmul warp's pass order, a per-pose decision (warp_swap_for_pose):
+    # the steps take the views of one (axis, flip, swap) bucket
+    warp_swap: bool = False
+
+
+def make_gnomonic_train_statics(
+    voxel_grid: VoxelGrid,
+    axis: int,
+    flip: bool,
+    *,
+    image_height: int,
+    image_width: int,
+    white_bkgd: bool,
+    apply_diffuse_render_regularization: bool = True,
+    pos_per_cell: int = 0,
+    supersample: float = 1.25,
+    warp_order: int = 3,
+    qb: int = 128,
+    warp_impl: str = "auto",
+    warp_swap: bool = False,
+    fused: Optional[bool] = None,
+) -> GnomonicTrainStatics:
+    """The train step's constants for march variant (axis, flip). The port
+    runs the fused pipeline only (``qb`` > 0, the JAX package's production
+    setting); ``fused=False`` and ``qb=0`` select the v2 kernels and raise."""
+    if fused is False or qb == 0:
+        raise NotImplementedError(_V2_KERNELS)
+    if warp_impl not in ("auto", "matmul"):
+        raise NotImplementedError(
+            f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "
+            "not ported yet (ROADMAP.md, 'Later slices': the gather warp)"
+        )
+    statics = statics_for_grid(
+        voxel_grid, axis, flip,
+        with_diffuse=apply_diffuse_render_regularization,
+        pos_per_cell=pos_per_cell, qb=qb,
+    )
+    supersample = effective_supersample(float(supersample), statics,
+                                        image_height, image_width)
+    return GnomonicTrainStatics(
+        statics=statics,
+        height=int(image_height),
+        width=int(image_width),
+        supersample=float(supersample),
+        white_bkgd=bool(white_bkgd),
+        apply_diffuse_render_regularization=bool(apply_diffuse_render_regularization),
+        frame=gnomonic_frame(None, image_height, image_width, None, supersample,
+                             statics),
+        warp_order=int(warp_order),
+        warp_swap=bool(warp_swap),
+    )
+
+
+def draw_phase(generator: torch.Generator) -> torch.Tensor:
+    """Two uniforms in [-0.5, 0.5) from ``generator``: one pose's sub-texel
+    phase (the reference draws them with jax.random.uniform from its key)."""
+    return torch.rand(2, generator=generator, device=generator.device) - 0.5
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+                           dtype=F32).to(dev)
+
+
+def render_pose_from_slices(slices, rotation, origin, focal,
+                            tstat: GnomonicTrainStatics,
+                            generator: Optional[torch.Generator] = None,
+                            phase=None, plain: bool = False):
+    """Differentiable whole-pose render from repacked vertex slices (bf16 or
+    f32; f32 is rounded to bf16 here, as the repack rounds). ``generator``
+    draws the pose's sub-texel phase jitter (``draw_phase``); ``phase`` gives
+    it directly. Returns the warped RenderOut (colour [H, W, 3], extra)."""
+    statics = tstat.statics
+    Pn, Qn, PB, Pb = tstat.frame
+    dev = slices.device
+    if phase is None and generator is not None:
+        phase = draw_phase(generator)
+    slices = slices.to(torch.bfloat16)
+    rot, org, foc = _f32(rotation, dev), _f32(origin, dev), _f32(focal, dev)
+    with torch.no_grad():
+        geo = gnomonic_geometry(rot, org, statics, tstat.height, tstat.width,
+                                foc, tstat.supersample, phase=phase,
+                                skip_basis=False)
+        QB, Qb = _qb_blocks(statics, Qn)
+        occupancy = gnomonic_occupancy_lite(slices.detach(), geo.geom, statics,
+                                            Pn, Qn, PB, Pb, QB, Qb)
+    state = composite_positions_fused_diff(
+        slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,
+        PB, Pb, plain=plain,
+    )
+    return _warp_to_camera(
+        state, geo.xr, geo.yr, rot, statics, tstat.height, tstat.width, foc,
+        tstat.supersample, tstat.white_bkgd, warp_order=tstat.warp_order,
+        warp_swap=tstat.warp_swap, plain=plain,
+    )
+
+
+def render_pose_diff(voxel_grid: VoxelGrid, rotation, origin, focal,
+                     tstat: GnomonicTrainStatics,
+                     generator: Optional[torch.Generator] = None, phase=None,
+                     plain: bool = False):
+    """Differentiable whole-pose render of the grid (repack +
+    ``render_pose_from_slices``)."""
+    slices = repack_position_slices(voxel_grid, tstat.statics)
+    return render_pose_from_slices(slices, rotation, origin, focal, tstat,
+                                   generator=generator, phase=phase, plain=plain)
+
+
+def _pose_loss_from_slices(tstat: GnomonicTrainStatics, slices, image, rotation,
+                           origin, focal, generator=None, phase=None,
+                           plain: bool = False):
+    """Whole-pose objective on repacked slices: specular L1 plus, with the
+    diffuse regularization, diffuse L1 (the reference trainer's objective).
+    Returns (total, metrics) with 0-d tensors."""
+    out = render_pose_from_slices(slices, rotation, origin, focal, tstat,
+                                  generator=generator, phase=phase, plain=plain)
+    image = _f32(image, slices.device)
+    colour = out.colour
+    specular_loss = torch.mean(torch.abs(colour - image))
+    specular_mse = torch.mean((colour - image) ** 2)
+    total = specular_loss
+    aux = {
+        "specular_loss": specular_loss,
+        "specular_psnr": mse2psnr(specular_mse),
+    }
+    if tstat.apply_diffuse_render_regularization:
+        diffuse = out.extra[EXTRA_DIFFUSE_COLOUR]
+        diffuse_loss = torch.mean(torch.abs(diffuse - image))
+        diffuse_mse = torch.mean((diffuse - image) ** 2)
+        total = total + diffuse_loss
+        aux["diffuse_loss"] = diffuse_loss
+        aux["diffuse_psnr"] = mse2psnr(diffuse_mse)
+    aux["total_loss"] = total
+    return total, aux
+
+
+def _pose_loss(tstat: GnomonicTrainStatics, grid: VoxelGrid, image, rotation,
+               origin, focal, generator=None, phase=None, plain: bool = False):
+    """Whole-pose objective on the grid (repack + ``_pose_loss_from_slices``)."""
+    slices = repack_position_slices(grid, tstat.statics)
+    return _pose_loss_from_slices(tstat, slices, image, rotation, origin, focal,
+                                  generator=generator, phase=phase, plain=plain)
+
+
+def _step(optimizer, scheduler):
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+
+
+def gnomonic_train_step(tstat: GnomonicTrainStatics, optimizer: torch.optim.Optimizer,
+                        grid: VoxelGrid, image, rotation, origin, focal,
+                        generator: Optional[torch.Generator] = None, *,
+                        phase=None, scheduler=None, plain: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """One whole-pose optimization step: the loss's gradient with respect to
+    the grid's densities and features, then ``optimizer.step()`` (and
+    ``scheduler.step()``) in place. ``generator`` jitters the frame's phase.
+    Returns the metrics (0-d tensors)."""
+    _strict_f32()
+    optimizer.zero_grad(set_to_none=True)
+    with grid.trainable():
+        loss, aux = _pose_loss(tstat, grid, image, rotation, origin, focal,
+                               generator=generator, phase=phase, plain=plain)
+        loss.backward()
+        _step(optimizer, scheduler)
+    return {k: v.detach() for k, v in aux.items()}
+
+
+def _multi_pose_grads(tstat: GnomonicTrainStatics, grid: VoxelGrid, images,
+                      rotations, origins, focal, phases: Sequence,
+                      plain: bool = False) -> Dict[str, torch.Tensor]:
+    """Averaged gradient of k whole-pose losses into ``grid``'s ``.grad``,
+    with the repack hoisted: one f32 repack, each pose's loss differentiated
+    with respect to the slices (rounded to bf16 inside the render), the
+    per-pose slice cotangents summed in f32, and one repack backward of the
+    mean. Above ``_BF16_SLICES_BYTES`` the poses read bf16 slices. Returns the
+    averaged metrics."""
+    k = len(phases)
+    slices_f32 = repack_position_slices(grid, tstat.statics, round_output=False)
+    big = slices_f32.numel() * slices_f32.element_size() > _BF16_SLICES_BYTES
+    leaf = slices_f32.detach()
+    if big:
+        leaf = leaf.to(torch.bfloat16)
+    leaf.requires_grad_(True)
+    dsl_sum = torch.zeros_like(slices_f32, dtype=F32)
+    sums: Dict[str, torch.Tensor] = {}
+    for i in range(k):
+        loss, aux = _pose_loss_from_slices(tstat, leaf, images[i], rotations[i],
+                                           origins[i], focal, phase=phases[i],
+                                           plain=plain)
+        (dsl,) = torch.autograd.grad(loss, leaf)
+        dsl_sum += dsl.to(F32)
+        for name, v in aux.items():
+            sums[name] = sums[name] + v.detach() if name in sums else v.detach()
+    slices_f32.backward(dsl_sum / k)
+    return {name: v / k for name, v in sums.items()}
+
+
+def gnomonic_train_step_multi(tstat: GnomonicTrainStatics,
+                              optimizer: torch.optim.Optimizer, grid: VoxelGrid,
+                              images, rotations, origins, focal,
+                              generator: Optional[torch.Generator] = None, *,
+                              phases=None, scheduler=None, plain: bool = False
+                              ) -> Dict[str, torch.Tensor]:
+    """One optimization step on the averaged gradient of k whole-pose losses
+    (``images`` [k, H, W, 3], ``rotations`` [k, 3, 3], ``origins`` [k, 3], all
+    of one march variant), the trainer's step. ``generator`` draws each
+    pose's phase jitter in turn (``phases`` [k, 2] gives them directly). The
+    optimizer (and scheduler) step in place; returns the averaged metrics."""
+    _strict_f32()
+    k = len(images)
+    if phases is None:
+        phases = [None if generator is None else draw_phase(generator)
+                  for _ in range(k)]
+    optimizer.zero_grad(set_to_none=True)
+    with grid.trainable():
+        metrics = _multi_pose_grads(tstat, grid, images, rotations, origins,
+                                    focal, phases, plain=plain)
+        _step(optimizer, scheduler)
+    return metrics
+
+
+def gnomonic_train_step_mesh(*args, **kwargs):
+    """The pose-parallel step over several devices is not ported yet."""
+    raise NotImplementedError(
+        "the multi-device gnomonic step is not ported yet (ROADMAP.md, "
+        "'Modules to port', item 9: multi-GPU)"
+    )

@@ -9,6 +9,13 @@ one launch of csrc/resample_rows.cu, on a CPU tensor ``resample_rows_plain``.
 The kernel support is at most 4 texels, so the kernel gathers the band
 instead of building the TPU kernel's banded weight matrix. All arithmetic is
 f32 (the reference runs these products at Precision.HIGHEST).
+
+``resample_rows`` is differentiable in X (a ``torch.autograd.Function``): its
+backward is the adjoint resample ``resample_rows_adjoint`` (csrc/
+resample_rows_adjoint.cu on a CUDA tensor, ``resample_rows_adjoint_plain`` on
+a CPU one), so the whole warp carries the training loss's cotangent back to
+the composited state. The ringing clamp stays a PyTorch min/max, whose
+gradient splits at ties as the reference's ``jnp.clip`` does.
 """
 from __future__ import annotations
 
@@ -71,6 +78,35 @@ def resample_rows_plain(X: torch.Tensor, pos: torch.Tensor, order: int,
     return torch.stack([out, tap(k0), tap(k0 + 1.0)], dim=1)
 
 
+def resample_rows_adjoint_plain(dY: torch.Tensor, pos: torch.Tensor, order: int,
+                                K: int, taps: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel
+    thr3ed_atom_tpu/rendering/warp_matmul.py _resample_call (adjoint=True),
+    the adjoint of ``resample_rows_plain``: ``dX[i, :, k] = sum_n
+    K(k - pos[i, n]) dY[i, :, n]`` over the same four taps (zero outside
+    [0, K)), plus with ``taps`` the planes dY[:, 1] and dY[:, 2] added at
+    floor(pos) and floor(pos) + 1. dY [NB, CH, N] (``taps``: [NB, 3, CH, N])
+    f32, pos [NB, 1, N] f32 -> dX [NB, CH, K]."""
+    g0 = dY[:, 0] if taps else dY
+    NB, CH, N = g0.shape
+    p = pos[:, 0, :]  # [NB, N]
+    k0 = torch.floor(p)
+    dX = torch.zeros((NB, CH, K), dtype=F32, device=dY.device)
+
+    def scatter(k, val):
+        ok = ((k >= 0) & (k <= K - 1))[:, None, :]
+        idx = k.clamp(0, K - 1).long()[:, None, :].expand(NB, CH, N)
+        dX.scatter_add_(2, idx, torch.where(ok, val, 0.0))
+
+    for d in (-1.0, 0.0, 1.0, 2.0):
+        k = k0 + d
+        scatter(k, _kernel_weights(k - p, order)[:, None, :] * g0)
+    if taps:
+        scatter(k0, dY[:, 1])
+        scatter(k0 + 1.0, dY[:, 2])
+    return dX
+
+
 def _resample_fn():
     lib = kernels.load("resample_rows")
     fn = lib.resample_rows_launch
@@ -79,22 +115,32 @@ def _resample_fn():
     return fn
 
 
-def resample_rows(X: torch.Tensor, pos: torch.Tensor, order: int,
-                  taps: bool = False) -> torch.Tensor:
-    """Row-batched 1-D resample (see ``resample_rows_plain``): one launch of
-    csrc/resample_rows.cu on a CUDA tensor, the plain version on a CPU one."""
-    if X.device.type == "cpu":
-        return resample_rows_plain(X, pos, order, taps)
-    if X.device.type != "cuda" or pos.device != X.device:
-        raise ValueError(f"resample_rows: unsupported devices {X.device}, {pos.device}")
-    if X.dtype != F32 or pos.dtype != F32:
-        raise TypeError("resample_rows: float32 inputs required")
-    if X.dim() != 3 or pos.shape != (X.shape[0], 1, pos.shape[2]):
-        raise ValueError(f"resample_rows: X {tuple(X.shape)}, pos {tuple(pos.shape)}")
-    if not (X.is_contiguous() and pos.is_contiguous()):
-        raise ValueError("resample_rows: contiguous inputs required")
+def _adjoint_fn():
+    lib = kernels.load("resample_rows_adjoint")
+    fn = lib.resample_rows_adjoint_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_rows(name, t, pos, order):
+    if t.device.type != "cuda" or pos.device != t.device:
+        raise ValueError(f"{name}: unsupported devices {t.device}, {pos.device}")
+    if t.dtype != F32 or pos.dtype != F32:
+        raise TypeError(f"{name}: float32 inputs required")
+    if not (t.is_contiguous() and pos.is_contiguous()):
+        raise ValueError(f"{name}: contiguous inputs required")
     if order not in (1, 3, 5):
         raise ValueError(f"unsupported warp order {order}")
+
+
+def _resample_rows_forward(X: torch.Tensor, pos: torch.Tensor, order: int,
+                           taps: bool) -> torch.Tensor:
+    if X.device.type == "cpu":
+        return resample_rows_plain(X, pos, order, taps)
+    _check_rows("resample_rows", X, pos, order)
+    if X.dim() != 3 or pos.shape != (X.shape[0], 1, pos.shape[2]):
+        raise ValueError(f"resample_rows: X {tuple(X.shape)}, pos {tuple(pos.shape)}")
     NB, CH, K = X.shape
     if CH != 8:
         raise ValueError(f"resample_rows: the kernel takes CH = 8 channels, got {CH}")
@@ -109,15 +155,77 @@ def resample_rows(X: torch.Tensor, pos: torch.Tensor, order: int,
     return out
 
 
+def resample_rows_adjoint(dY: torch.Tensor, pos: torch.Tensor, order: int,
+                          K: int, taps: bool = False) -> torch.Tensor:
+    """The adjoint resample (see ``resample_rows_adjoint_plain``): one launch
+    of csrc/resample_rows_adjoint.cu on a CUDA tensor, the plain version on a
+    CPU one."""
+    if dY.device.type == "cpu":
+        return resample_rows_adjoint_plain(dY, pos, order, K, taps)
+    _check_rows("resample_rows_adjoint", dY, pos, order)
+    NB = dY.shape[0]
+    CH, N = dY.shape[-2], dY.shape[-1]
+    if dY.shape != ((NB, 3, CH, N) if taps else (NB, CH, N)) or pos.shape != (NB, 1, N):
+        raise ValueError(f"resample_rows_adjoint: dY {tuple(dY.shape)}, pos {tuple(pos.shape)}")
+    if CH != 8:
+        raise ValueError(f"resample_rows_adjoint: the kernel takes CH = 8 channels, got {CH}")
+    dX = torch.empty((NB, CH, K), dtype=F32, device=dY.device)
+    err = _adjoint_fn()(dY.data_ptr(), pos.data_ptr(), dX.data_ptr(), NB, CH, K,
+                        N, order, int(taps),
+                        torch.cuda.current_stream(dY.device).cuda_stream)
+    kernels.check(err, "resample_rows_adjoint")
+    resample_rows_adjoint.launches += 1
+    return dX
+
+
+resample_rows_adjoint.launches = 0
+
+
+class _ResampleRows(torch.autograd.Function):
+    """resample_rows with its adjoint as the backward (the reference's custom
+    VJP, warp_matmul.py _resample_fwd / _resample_bwd); ``plain`` runs both
+    directions through the plain versions."""
+
+    @staticmethod
+    def forward(ctx, X, pos, order, taps, plain):
+        ctx.save_for_backward(pos)
+        ctx.meta = (X.shape[2], order, taps, plain)
+        if plain:
+            return resample_rows_plain(X, pos, order, taps)
+        return _resample_rows_forward(X, pos, order, taps)
+
+    @staticmethod
+    def backward(ctx, dY):
+        (pos,) = ctx.saved_tensors
+        K, order, taps, plain = ctx.meta
+        adjoint = resample_rows_adjoint_plain if plain else resample_rows_adjoint
+        return adjoint(dY.contiguous(), pos, order, K, taps), None, None, None, None
+
+
+def resample_rows(X: torch.Tensor, pos: torch.Tensor, order: int,
+                  taps: bool = False, plain: bool = False) -> torch.Tensor:
+    """Row-batched 1-D resample (see ``resample_rows_plain``): one launch of
+    csrc/resample_rows.cu on a CUDA tensor, the plain version on a CPU one
+    (or with ``plain``). Differentiable in X; the backward is
+    ``resample_rows_adjoint``."""
+    if torch.is_grad_enabled() and X.requires_grad:
+        return _ResampleRows.apply(X, pos, order, taps, plain)
+    if plain:
+        return resample_rows_plain(X, pos, order, taps)
+    return _resample_rows_forward(X, pos, order, taps)
+
+
 resample_rows.launches = 0
 
 
 def resample_rows_clamped(X, pos, order: int, plain: bool = False):
     """resample_rows + the ringing clamp: the interpolant is clipped to the
     hull of its two central taps, so empty regions stay exactly empty."""
-    fn = resample_rows_plain if plain else resample_rows
-    y3 = fn(X, pos, order, True)
+    y3 = resample_rows(X, pos, order, True, plain=plain)
     y, t0, t1 = y3[:, 0], y3[:, 1], y3[:, 2]
+    # min/max, not clamp with tensor bounds: the gradient splits at ties as
+    # the reference's jnp.clip does (y = t0 = t1 -> 1/4, 3/8, 3/8), and ties
+    # fill the empty background
     return torch.minimum(torch.maximum(y, torch.minimum(t0, t1)),
                          torch.maximum(t0, t1))
 
@@ -219,7 +327,8 @@ def warp_state_matmul(state, xr, yr, rotation, statics, height: int, width: int,
                       plain: bool = False):
     """Two-pass warp of the composited state [SROWS, Pn, Qn] to the camera's
     pixels. Returns [H, W, 8] f32 (colour rgb, acc, depth[, diffuse rgb],
-    zero-padded). ``plain`` resamples with the plain version on any device."""
+    zero-padded). ``plain`` resamples with the plain versions on any device.
+    Differentiable in ``state``."""
     if warp_order == 5:
         raise NotImplementedError(
             "gnomonic_warp_order=5 needs the B-spline prefilter, not ported yet "
@@ -277,8 +386,7 @@ def warp_state_matmul(state, xr, yr, rotation, statics, height: int, width: int,
         # order 3 clamps each pass's interpolant to its central-tap hull
         if warp_order == 3:
             return resample_rows_clamped(X, pos.contiguous(), 3, plain=plain)
-        fn = resample_rows_plain if plain else resample_rows
-        return fn(X, pos.contiguous(), 1)
+        return resample_rows(X, pos.contiguous(), 1, plain=plain)
 
     inter = one_pass(first, line_pos)
     inter = inter.permute(2, 1, 0)  # [Hp, CH, lineN]
