@@ -22,10 +22,18 @@ version on the card at the main paths' shapes:
        gnomonic_train_step_multi steps of 4 views (400 x 400, P = 2, diffuse
        regularization, Adam lr 0.03, phase jitter) on a 128^3 grid started at
        uniform(-1, 1), towards views rendered in phase 5; the loss must fall
-       and the first step's gradient must match the plain versions' step.
-The launch counts of phases 5 and 8, each reset just before its run, show the
-paths went through the kernels; one more pass of each under torch.profiler
-prints the device time and the device's busy share.
+       and the first step's gradient must match the plain versions' step;
+  9-10. the stripe composite (K5) and its replay backward (K7) at 128^3 and
+       at the CLI's first stage (64^3, P = 4, 200 x 200), where K1, K3 and
+       both warp passes (K2, K4) are held too;
+  11.  the serving path with gnomonic_qb = 0;
+  12.  the training CLI end to end, main([...]) twice (the default qb, and
+       --gnomonic_qb 0) on 20 views it renders and writes first: each
+       stage's first step is held against the plain versions' step, and the
+       loss on that step's views must fall by 1% over the stage.
+The launch counts of phases 5, 8, 11 and 12, each reset just before its run,
+show the paths went through the kernels; one more pass of phases 5 and 8
+under torch.profiler prints the device time and the device's busy share.
 
 Prints the card's name and power limit first, one JSON line of per-kernel
 results before the last line, and as the last line
@@ -35,6 +43,7 @@ also exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
 """
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -47,11 +56,16 @@ REPO = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 GRID_SIZE, IMAGE_SIZE, NUM_POSES = 128, 400, 8
+CLI_VIEWS, CLI_SIZE = (16, 4), 800  # the CLI's dataset: (train, test) views, pixels
+CLI_GRID = 128  # the CLI's final grid; its first stage is half that
+CLI_STEPS = 4  # the CLI's steps per stage
 
 
 def load_port():
     """Import the port's modules (the repository root must be on sys.path)."""
     from thr3ed_atom_tpu_torch import kernels
+    from thr3ed_atom_tpu_torch.apps import train_sh_voxel_grid as cli
+    from thr3ed_atom_tpu_torch.data import png
     from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid, voxel_grid_from_numpy
     from thr3ed_atom_tpu_torch.modules import trainer
     from thr3ed_atom_tpu_torch.modules import volumetric_model as vm
@@ -64,7 +78,8 @@ def load_port():
 
     return dict(kernels=kernels, voxel_grid_from_numpy=voxel_grid_from_numpy,
                 VoxelGrid=VoxelGrid, vm=vm, rt=rt, gn=gn, gt=gt, wm=wm,
-                trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera)
+                trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera, cli=cli,
+                png=png)
 
 
 def check(cond, msg):
@@ -174,6 +189,278 @@ def resample_sources(torch, pos, order, K):
     return int(need[:, :K].sum())
 
 
+def psnr(a, b):
+    mse = float(((a - b) ** 2).mean())
+    return float("inf") if mse == 0 else -10.0 * float(np.log10(mse))
+
+
+def stripe_case(torch, gn, grid, st, rot, org, size, focal, ss, phase=None):
+    """The stripe composite's operands for one pose (``st`` with qb = 0), and
+    how many elements of the u-resampled stack t1 differ from an f32
+    reference (each sums at most two exact bf16 products, so none may)."""
+    gn._strict_f32()
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, size, size, None, ss, st)
+    slices = gn.repack_position_slices(grid, st, vertex_only=False)
+    geo = gn.gnomonic_geometry(rot, org, st, size, size, focal, ss, phase=phase, lite=False,
+                               skip_basis=False)
+    t1 = gn.resample_u(slices, geo.Ru)
+    ref = torch.einsum("jpu,jucv->jcpv", geo.Ru.float(), slices.float()).to(torch.bfloat16)
+    mismatch = int((t1 != ref).sum())
+    del ref
+    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    return (t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom, st,
+            Pn, Qn, PB, Pb, occ), mismatch
+
+
+def stripe_compare(torch, gn, args, label):
+    """K5 against its plain version at the kernel's exit grain: colour / acc
+    (and diffuse) within 1e-4, depth within 1e-3, as K1. Returns the per-row
+    gaps and the marched (position, texel) mask."""
+    got = gn.composite_positions(*args)
+    torch.cuda.synchronize()
+    want, work = gn.composite_positions_plain(*args, exit_tile=gn.CUDA_EXIT_TILE,
+                                              return_work=True)
+    gap = (got - want).abs().amax(dim=(1, 2)).tolist()
+    check(bool(torch.isfinite(got).all()), f"K5 ({label}) produced non-finite values")
+    check(max(gap[:5] + gap[6:]) <= 1e-4 and gap[5] <= 1e-3,
+          f"K5 vs plain ({label}): per-row max-abs {gap}")
+    check(float(want[4].max()) > 0.5, f"K5 ({label}): the scene is not hit")
+    print(f"# K5 composite_stripe {label}: max-abs per row {gap}; marched pairs "
+          f"{int(work.sum())} of {work.numel()}", flush=True)
+    return gap, work
+
+
+def stripe_counts(torch, args, work):
+    """(bytes read, operations) of the stripe march over the marched pairs
+    ``work``: t1's used channels on each marched texel row of a position at
+    the v rows its tents reach, the tents' nonzero taps, geometry, flags, the
+    basis and norm of marched texels, the liveness; 2 taps (mul, add) per
+    used channel and the SH fold per marched pair."""
+    t1, rvt, _, _, _, _, _, st, Pn, Qn, PB, _, _ = args
+    NP = t1.shape[0]
+    nc, used = st.ncoeff, 3 * st.ncoeff + 1
+    rows = work.any(dim=2).sum(dim=1).double()
+    vrows = (rvt != 0).any(dim=2).sum(dim=1).double()
+    t1_elems = int((rows * vrows).sum()) * used
+    texels = int(work.any(dim=0).sum())
+    nbytes = (t1_elems * 2 + int((rvt != 0).sum()) * 2 + NP * 8 * 4 + 2 * PB * NP * 4
+              + (nc + 1) * texels * 4 + NP * (Pn + Qn) * 4)
+    return nbytes, int(work.sum()) * (used * 4 + 3 * nc * 2)
+
+
+def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
+    """K7 against its plain version on a seeded state cotangent: max-abs
+    within 1e-2 of the largest element, cosine > 0.99999 (K3's bound), pad
+    channels zero. Returns (max-abs, cosine, ms, plain ms, bound)."""
+    t1, ops, st, frame, occ = args[0], args[1:7], args[7], args[8:12], args[12]
+    state = gn.composite_positions_plain(*args)
+    gstate = torch.randn(state.shape, generator=gen, device=state.device)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    bargs = (t1, *ops, gaux, occ, st, *frame)
+    got = gt.composite_backward(*bargs)
+    torch.cuda.synchronize()
+    want = gt.composite_backward_plain(*bargs)
+    err, scale = max_abs(got.float(), want.float()), float(want.float().abs().max())
+    cos = cosine(got.float(), want.float())
+    used = 3 * st.ncoeff + 1
+    check(scale > 0.0 and err <= 1e-2 * scale and cos > 0.99999,
+          f"K7 vs plain ({label}): max-abs {err} (scale {scale}), cosine {cos}")
+    check(not bool(got[:, used:].any()), f"K7 ({label}) wrote pad channels")
+    ms = time_ms(torch, lambda: gt.composite_backward(*bargs), 5)
+    plain_ms = time_ms(torch, lambda: gt.composite_backward_plain(*bargs), 1)
+    # bytes: the replay's reads (as K5), the cotangent rows of texels in
+    # needed blocks, dt1 written; ops: the replay, ~120 per pair for the
+    # cell's backward, the SH fold back, and the v-fold (2 taps x mul+add per
+    # used channel and column) of every needed texel row
+    Pn, Qn, PB, Pb = frame
+    rb, rops = stripe_counts(torch, args, work)
+    needed_texels = int(occ[1].any(dim=1).sum()) * Pb * Qn
+    nbytes = rb + gaux.shape[0] * needed_texels * 4 + got.numel() * 2
+    nops = (rops + int(work.sum()) * (120 + used * 2)
+            + int(occ[1].sum()) * Pb * used * Qn * 4)
+    print(f"# K7 composite_stripe_backward {label}: max-abs {err:.3g} of {scale:.3g}, cosine "
+          f"{cos:.9f}; ms={ms:.4f} plain_ms={plain_ms:.4f}; dt1 {tuple(got.shape)}", flush=True)
+    return err, cos, ms, plain_ms, bound(nbytes, nops)
+
+
+def resample_operands(wm, call):
+    """(X, positions, order, taps) of every resample_rows call that ``call()``
+    makes; run it with the plain versions (nothing is launched)."""
+    seen, original = [], wm.resample_rows
+
+    def record(X, pos, order, taps=False, plain=False):
+        seen.append((X.detach().clone(), pos.clone(), order, taps))
+        return original(X, pos, order, taps, plain=plain)
+
+    wm.resample_rows = record
+    try:
+        call()
+    finally:
+        wm.resample_rows = original
+    return seen
+
+
+def uncounted(counters, fn):
+    """``fn()`` with the launch counts put back as they were afterwards: the
+    launches of a check are not the main path's."""
+    saved = {name: c.launches for name, c in counters.items()}
+    try:
+        return fn()
+    finally:
+        for name, c in counters.items():
+            c.launches = saved[name]
+
+
+def views_loss(torch, gt, tstat, grid, views):
+    """The step's objective (mean over the views) on ``views`` = (images,
+    rotations, origins, focal, phases), forward only."""
+    images, rots, orgs, focal, phases = views
+    with torch.no_grad():
+        return float(sum(gt._pose_loss(tstat, grid, images[i], rots[i], orgs[i], focal,
+                                       phase=phases[i])[0] for i in range(len(phases)))
+                     / len(phases))
+
+
+def recording_step(torch, gt, original_step, counters, steps, firsts):
+    """A stand-in for gnomonic_train_step_multi that times each step (CUDA
+    synchronized) into ``steps`` as (grid size, fused, ms, loss), keeps each
+    stage's first step in ``firsts`` (the grid it started from, its views
+    and phases, loss and gradient) and, after the stage's CLI_STEPS-th step,
+    the loss on those views; those evaluations' launches are not counted."""
+
+    def timed_step(tstat, optimizer, grid, images, rots, orgs, focal, generator=None,
+                   *, phases=None, **kw):
+        # the phases drawn here as the step draws them, so that a stage's
+        # first step can be replayed through the plain versions
+        if phases is None:
+            phases = [None if generator is None else gt.draw_phase(generator)
+                      for _ in images]
+        dims = tstat.statics.dims[0]
+        first = dims not in firsts
+        if first:
+            start = (grid.densities.detach().clone(), grid.features.detach().clone())
+            loss_before = uncounted(counters, lambda: views_loss(
+                torch, gt, tstat, grid, (images, rots, orgs, focal, phases)))
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        m = original_step(tstat, optimizer, grid, images, rots, orgs, focal,
+                          phases=phases, **kw)
+        torch.cuda.synchronize()
+        steps.append((dims, tstat.fused, (time.perf_counter() - t_step) * 1e3,
+                      float(m["total_loss"])))
+        if first:
+            firsts[dims] = dict(
+                tstat=tstat, start=start, voxel_size=grid.voxel_size,
+                config=grid.get_config_dict(), loss=steps[-1][3],
+                loss_before=loss_before, views=(images, rots, orgs, focal, phases),
+                grads=(grid.densities.grad.clone(), grid.features.grad.clone()))
+        elif sum(s_[0] == dims for s_ in steps) == CLI_STEPS:
+            rec = firsts[dims]
+            rec["loss_after"] = uncounted(counters, lambda: views_loss(
+                torch, gt, rec["tstat"], grid, rec["views"]))
+        return m
+
+    return timed_step
+
+
+def check_stage_first_steps(torch, port, firsts, qb):
+    """Each CLI stage's first step against the same step through the plain
+    versions (on a copy of the grid the step started from, the same views
+    and phases): loss within rtol 1e-5, grid gradient cosine > 0.99999 (the
+    bounds of phase 8); and the stage's progress on those views: their loss,
+    evaluated alone before the first step (equal to the step's, rtol 1e-5)
+    and after the stage's last step, falls by at least 1%."""
+    gt, trainer = port["gt"], port["trainer"]
+    out = {}
+    for dims, rec in sorted(firsts.items()):
+        d0, f0 = rec["start"]
+        g = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
+        opt, sched = trainer.make_gnomonic_optimizer(g, 0.03)
+        m = gt.gnomonic_train_step_multi(rec["tstat"], opt, g, *rec["views"][:4],
+                                         phases=rec["views"][4], scheduler=sched, plain=True)
+        plain_loss = float(m["total_loss"])
+        cos = [cosine(a, b) for a, b in zip(rec["grads"], (g.densities.grad, g.features.grad))]
+        check(abs(rec["loss"] - plain_loss) <= 1e-5 * plain_loss and min(cos) > 0.99999,
+              f"CLI qb={qb}: stage {dims}^3 first step vs plain: loss {rec['loss']} vs "
+              f"{plain_loss}, gradient cosines {cos}")
+        check(abs(rec["loss_before"] - rec["loss"]) <= 1e-5 * rec["loss"],
+              f"CLI qb={qb}: stage {dims}^3 views' loss {rec['loss_before']} before the "
+              f"first step, the step's {rec['loss']}")
+        check(rec["loss_after"] <= 0.99 * rec["loss_before"],
+              f"CLI qb={qb}: stage {dims}^3 loss on its first step's views "
+              f"{rec['loss_before']} -> {rec['loss_after']} after its last step")
+        out[f"{dims}^3"] = dict(loss=rec["loss"], plain_loss=plain_loss, grad_cos=cos,
+                                loss_before=rec["loss_before"], loss_after=rec["loss_after"])
+        del g, opt, sched, m
+    return out
+
+
+def make_posed_dataset(torch, camera, png, model, root, views, size):
+    """``views`` = (train, test) views of ``model`` at size x size (focal
+    1.1 size, radius 4, seeded poses) rendered through the serving path and
+    written in the JAX package's layout: root/<split>/r_<i>.png (RGB) and
+    root/<split>_camera_params.json."""
+    rng = np.random.default_rng(5)
+    intr = camera.CameraIntrinsics(size, size, size * 1.1)
+    for mode, n in zip(("train", "test"), views):
+        poses = [camera.pose_spherical(rng.uniform(0, 360), rng.uniform(-80, -10), 4.0)
+                 for _ in range(n)]
+        colour = model.render_poses(poses, intr).colour.clamp(0.0, 1.0).cpu().numpy()
+        (root / mode).mkdir(parents=True)
+        params = {}
+        for i, pose in enumerate(poses):
+            name = f"r_{i}.png"
+            png.write_png(root / mode / name, camera.to8b(colour[i]))
+            params[name] = {
+                "intrinsic": {"bounds": [2.0, 6.0], "height": size, "width": size,
+                              "focal": size * 1.1},
+                "extrinsic": {
+                    "rotation": np.asarray(pose.rotation, np.float32).reshape(3, 3).tolist(),
+                    "translation": np.asarray(pose.translation,
+                                              np.float32).reshape(3, 1).tolist(),
+                },
+            }
+        (root / f"{mode}_camera_params.json").write_text(json.dumps(params))
+
+
+def check_cli_run(torch, trained, out_dir, steps, counts, qb):
+    """The checks of one CLI run: a finite final grid; the JAX package's
+    checkpoint names with their _opt.npz; 4 steps per stage through the
+    expected pipeline; a held-out PSNR per stage; K1 / K3 launched and K5 /
+    K7 not (qb > 0), or the reverse (qb = 0). Returns ms/step (steps 2-4) and
+    losses per stage and the held-out PSNRs."""
+    g = trained.thre3d_repr
+    check(g.grid_dims == (CLI_GRID,) * 3, f"CLI qb={qb}: final grid {g.grid_dims}")
+    check(all(bool(torch.isfinite(t).all()) for t in (g.densities, g.features)),
+          f"CLI qb={qb}: non-finite grid")
+    saved = out_dir / "saved_models"
+    for it, stage in ((1, 1), (2, 1), (4, 1), (5, 2), (6, 2), (8, 2)):
+        stem = saved / f"model_stage_{stage}_iter_{it}"
+        for suffix in (".npz", ".json", "_opt.npz"):
+            check(Path(str(stem) + suffix).exists(), f"CLI qb={qb}: missing {stem}{suffix}")
+    check((saved / "model_final.npz").exists(), f"CLI qb={qb}: missing model_final")
+    check(len(steps) == 8 and all(f == (qb > 0) for _, f, _, _ in steps),
+          f"CLI qb={qb}: steps {[(d, f) for d, f, _, _ in steps]}")
+    losses, ms = {}, {}
+    for dims, _, t, loss in steps:
+        losses.setdefault(dims, []).append(round(loss, 5))
+        ms.setdefault(dims, []).append(t)
+    check(all(len(ls) == CLI_STEPS for ls in losses.values()), f"CLI qb={qb}: losses {losses}")
+    summaries = [json.loads(line) for line in
+                 (out_dir / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+    test_psnr = {s["step"]: round(s["value"], 3) for s in summaries
+                 if s["name"] == "TEST_SET_PSNR"}
+    check(sorted(test_psnr) == [4, 8], f"CLI qb={qb}: held-out tests at {sorted(test_psnr)}")
+    mine = ("composite_fused", "composite_backward_fused")
+    other = ("composite_stripe", "composite_stripe_backward")
+    if qb == 0:
+        mine, other = other, mine
+    check(all(counts[k] > 0 for k in mine + ("resample_rows", "resample_rows_adjoint"))
+          and all(counts[k] == 0 for k in other), f"CLI qb={qb}: launches {counts}")
+    return dict(ms_per_step={f"{d}^3": round(float(np.mean(v[1:])), 3) for d, v in ms.items()},
+                losses={f"{d}^3": v for d, v in losses.items()}, test_psnr=test_psnr)
+
+
 def main() -> int:
     import torch
 
@@ -184,6 +471,15 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        return run(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def run(torch, workdir: Path) -> int:
+    """The phases; files go to ``workdir``."""
     port = load_port()
     kernels, gn, wm, rt, vm = (port[k] for k in ("kernels", "gn", "wm", "rt", "vm"))
     dev = torch.device("cuda")
@@ -366,13 +662,12 @@ def main() -> int:
     del slices, work
 
     # ---- phase 5: the serving path end to end
-    with tempfile.TemporaryDirectory() as tmp:
-        model = vm.VolumetricModel(grid, "render_sh_voxel_grid_gnomonic", config)
-        vm.save_model(model, Path(tmp) / "blob128",
-                      {"hemispherical_radius": 4.0,
-                       "camera_intrinsics": [IMAGE_SIZE, IMAGE_SIZE, intr.focal]})
-        del model
-        model, extra = vm.create_volumetric_model_from_saved_model(Path(tmp) / "blob128")
+    model = vm.VolumetricModel(grid, "render_sh_voxel_grid_gnomonic", config)
+    vm.save_model(model, workdir / "blob128",
+                  {"hemispherical_radius": 4.0,
+                   "camera_intrinsics": [IMAGE_SIZE, IMAGE_SIZE, intr.focal]})
+    del model
+    model, extra = vm.create_volumetric_model_from_saved_model(workdir / "blob128")
     check(model.thre3d_repr.device.type == "cuda", "the loaded model is not on the card")
     render_poses = poses[:NUM_POSES]
     variants = {gn.dominant_axis_for_pose(np.asarray(p.rotation)) for p in render_poses}
@@ -421,12 +716,11 @@ def main() -> int:
     check(float(acc.max()) > 0.5, "the scene is not hit")
     ref = gn.render_poses_gnomonic(model.thre3d_repr, render_poses, intr,
                                    model.render_config, plain=True)
-    mse = float(((out.colour - ref.colour) ** 2).mean())
-    psnr = float("inf") if mse == 0 else -10.0 * np.log10(mse)
+    psnr5 = psnr(out.colour, ref.colour)
     col_err = max_abs(out.colour, ref.colour)
-    print(f"# serving vs plain: PSNR {psnr:.2f} dB, colour max-abs {col_err:.3g}, "
+    print(f"# serving vs plain: PSNR {psnr5:.2f} dB, colour max-abs {col_err:.3g}, "
           f"depth max-abs {max_abs(out.depth, ref.depth):.3g}", flush=True)
-    check(psnr >= 60.0, f"serving render vs plain PSNR {psnr:.2f} dB < 60")
+    check(psnr5 >= 60.0, f"serving render vs plain PSNR {psnr5:.2f} dB < 60")
 
     # ---- phase 6: resample_rows_adjoint (K4) vs plain at [512, 3, 8, 512] -> [512, 8, 512]
     dY3 = torch.randn(NB, 3, CH, N, generator=gen, device=dev)
@@ -675,40 +969,268 @@ def main() -> int:
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / 2:.4f} ms/step"
                       for e in top), flush=True)
 
+    # ---- phase 9: the stripe composite (K5) vs plain: the serving
+    # configuration with qb = 0 on the blob pose (exit_eps 1e-4, and 0), the
+    # training operands (diffuse, phase-shifted frame, exit 0), and the CLI's
+    # first stage (64^3, P = 4, 200 x 200), where K1 is held too
+    focal_t = torch.tensor(intr.focal, dtype=torch.float32, device=dev)
+    rot0_t, org0_t = torch.as_tensor(rot0, device=dev), torch.as_tensor(org0, device=dev)
+    st_v2 = st._replace(qb=0)
+    args9, t1_exact = stripe_case(torch, gn, grid, st_v2, rot0_t, org0_t, IMAGE_SIZE,
+                                  focal_t, ss)
+    check(t1_exact == 0, f"u-resample t1 differs from the f32 reference in {t1_exact} elements")
+    k5_err, k5_work = 0.0, None
+    for eps in (0.0, 1e-4):
+        a = args9[:7] + (st_v2._replace(exit_eps=eps),) + args9[8:]
+        gap, work = stripe_compare(torch, gn, a, f"serving 128^3 exit_eps={eps}")
+        k5_err = max(k5_err, max(gap))
+        if eps > 0.0:
+            k5_work = work
+    a9 = args9[:7] + (st_v2._replace(exit_eps=1e-4),) + args9[8:]
+    k5_ms = time_ms(torch, lambda: gn.composite_positions(*a9), 20)
+    k5_plain_ms = time_ms(torch, lambda: gn.composite_positions_plain(
+        *a9, exit_tile=gn.CUDA_EXIT_TILE), 2)
+    k5_bytes, k5_ops = stripe_counts(torch, a9, k5_work)
+    print(f"# K5 composite_stripe (serving, 128^3): ms={k5_ms:.4f} plain_ms={k5_plain_ms:.4f}; "
+          f"{int(k5_work.sum())} marched pairs; bound counts {k5_bytes} bytes, {k5_ops} "
+          f"operations; t1 {tuple(args9[0].shape)} bit-equal to the f32 reference", flush=True)
+    del args9, a9, k5_work
+
+    # the training operands at 128^3 (qb = 0 train statics, diffuse on)
+    tstat0 = gt.make_gnomonic_train_statics(
+        grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+        apply_diffuse_render_regularization=True, warp_swap=swap0, qb=0)
+    check(not tstat0.fused, "qb=0 train statics are not the v2 pipeline")
+    args9t, _ = stripe_case(torch, gn, grid, tstat0.statics, rot0_t, org0_t, IMAGE_SIZE,
+                            focal_t, tstat0.supersample, phase=(0.25, -0.125))
+    gap, work9t = stripe_compare(torch, gn, args9t, "training operands 128^3")
+    k5_err = max(k5_err, max(gap))
+    k5t_ms = time_ms(torch, lambda: gn.composite_positions(*args9t), 10)
+
+    # ---- phase 10: the stripe replay backward (K7) vs plain, same operands
+    k7_err, k7_cos, k7_ms, k7_plain_ms, k7_bound = stripe_backward_compare(
+        torch, gn, gt, args9t, work9t, gen, "training 128^3")
+    del args9t, work9t
+
+    # the CLI's first stage: 64^3 blob, P = 4, 200 x 200 (focal x 0.5)
+    d64, f64, cfg64 = blob_scene(CLI_GRID // 2)
+    grid64 = port["voxel_grid_from_numpy"](d64, f64, cfg64, device=dev)
+    S1 = IMAGE_SIZE // 2
+    focal64 = torch.tensor(intr.focal / 2, dtype=torch.float32, device=dev)
+    for fused in (False, True):
+        ts64 = gt.make_gnomonic_train_statics(
+            grid64, axis, flip, image_height=S1, image_width=S1, white_bkgd=True,
+            apply_diffuse_render_regularization=True, qb=128 if fused else 0)
+        if not fused:
+            a64, _ = stripe_case(torch, gn, grid64, ts64.statics, rot0_t, org0_t, S1, focal64,
+                                 ts64.supersample, phase=(0.25, -0.125))
+            gap, w64 = stripe_compare(torch, gn, a64, "training operands 64^3")
+            k5_err = max(k5_err, max(gap))
+            e7 = stripe_backward_compare(torch, gn, gt, a64, w64, gen, "training 64^3")
+            k7_err, k7_cos = max(k7_err, e7[0]), min(k7_cos, e7[1])
+            del a64, w64
+            continue
+        st64 = ts64.statics
+        Pn64, Qn64, PB64, Pb64 = ts64.frame
+        sl64 = gn.repack_position_slices(grid64, st64)
+        geo64 = gn.gnomonic_geometry(rot0_t, org0_t, st64, S1, S1, focal64, ts64.supersample,
+                                     phase=(0.25, -0.125), skip_basis=False)
+        occ64 = gn.gnomonic_occupancy_lite(sl64, geo64.geom, st64, Pn64, Qn64, PB64, Pb64,
+                                           *gn._qb_blocks(st64, Qn64))
+        a1 = (sl64, geo64.ybasis, geo64.norm, geo64.geom, st64, Pn64, Qn64, PB64, Pb64, occ64)
+        got1 = gn.composite_positions_fused(*a1)
+        torch.cuda.synchronize()
+        want1 = gn.composite_positions_fused_plain(*a1)
+        gap = (got1 - want1).abs().amax(dim=(1, 2)).tolist()
+        check(max(gap[:5] + gap[6:]) <= 1e-4 and gap[5] <= 1e-3,
+              f"K1 at 64^3 vs plain: per-row max-abs {gap}")
+        gs = torch.randn(want1.shape, generator=gen, device=dev)
+        gaux64 = torch.cat([gs, (gs[1:] * want1[1:]).sum(0)[None], want1[0:1]])
+        a3 = a1[:4] + (gaux64, occ64) + a1[4:9]
+        got3 = gt.composite_backward_fused(*a3)
+        torch.cuda.synchronize()
+        want3 = gt.composite_backward_fused_plain(*a3)
+        e3, sc3 = max_abs(got3.float(), want3.float()), float(want3.float().abs().max())
+        c3 = cosine(got3.float(), want3.float())
+        check(sc3 > 0.0 and e3 <= 1e-2 * sc3 and c3 > 0.99999,
+              f"K3 at 64^3 vs plain: max-abs {e3} (scale {sc3}), cosine {c3}")
+        print(f"# K1 / K3 at the CLI's first stage ({CLI_GRID // 2}^3, P={st64.pos_per_cell}, "
+              f"frame {Pn64}x{Qn64}): K1 "
+              f"max-abs per row {gap}; K3 max-abs {e3:.3g} of {sc3:.3g}, cosine {c3:.9f}",
+              flush=True)
+        results["composite_fused"]["extra"]["stage1_64_max_abs_err"] = max(gap)
+        results["composite_backward_fused"]["extra"]["stage1_64_max_abs_err"] = e3
+        # K2 / K4 at this stage's warp: both passes' (X, positions) of the warp
+        # of K1's state (frame 256 x 256 -> 200 x 200, order 3 with taps),
+        # captured from the plain warp, through the kernels vs the plain
+        # versions with the bounds of phases 3 and 6
+        warp_ops = resample_operands(wm, lambda: gn._warp_to_camera(
+            want1, geo64.xr, geo64.yr, rot0_t, st64, S1, S1, focal64, ts64.supersample, True,
+            warp_order=ts64.warp_order, warp_swap=ts64.warp_swap, plain=True))
+        check(len(warp_ops) == 2, f"the warp made {len(warp_ops)} resample calls, not 2")
+        e2 = e4 = 0.0
+        for X, p, order, taps in warp_ops:
+            got = wm.resample_rows(X, p, order, taps)
+            torch.cuda.synchronize()
+            want = wm.resample_rows_plain(X, p, order, taps)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+            dY = torch.randn(got.shape, generator=gen, device=dev)
+            got_a = wm.resample_rows_adjoint(dY, p, order, X.shape[2], taps)
+            torch.cuda.synchronize()
+            want_a = wm.resample_rows_adjoint_plain(dY, p, order, X.shape[2], taps)
+            torch.testing.assert_close(got_a, want_a, rtol=1e-5, atol=1e-5)
+            e2, e4 = max(e2, max_abs(got, want)), max(e4, max_abs(got_a, want_a))
+        print(f"# K2 / K4 at the CLI's first stage: passes "
+              f"{[(tuple(X.shape), tuple(p.shape), order, taps) for X, p, order, taps in warp_ops]}"
+              f"; K2 max-abs {e2:.3g}, K4 max-abs {e4:.3g}", flush=True)
+        for name, e in (("resample_rows", e2), ("resample_rows_adjoint", e4)):
+            results[name]["err"] = max(results[name]["err"], e)
+            results[name]["extra"]["stage1_64_max_abs_err"] = e
+        del a1, a3, got1, want1, got3, want3, sl64, geo64, occ64, gs, gaux64, warp_ops
+        del got, want, dY, got_a, want_a
+    del grid64
+    results["composite_stripe"] = dict(
+        err=k5_err, ms=k5_ms, plain_ms=k5_plain_ms, bound=bound(k5_bytes, k5_ops),
+        extra=dict(training_operands_ms=k5t_ms))
+    results["composite_stripe_backward"] = dict(
+        err=k7_err, ms=k7_ms, plain_ms=k7_plain_ms, bound=k7_bound,
+        extra=dict(cosine_vs_plain=k7_cos))
+
+    # ---- phase 11: the serving path with gnomonic_qb = 0 on phase 5's saved model
+    model, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128")
+    model.render_poses(render_poses, intr, gnomonic_qb=0)  # warm-up
+    torch.cuda.synchronize()
+    counters11 = {"composite_stripe": gn.composite_positions,
+                  "composite_fused": gn.composite_positions_fused,
+                  "resample_rows": wm.resample_rows}
+    for c in counters11.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out0 = model.render_poses(render_poses, intr, gnomonic_qb=0)
+    torch.cuda.synchronize()
+    ms_pose_v2 = (time.perf_counter() - t0) * 1e3 / NUM_POSES
+    launches11 = {name: c.launches for name, c in counters11.items()}
+    check(launches11["composite_stripe"] == NUM_POSES and launches11["composite_fused"] == 0
+          and launches11["resample_rows"] > 0, f"qb=0 serving launches {launches11}")
+    for name, t in (("colour", out0.colour), ("depth", out0.depth)):
+        check(bool(torch.isfinite(t).all()), f"qb=0 render: non-finite {name}")
+    ref0 = gn.render_poses_gnomonic(model.thre3d_repr, render_poses, intr,
+                                    model.render_config.replace(
+                                        gnomonic_qb=0, perturb_sampled_points=False),
+                                    plain=True)
+    fused_out = model.render_poses(render_poses, intr)
+    psnr_plain = psnr(out0.colour, ref0.colour)
+    psnr_fused = psnr(out0.colour, fused_out.colour)
+    print(f"# serving qb=0: {NUM_POSES} poses, {ms_pose_v2:.3f} ms/pose (host clock, "
+          f"synchronized), launches {launches11}; PSNR vs plain {psnr_plain:.2f} dB, vs the "
+          f"fused render {psnr_fused:.2f} dB (colour max-abs "
+          f"{max_abs(out0.colour, fused_out.colour):.3g})", flush=True)
+    check(psnr_plain >= 60.0, f"qb=0 render vs plain PSNR {psnr_plain:.2f} dB < 60")
+    del out0, ref0, fused_out
+
+    # ---- phase 12: the training CLI end to end. The dataset: 16 train and 4
+    # test views of the blob model at 800 x 800 (serving path), as PNGs with
+    # the JAX package's camera JSON; two in-process runs of main(), the
+    # default qb and --gnomonic_qb 0
+    data = workdir / "blob_views"
+    make_posed_dataset(torch, camera, port["png"], model, data, CLI_VIEWS, CLI_SIZE)
+    del model
+    cli = port["cli"]
+    counters12 = {"composite_fused": gn.composite_positions_fused,
+                  "composite_backward_fused": gt.composite_backward_fused,
+                  "composite_stripe": gn.composite_positions,
+                  "composite_stripe_backward": gt.composite_backward,
+                  "resample_rows": wm.resample_rows,
+                  "resample_rows_adjoint": wm.resample_rows_adjoint}
+    original_step = gt.gnomonic_train_step_multi
+    cli_runs = {}
+    for qb in (128, 0):
+        steps, firsts = [], {}
+
+        timed_step = recording_step(torch, gt, original_step, counters12, steps, firsts)
+
+        out_dir = workdir / f"cli_qb{qb}"
+        argv = ["-d", str(data), "-o", str(out_dir), "--grid_dims", *[str(CLI_GRID)] * 3,
+                "--num_stages", "2", "--num_iterations_per_stage", "4",
+                "--save_frequency", "2", "--test_frequency", "4", "--feedback_frequency", "4",
+                "--summary_frequency", "1"] + (["--gnomonic_qb", "0"] if qb == 0 else [])
+        gt.gnomonic_train_step_multi = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters12.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            trained = cli.main(argv)
+        finally:
+            gt.gnomonic_train_step_multi = original_step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: c.launches for name, c in counters12.items()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        cli_runs[qb] = check_cli_run(torch, trained, out_dir, steps, counts, qb)
+        cli_runs[qb].update(launches=counts, peak_gb=peak, wall_s=wall)
+        del trained
+        print(f"# CLI qb={qb}: {wall:.1f} s in main(); ms/step per stage "
+              f"{cli_runs[qb]['ms_per_step']}; losses per stage {cli_runs[qb]['losses']}; "
+              f"held-out PSNR per stage {cli_runs[qb]['test_psnr']}; launches {counts}; "
+              f"peak memory {peak:.2f} GB", flush=True)
+        # after main(): the plain replays stay out of its time and peak memory
+        stages = uncounted(counters12, lambda: check_stage_first_steps(torch, port, firsts, qb))
+        print(f"# CLI qb={qb}: each stage's first step vs plain and its views' loss after "
+              f"the stage's last step: {stages}", flush=True)
+        del firsts
+
     rows = []
     meta = {
         "composite_fused": ("cuda", "thr3ed_atom_tpu_torch/csrc/composite_fused.cu",
-                            "thr3ed_atom_tpu/rendering/gnomonic.py:934"),
+                            "thr3ed_atom_tpu/rendering/gnomonic.py:1010"),
         "relu_trap": ("cuda", "thr3ed_atom_tpu_torch/csrc/relu_trap.cuh",
                       "thr3ed_atom_tpu/ops/pallas/plane_march.py:83"),
         "resample_rows": ("cuda", "thr3ed_atom_tpu_torch/csrc/resample_rows.cu",
-                          "thr3ed_atom_tpu/rendering/warp_matmul.py:206"),
+                          "thr3ed_atom_tpu/rendering/warp_matmul.py:253"),
         "composite_backward_fused": (
             "cuda", "thr3ed_atom_tpu_torch/csrc/composite_backward_fused.cu",
-            "thr3ed_atom_tpu/rendering/gnomonic_train.py:966"),
+            "thr3ed_atom_tpu/rendering/gnomonic_train.py:999"),
         "resample_rows_adjoint": ("cuda", "thr3ed_atom_tpu_torch/csrc/resample_rows_adjoint.cu",
-                                  "thr3ed_atom_tpu/rendering/warp_matmul.py:206"),
+                                  "thr3ed_atom_tpu/rendering/warp_matmul.py:253"),
+        "composite_stripe": ("cuda", "thr3ed_atom_tpu_torch/csrc/composite_stripe.cu",
+                             "thr3ed_atom_tpu/rendering/gnomonic.py:619"),
+        "composite_stripe_backward": (
+            "cuda", "thr3ed_atom_tpu_torch/csrc/composite_stripe_backward.cu",
+            "thr3ed_atom_tpu/rendering/gnomonic_train.py:651"),
     }
-    # launches: the training run's counts (phase 8, 10 steps); the serving
-    # run's (phase 5) stand beside them for the kernels it launches
-    # relu_trap (K1a) is a device function of both composite kernels
-    train_launches["relu_trap"] = (train_launches["composite_fused"]
-                                   + train_launches["composite_backward_fused"])
+    # launches: the main path's, the two CLI runs of phase 12 (counts reset
+    # just before each run, read just after); relu_trap (K1a) is a device
+    # function of the four composite kernels. The serving run's (phase 5)
+    # and the 10-step training run's (phase 8) stand beside them
+    inside = ("composite_fused", "composite_backward_fused", "composite_stripe",
+              "composite_stripe_backward")
+    for counts in [r["launches"] for r in cli_runs.values()] + [train_launches, launches]:
+        counts["relu_trap"] = sum(counts.get(k, 0) for k in inside)
+    main_path = {name: sum(r["launches"].get(name, 0) for r in cli_runs.values())
+                 for name in meta}
+    check(all(v > 0 for v in main_path.values()), f"a kernel was not launched on the main "
+          f"path: {main_path}")
     for name, r in results.items():
         route, source, replaces = meta[name]
         rows.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=train_launches[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
+            launches=main_path[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None,
+            launches_cli_qb128=cli_runs[128]["launches"][name],
+            launches_cli_qb0=cli_runs[0]["launches"][name],
+            launches_training_phase8=train_launches.get(name, 0),
+            launches_serving_phase5=launches.get(name, 0),
         ))
-        if name in launches:
-            rows[-1]["launches_serving"] = launches[name]
         if name == "relu_trap":
-            rows[-1]["launches_inside"] = "composite_fused, composite_backward_fused"
+            rows[-1]["launches_inside"] = ", ".join(inside)
+        if name == "composite_stripe":
+            rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
         rows[-1].update(r.get("extra", {}))
-    print(f"# serving ms/pose {ms_per_pose:.3f}; training ms/step {ms_per_step:.3f}; "
-          f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"# serving ms/pose {ms_per_pose:.3f} (qb=0: {ms_pose_v2:.3f}); training ms/step "
+          f"{ms_per_step:.3f}; CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
+          f"{cli_runs[0]['ms_per_step']}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

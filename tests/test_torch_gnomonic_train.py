@@ -229,24 +229,37 @@ def test_staircase_adam_matches_optax():
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
-def test_out_of_slice_paths_raise_and_psnr():
-    """The v2 pipeline, the gather warp, the mesh step, the stage loop and
-    the dataset raise NotImplementedError naming what is missing; mse2psnr
-    matches the reference's definition."""
+def test_out_of_slice_paths_raise_and_psnr(tmp_path):
+    """What the port still lacks raises, naming it: fused=False with qb > 0
+    (the q-split kernels K6/K8), fused=True with qb = 0, the gather warp,
+    the mesh step, the stage loop on another procedure or on a device mesh,
+    and image files other than 8-bit PNGs; mse2psnr matches the reference's
+    definition."""
     _, tgrid = _grids()
     kw = dict(image_height=H, image_width=W, white_bkgd=True)
-    for bad in (dict(qb=0), dict(fused=False), dict(warp_impl="gather")):
-        with pytest.raises(NotImplementedError):
-            gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, **bad)
-    with pytest.raises(NotImplementedError, match="K5-K8"):
-        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0)
+    with pytest.raises(NotImplementedError, match="K6/K8"):
+        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, fused=False)
+    with pytest.raises(ValueError, match="qb=0 is the v2"):
+        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0, fused=True)
+    with pytest.raises(NotImplementedError, match="gather warp"):
+        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, warp_impl="gather")
+    assert not gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0).fused
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         gt.gnomonic_train_step_mesh()
-    with pytest.raises(NotImplementedError, match="stage loop"):
-        trainer.train_sh_vox_grid_vol_mod_with_posed_images()
-    from thr3ed_atom_tpu_torch.data.dataset import PosedImagesDataset
 
-    with pytest.raises(NotImplementedError, match="PIL"):
-        PosedImagesDataset("data_dir")
+    class OtherProcedure:
+        render_procedure_name = "render_sh_voxel_grid_bricked"
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None, tmp_path)
+    OtherProcedure.render_procedure_name = "render_sh_voxel_grid_gnomonic"
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None, tmp_path,
+                                                             use_mesh=True)
+    from thr3ed_atom_tpu_torch.data.png import read_png
+
+    (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")
+    with pytest.raises(ValueError, match="x.jpg"):
+        read_png(tmp_path / "x.jpg")
     assert float(mse2psnr(torch.tensor(0.01))) == pytest.approx(20.0)
     assert float(mse2psnr(torch.tensor(0.0))) == 1e10 and mse2psnr(0.001) == pytest.approx(30.0)

@@ -103,8 +103,36 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(modules) >= 19
-    for name in ("rendering.gnomonic_train", "modules.trainer", "utils.metrics"):
+    for name in ("rendering.gnomonic_train", "modules.trainer", "utils.metrics",
+                 "apps.train_sh_voxel_grid", "data.dataset", "data.png", "modules.tester",
+                 "visualizations.static", "utils.misc", "utils.profiling"):
         assert f"thr3ed_atom_tpu_torch.{name}" in modules
+
+
+FORBIDDEN = ("jax", "jaxlib", "thr3ed_atom_tpu", "PIL", "imageio", "click", "yaml",
+             "tensorboardX", "matplotlib")
+
+
+def test_port_sources_import_no_forbidden_packages():
+    """No import statement anywhere in the port (apps/ included) or in
+    chip_smoke.py, at module level or inside a function, names JAX, the JAX
+    package or a package the card's machine lacks (PIL, imageio, click,
+    yaml, tensorboardX, matplotlib)."""
+    import ast
+
+    files = sorted((REPO / "thr3ed_atom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert REPO / "thr3ed_atom_tpu_torch" / "apps" / "train_sh_voxel_grid.py" in files
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
 
 
 def test_entry_points_default_to_cuda():
@@ -343,6 +371,129 @@ def test_train_step_kernels_match_plain(cuda):
         torch.cuda.synchronize()
         counts = [c.launches - b for c, b in zip(counters, before)]
         assert counts == ([2, 2, 4, 4] if not plain else [0, 0, 0, 0]), counts
+        grads.append((tgrid.densities.grad.clone(), tgrid.features.grad.clone()))
+        losses.append(float(m["total_loss"]))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999
+
+
+def _stripe_case(device, P, diffuse, exit_eps=0.0, density_scale=1.0):
+    """One pose's v2 stripe operands (qb = 0): t1, the tents and liveness,
+    the materialized basis and norm, and the [PB, NP] flags."""
+    gn._strict_f32()
+    tgrid = _grid(32, device=device, density_scale=density_scale)
+    pose = pose_spherical(140.0, -30.0, 3.5 if density_scale == 1.0 else 2.2)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=diffuse, pos_per_cell=P,
+                             exit_eps=exit_eps, qb=0)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
+    slices = gn.repack_position_slices(tgrid, st, vertex_only=False)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
+                               torch.from_numpy(org).to(device), st, H, W,
+                               torch.tensor(FOCAL, device=device), SS,
+                               phase=(0.25, -0.125), lite=False, skip_basis=False)
+    t1 = gn.resample_u(slices, geo.Ru)
+    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    return (t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom, st,
+            Pn, Qn, PB, Pb, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,diffuse,exit_eps,density_scale",
+                         [(2, False, 1e-4, 1.0), (1, True, 0.0, 1.0), (2, False, 1e-4, 30.0)])
+def test_stripe_composite_kernel_matches_plain(cuda, P, diffuse, exit_eps, density_scale):
+    """The stripe composite (K5) against its plain version at the kernel's
+    exit grain: the two-tap sum equals the dense product exactly, the march
+    rounds as the plain version; exp/sigmoid differ by ulps. Bound:
+    colour/acc 1e-4, depth 1e-3 (as K1). The opaque scene must end some
+    tiles early."""
+    args = _stripe_case(cuda, P, diffuse, exit_eps, density_scale)
+    before = gn.composite_positions.launches
+    got = gn.composite_positions(*args)
+    torch.cuda.synchronize()
+    assert gn.composite_positions.launches == before + 1
+    want, work = gn.composite_positions_plain(*args, exit_tile=gn.CUDA_EXIT_TILE,
+                                              return_work=True)
+    if density_scale > 1.0:
+        st = args[7]
+        _, work_all = gn.composite_positions_plain(
+            *args[:7], st._replace(exit_eps=0.0), *args[8:], return_work=True)
+        assert int(work.sum()) < int(work_all.sum())
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max(initial=0.0) < 1e-4, gap
+    assert float(want[4].max()) > 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,diffuse", [(2, True), (1, False)])
+def test_stripe_backward_kernel_matches_plain(cuda, P, diffuse):
+    """The stripe replay backward (K7) against its plain version on a seeded
+    state cotangent: the same replay and bf16 cotangents; the v-fold sums a
+    row's taps in ascending q, the plain version in a matmul's order, and a
+    last-bit difference can move a bf16 rounding of dt1 by one unit. Bound:
+    max-abs <= 1e-2 of the largest element, cosine > 0.99999; pad channels
+    and dead blocks are zero. Autograd of composite_positions_diff launches
+    K5 once and K7 once."""
+    args = _stripe_case(cuda, P, diffuse)
+    t1, st, (Pn, Qn, PB, Pb), occ = args[0], args[7], args[8:12], args[12]
+    state = gn.composite_positions_plain(*args)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    S_total = (gstate[1:] * state[1:]).sum(0)
+    gaux = torch.cat([gstate, S_total[None], state[0:1]])
+    ops = args[1:7]
+    got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    torch.cuda.synchronize()
+    want = gt.composite_backward_plain(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    assert got.shape == want.shape == t1.shape and got.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, 3 * st.ncoeff + 1:].any()
+    dead = (occ[1] == 0).T.repeat_interleave(Pb, 1)  # [NP, Pn]
+    assert not got.permute(0, 2, 1, 3)[dead].any()
+    counts = (gn.composite_positions.launches, gt.composite_backward.launches)
+    t1g = t1.detach().requires_grad_(True)
+    out = gt.composite_positions_diff(t1g, *ops, *occ, st, Pn, Qn, PB, Pb)
+    out.backward(gstate)
+    assert (gn.composite_positions.launches - counts[0],
+            gt.composite_backward.launches - counts[1]) == (1, 1)
+    assert _cosine(t1g.grad.float(), want.float()) > 0.99999
+
+
+@pytest.mark.gpu
+def test_v2_train_step_kernels_match_plain(cuda):
+    """One gnomonic_train_step_multi with qb = 0 (k = 2) through the kernels
+    against the same step through the plain versions: the grid gradients
+    within cosine > 0.99999, the losses within rtol 1e-5; the step launched
+    K5, K7, K2 and K4 and neither fused kernel."""
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    images = torch.rand((2, H, W, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    grads, losses = [], []
+    counters = (gn.composite_positions, gt.composite_backward, wm.resample_rows,
+                wm.resample_rows_adjoint, gn.composite_positions_fused,
+                gt.composite_backward_fused)
+    for plain in (False, True):
+        tgrid = _grid(32, device=cuda)
+        ts = gt.make_gnomonic_train_statics(tgrid, axis, flip, image_height=H,
+                                            image_width=W, white_bkgd=True, pos_per_cell=2,
+                                            qb=0)
+        opt, sched = make_gnomonic_optimizer(tgrid)
+        before = [c.launches for c in counters]
+        m = gt.gnomonic_train_step_multi(ts, opt, tgrid, images, np.stack([rot] * 2),
+                                         np.stack([org] * 2), FOCAL,
+                                         phases=[(0.1, 0.2), (-0.3, 0.4)],
+                                         scheduler=sched, plain=plain)
+        torch.cuda.synchronize()
+        counts = [c.launches - b for c, b in zip(counters, before)]
+        assert counts == ([2, 2, 4, 4, 0, 0] if not plain else [0] * 6), counts
         grads.append((tgrid.densities.grad.clone(), tgrid.features.grad.clone()))
         losses.append(float(m["total_loss"]))
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)

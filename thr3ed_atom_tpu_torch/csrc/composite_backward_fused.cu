@@ -8,8 +8,8 @@
 // work is split in two launches:
 //
 // 1. march (one thread per texel, positions j = 0 .. NP in an inner loop, as
-//    the forward): replays position j exactly as the forward computed it
-//    (gnomonic_march.cuh), rebuilds T and the running prefix
+//    the forward; march_backward in gnomonic_march.cuh): replays position j
+//    exactly as the forward computed it, rebuilds T and the running prefix
 //    S = sum of inner * w, and forms the per-cell dL/d(integral) in the
 //    reference's division-free suffix form
 //      dinteg = delta * ((1 - alpha) * T * inner - suffix),
@@ -42,7 +42,6 @@
 #include <cuda_runtime.h>
 
 #include "gnomonic_march.cuh"
-#include "relu_trap.cuh"
 
 namespace {
 
@@ -63,29 +62,15 @@ struct MarchParams {
 
 template <int NCOEFF, bool DIFFUSE, bool RELU>
 __global__ void __launch_bounds__(TP * TQ) backward_march_kernel(MarchParams prm) {
-  constexpr int USED = 3 * NCOEFF + 1;
-  constexpr int SROWS = DIFFUSE ? 9 : 6;
   extern __shared__ float smem[];
-  float* s_geom = smem;  // [NP, GEOM_COLS]
-  int* s_cl = reinterpret_cast<int*>(s_geom + prm.NP * GEOM_COLS);
-  int* s_pn = s_cl + prm.NP;
-  int* s_slot = s_pn + prm.NP;
-
   const int q = blockIdx.x * TQ + threadIdx.x;
   const int p = blockIdx.y * TP + threadIdx.y;
   const int pb = (blockIdx.y * TP) / prm.Pb;
   const int qb = (blockIdx.x * TQ) / prm.Qb;
   const int tid = threadIdx.y * TQ + threadIdx.x;
   const size_t flag_base = ((size_t)pb * prm.QB + qb) * prm.NP;
-  for (int i = tid; i < prm.NP; i += TP * TQ) {
-#pragma unroll
-    for (int k = 0; k < GEOM_COLS; ++k)
-      s_geom[i * GEOM_COLS + k] = prm.geom[(size_t)i * 8 + k];
-    s_cl[i] = prm.cell_live[flag_base + i];
-    s_pn[i] = prm.pos_needed[flag_base + i];
-    s_slot[i] = prm.slot[flag_base + i];
-  }
-  __syncthreads();
+  const MarchTables tb = load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed,
+                                     prm.slot, flag_base, prm.NP, tid, TP * TQ);
 
   const float pf = (float)p, qf = (float)q;
   const size_t plane = (size_t)prm.Pn * prm.Qn;
@@ -93,134 +78,13 @@ __global__ void __launch_bounds__(TP * TQ) backward_march_kernel(MarchParams prm
   float yb[NCOEFF];
   const float nm = texel_basis<NCOEFF, true>(prm.ybasis, prm.norm, nullptr, pix,
                                              plane, pf, qf, 0, 0, 0.0f, yb);
-  const VertexStack vs{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P};
-
-  const float* ga = prm.gaux + pix;
-  const float g_T = ga[0];
-  float g_col[3], g_dif[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    g_col[c] = ga[(1 + c) * plane];
-    g_dif[c] = DIFFUSE ? ga[(6 + c) * plane] : 0.0f;
-  }
-  const float g_acc = ga[4 * plane], g_dep = ga[5 * plane];
-  const float S_total = ga[SROWS * plane], T_fin = ga[(SROWS + 1) * plane];
+  const VertexSource<NCOEFF> src{
+      VertexStack{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P}, pf, qf, yb};
   // the dvals element of this texel inside a [USED, Pb, Qb] slot
   const size_t blk = (size_t)prm.Pb * prm.Qb;
   const size_t in_blk = (size_t)(p - pb * prm.Pb) * prm.Qb + (q - qb * prm.Qb);
-
-  float T = 1.0f, S = 0.0f;
-  float prev_sig = 0.0f, prev_live = 0.0f;
-  float prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dif[3] = {0.0f, 0.0f, 0.0f};
-  // pending b-side cotangents of the last cell: sigma, raw colour, raw diffuse
-  float pend_sig = 0.0f, pend_rgb[3] = {0.0f, 0.0f, 0.0f};
-  float pend_dif[3] = {0.0f, 0.0f, 0.0f};
-
-  // NP + 1 steps: step j composites cell (j-1, j) and flushes position j-1
-  for (int j = 0; j <= prm.NP; ++j) {
-    const bool replay = j < prm.NP && s_pn[j];
-    const bool flush = j > 0 && s_pn[j - 1];
-    if (!replay && !flush) {  // uniform over the tile
-      pend_sig = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) pend_rgb[c] = pend_dif[c] = 0.0f;
-      continue;
-    }
-    float sig = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f}, dif_j[3] = {0.0f, 0.0f, 0.0f};
-    float live = 0.0f;
-    const float* G = s_geom + (j < prm.NP ? j : prm.NP - 1) * GEOM_COLS;
-    if (replay) position_values<NCOEFF>(vs, G, j, pf, qf, yb, sig, rgb, dif_j, live);
-
-    // cell (j-1, j): its a-side cotangents for position j-1 and its b-side
-    // ones, pending for position j
-    float d_a = 0.0f, d_b = 0.0f;
-    float a_rgb[3] = {0.0f, 0.0f, 0.0f}, a_dif[3] = {0.0f, 0.0f, 0.0f};
-    float b_rgb[3] = {0.0f, 0.0f, 0.0f}, b_dif[3] = {0.0f, 0.0f, 0.0f};
-    if (replay && j > 0 && s_cl[j]) {
-      const float s_j = G[0], cell_step = G[1];
-      float integ_raw, tbar, dIda, dIdb;
-      relu_trap<RELU>(prev_sig, sig, integ_raw, tbar, dIda, dIdb);
-      const float live_pair = prev_live * live;
-      const float integ = integ_raw * live_pair;
-      const float delta = cell_step * nm;
-      const float e = expf(-integ * delta);
-      const float alpha = 1.0f - e;
-      const float w = alpha * T;
-      const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
-      const float tb1 = 1.0f - tbar;
-      float mids[3], dmids[3];
-      float inner = g_acc + g_dep * s_mid;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        mids[c] = sigmoid(tb1 * prev_rgb[c] + tbar * rgb[c]);
-        inner = inner + g_col[c] * mids[c];
-      }
-      if constexpr (DIFFUSE) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          dmids[c] = sigmoid(tb1 * prev_dif[c] + tbar * dif_j[c]);
-          inner = inner + g_dif[c] * dmids[c];
-        }
-      }
-      const float S_prefix = S + inner * w;
-      const float suffix = (S_total - S_prefix) + g_T * T_fin;
-      const float dinteg = delta * (e * T * inner - suffix) * live_pair;
-      d_a = dinteg * dIda;
-      d_b = dinteg * dIdb;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float dm = g_col[c] * w * mids[c] * (1.0f - mids[c]);
-        a_rgb[c] = tb1 * dm;
-        b_rgb[c] = tbar * dm;
-        if constexpr (DIFFUSE) {
-          const float ddm = g_dif[c] * w * dmids[c] * (1.0f - dmids[c]);
-          a_dif[c] = tb1 * ddm;
-          b_dif[c] = tbar * ddm;
-        }
-      }
-      T = T * (1.0f - alpha);
-      S = S_prefix;
-    }
-
-    if (flush) {
-      // position j-1's cotangent through the SH basis, per channel, to bf16
-      const float dsig = pend_sig + d_a;
-      float drgb[3], ddif[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        drgb[c] = pend_rgb[c] + a_rgb[c];
-        ddif[c] = pend_dif[c] + a_dif[c];
-      }
-      __nv_bfloat16* out = prm.dvals + (size_t)s_slot[j - 1] * USED * blk + in_blk;
-#pragma unroll
-      for (int ch = 0; ch < USED; ++ch) {
-        float v;
-        if (ch < 3 * NCOEFF) {
-          const int c = ch / NCOEFF, k = ch % NCOEFF;
-          v = yb[k] * drgb[c];
-          if (DIFFUSE && k == 0) v = v + yb[0] * ddif[c];
-        } else {
-          v = dsig;
-        }
-        out[ch * blk] = __float2bfloat16_rn(v);
-      }
-    }
-    pend_sig = d_b;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      pend_rgb[c] = b_rgb[c];
-      pend_dif[c] = b_dif[c];
-    }
-    if (replay) {
-      prev_sig = sig;
-      prev_live = live;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        prev_rgb[c] = rgb[c];
-        prev_dif[c] = dif_j[c];
-      }
-    }
-  }
+  march_backward<NCOEFF, DIFFUSE, RELU>(src, tb, prm.NP, nm, yb, prm.gaux + pix, plane,
+                                        prm.dvals, blk, in_blk);
 }
 
 struct FoldParams {
@@ -355,7 +219,7 @@ __global__ void __launch_bounds__(FOLD_THREADS) backward_fold_kernel(FoldParams 
 
 template <int NCOEFF, bool DIFFUSE, bool RELU>
 int launch_march(const MarchParams& prm, cudaStream_t stream) {
-  const size_t smem = (size_t)prm.NP * (GEOM_COLS * sizeof(float) + 3 * sizeof(int));
+  const size_t smem = march_tables_bytes(prm.NP, true);
   auto kern = backward_march_kernel<NCOEFF, DIFFUSE, RELU>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

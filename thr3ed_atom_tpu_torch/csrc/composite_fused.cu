@@ -38,13 +38,12 @@
 // position geometry sit in shared memory; a texel tile of TP x TQ threads
 // lies inside one flag block, so every branch on flags is uniform. Sharing the
 // u-resample of a tile through shared memory is left to a later version.
-// The per-position gather, tents and SH fold live in gnomonic_march.cuh,
-// shared with the replay backward. Built with -fmad=false: each f32
+// The per-position gather, tents and SH fold, and the march itself, live in
+// gnomonic_march.cuh, shared with the replay backward. Built with -fmad=false: each f32
 // operation rounds as in the plain PyTorch version.
 #include <cuda_runtime.h>
 
 #include "gnomonic_march.cuh"
-#include "relu_trap.cuh"
 
 namespace {
 
@@ -67,24 +66,14 @@ struct Params {
 template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
   extern __shared__ float smem[];
-  float* s_geom = smem;  // [NP, GEOM_COLS]
-  int* s_cl = reinterpret_cast<int*>(s_geom + prm.NP * GEOM_COLS);
-  int* s_pn = s_cl + prm.NP;
-
   const int q = blockIdx.x * TQ + threadIdx.x;
   const int p = blockIdx.y * TP + threadIdx.y;
   const int pb = (blockIdx.y * TP) / prm.Pb;
   const int qb = (blockIdx.x * TQ) / prm.Qb;
   const int tid = threadIdx.y * TQ + threadIdx.x;
   const size_t flag_base = ((size_t)pb * prm.QB + qb) * prm.NP;
-  for (int i = tid; i < prm.NP; i += TP * TQ) {
-#pragma unroll
-    for (int k = 0; k < GEOM_COLS; ++k)
-      s_geom[i * GEOM_COLS + k] = prm.geom[(size_t)i * 8 + k];
-    s_cl[i] = prm.cell_live[flag_base + i];
-    s_pn[i] = prm.pos_needed[flag_base + i];
-  }
-  __syncthreads();
+  const MarchTables tb = load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed,
+                                     nullptr, flag_base, prm.NP, tid, TP * TQ);
 
   const float pf = (float)p, qf = (float)q;
   const size_t plane = (size_t)prm.Pn * prm.Qn;
@@ -94,68 +83,14 @@ __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
   const float nm = texel_basis<NCOEFF, OPERANDS>(
       prm.ybasis, prm.norm, prm.fs, pix, plane, pf, qf, prm.u_ax, prm.v_ax,
       prm.g, yb);
-  const VertexStack vs{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P};
-
-  float T = 1.0f, acc = 0.0f, dep = 0.0f;
-  float col[3] = {0.0f, 0.0f, 0.0f}, dif[3] = {0.0f, 0.0f, 0.0f};
-  float prev_sig = 0.0f, prev_live = 0.0f;
-  float prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dif[3] = {0.0f, 0.0f, 0.0f};
-
-  for (int j = 0; j < prm.NP; ++j) {
-    if (!s_pn[j]) continue;  // uniform over the tile
-    if (prm.exit_eps > 0.0f && !__syncthreads_or(T > prm.exit_eps)) break;
-    const float* G = s_geom + j * GEOM_COLS;
-    const float s_j = G[0], cell_step = G[1];
-    float sig, rgb[3], dif_j[3], live;
-    position_values<NCOEFF>(vs, G, j, pf, qf, yb, sig, rgb, dif_j, live);
-
-    if (j > 0 && s_cl[j]) {
-      float integ, tbar, dIda, dIdb;
-      relu_trap<RELU>(prev_sig, sig, integ, tbar, dIda, dIdb);
-      integ = integ * (prev_live * live);
-      const float delta = cell_step * nm;
-      const float alpha = 1.0f - expf(-integ * delta);
-      const float w = alpha * T;
-      const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
-      const float tb1 = 1.0f - tbar;
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        col[c] = col[c] + sigmoid(tb1 * prev_rgb[c] + tbar * rgb[c]) * w;
-      acc = acc + w;
-      dep = dep + w * s_mid;
-      if constexpr (DIFFUSE) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          dif[c] = dif[c] + sigmoid(tb1 * prev_dif[c] + tbar * dif_j[c]) * w;
-      }
-      T = T * (1.0f - alpha);
-    }
-    prev_sig = sig;
-    prev_live = live;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      prev_rgb[c] = rgb[c];
-      prev_dif[c] = dif_j[c];
-    }
-  }
-
-  float* o = prm.out + pix;
-  o[0] = T;
-  o[plane] = col[0];
-  o[2 * plane] = col[1];
-  o[3 * plane] = col[2];
-  o[4 * plane] = acc;
-  o[5 * plane] = dep;
-  if constexpr (DIFFUSE) {
-    o[6 * plane] = dif[0];
-    o[7 * plane] = dif[1];
-    o[8 * plane] = dif[2];
-  }
+  const VertexSource<NCOEFF> src{
+      VertexStack{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P}, pf, qf, yb};
+  march_forward<DIFFUSE, RELU>(src, tb, prm.NP, prm.exit_eps, nm, prm.out + pix, plane);
 }
 
 template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 int launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = (size_t)prm.NP * (GEOM_COLS * sizeof(float) + 2 * sizeof(int));
+  const size_t smem = march_tables_bytes(prm.NP, false);
   auto kern = composite_fused_kernel<NCOEFF, DIFFUSE, RELU, OPERANDS>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

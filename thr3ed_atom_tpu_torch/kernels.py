@@ -29,6 +29,10 @@ SOURCES: Dict[str, List[str]] = {
     "composite_fused": ["composite_fused.cu", "gnomonic_march.cuh", "relu_trap.cuh"],
     "composite_backward_fused": ["composite_backward_fused.cu", "gnomonic_march.cuh",
                                  "relu_trap.cuh"],
+    "composite_stripe": ["composite_stripe.cu", "gnomonic_stripe.cuh",
+                         "gnomonic_march.cuh", "relu_trap.cuh"],
+    "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stripe.cuh",
+                                  "gnomonic_march.cuh", "relu_trap.cuh"],
     "resample_rows": ["resample_rows.cu"],
     "resample_rows_adjoint": ["resample_rows_adjoint.cu"],
 }

@@ -169,6 +169,58 @@ class VoxelGrid(nn.Module):
         return config
 
 
+def create_voxel_grid(
+    generator: torch.Generator,
+    grid_dims: Tuple[int, int, int],
+    num_features: int,
+    voxel_size: VoxelSize,
+    minval: float = -1.0,
+    maxval: float = 1.0,
+    **config,
+) -> VoxelGrid:
+    """Uniform(minval, maxval)-initialized grid on ``generator``'s device
+    (densities drawn first, then features). The JAX package draws from its
+    key; the values differ, the distribution is the same."""
+    dev = generator.device
+
+    def uniform(shape):
+        return torch.rand(shape, generator=generator, device=dev) * (maxval - minval) + minval
+
+    densities = uniform((*grid_dims, 1))
+    features = uniform((*grid_dims, num_features))
+    return VoxelGrid(densities=densities, features=features, voxel_size=voxel_size, **config)
+
+
+def scale_voxel_grid_with_required_output_size(
+    voxel_grid: VoxelGrid, output_size: Tuple[int, int, int], mode: str = "trilinear"
+) -> VoxelGrid:
+    """Trilinear resize of the (features ++ densities) grid to ``output_size``
+    (``F.interpolate(align_corners=False)``: the half-texel sample positions
+    of the JAX package's ``jax.image.resize``, which it equals on an upscale);
+    the voxel size rescales so the world-space AABB is kept. A new grid on the
+    same device, with the same configuration."""
+    assert mode == "trilinear", "only trilinear grid scaling is supported"
+    with torch.no_grad():
+        unified = torch.cat([voxel_grid.features, voxel_grid.densities], dim=-1)
+        resized = F.interpolate(unified.permute(3, 0, 1, 2)[None], size=tuple(output_size),
+                                mode="trilinear", align_corners=False)
+        resized = resized[0].permute(1, 2, 3, 0).contiguous()
+    dims, old = voxel_grid.grid_dims, voxel_grid.voxel_size
+    new_voxel_size = VoxelSize(
+        (old.x_size * dims[0]) / output_size[0],
+        (old.y_size * dims[1]) / output_size[1],
+        (old.z_size * dims[2]) / output_size[2],
+    )
+    config = voxel_grid.get_config_dict()
+    config["grid_location"] = VoxelGridLocation(*config["grid_location"])
+    return VoxelGrid(
+        densities=resized[..., -1:].contiguous(),
+        features=resized[..., :-1].contiguous(),
+        voxel_size=new_voxel_size,
+        **config,
+    )
+
+
 def voxel_grid_from_numpy(
     densities: np.ndarray,
     features: np.ndarray,

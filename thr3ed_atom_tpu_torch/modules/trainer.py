@@ -1,29 +1,63 @@
-"""The trainer's optimizer for the gnomonic whole-pose step.
+"""Coarse-to-fine reconstruction trainer for SH voxel grids from posed images
+(counterpart of thr3ed_atom_tpu/modules/trainer.py, gnomonic procedure).
 
-Counterpart of the optimizer part of thr3ed_atom_tpu/modules/trainer.py: each
-stage trains the grid with Adam (b1 0.9, b2 0.999, eps 1e-8) at the stage's
-learning rate ``learning_rate * stagewise_lr_decay_gamma ** (stage - 1)``,
-decayed in steps: ``lr * lr_decay_gamma_per_stage ** (count //
+Each stage trains the grid with Adam (b1 0.9, b2 0.999, eps 1e-8) at the
+stage's learning rate ``learning_rate * stagewise_lr_decay_gamma ** (stage -
+1)``, decayed in steps: ``lr * lr_decay_gamma_per_stage ** (count //
 lr_decay_steps_per_stage)`` after ``count`` optimizer steps (optax's
-exponential_decay with staircase=True). The step takes at least
-``_GN_MIN_POSES_PER_STEP`` views of one march variant
-(rendering/gnomonic_train.py gnomonic_train_step_multi).
+exponential_decay with staircase=True). A step takes at least
+``_GN_MIN_POSES_PER_STEP`` whole views of one (march axis, flip, warp order)
+bucket (rendering/gnomonic_train.py gnomonic_train_step_multi); between
+stages the grid grows by trilinear resize.
 
-The stage loop itself (variant buckets, trilinear growth between stages,
-checkpoints with the Adam moments, summaries and held-out tests) is not ported
-yet: ``train_sh_vox_grid_vol_mod_with_posed_images`` raises.
+The loop is the JAX package's: the per-stage downsampled datasets, the
+uniform(-1, 1) re-initialization at the smallest stage, resume from a
+checkpoint with its Adam moments, the buckets and the pose picker
+(``np.random.default_rng(seed + stage)``, the same ``choice`` calls in the same
+order, so both packages train on the same views), summaries, feedback renders,
+held-out tests, checkpoints. Checkpoints and ``<ckpt>_opt.npz`` keep the JAX
+package's format (optax's state leaves ``leaf_0 .. leaf_5``), so either
+package resumes from the other's. Summaries are JSON lines in
+``training_logs/summaries.jsonl`` under the JAX package's scalar names.
+
+Out of this module (each raises NotImplementedError): the ray-batch and
+bricked procedures, and the device mesh.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import json
+import time
+from datetime import timedelta
+from pathlib import Path
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
-from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
+from thr3ed_atom_tpu_torch.data.dataset import PosedImagesDataset
+from thr3ed_atom_tpu_torch.data.png import write_png
+from thr3ed_atom_tpu_torch.models.voxels import (
+    VoxelGrid,
+    scale_voxel_grid_with_required_output_size,
+)
+from thr3ed_atom_tpu_torch.modules.volumetric_model import (
+    VolumetricModel,
+    create_volumetric_model_from_saved_model,
+)
+from thr3ed_atom_tpu_torch.utils.camera import CameraPose, to8b
+from thr3ed_atom_tpu_torch.utils.constants import (
+    CAMERA_BOUNDS,
+    CAMERA_INTRINSICS,
+    HEMISPHERICAL_RADIUS,
+)
+from thr3ed_atom_tpu_torch.utils.logging import log
+from thr3ed_atom_tpu_torch.utils.misc import compute_thre3d_grid_sizes
+from thr3ed_atom_tpu_torch.utils.profiling import ThroughputMeter
 
 # minimum training views averaged per whole-pose step (the JAX trainer's
 # measured floor: single-view steps at lr 0.03 thrash the grid)
 _GN_MIN_POSES_PER_STEP = 4
+_GNOMONIC = "render_sh_voxel_grid_gnomonic"
 
 
 def staircase_exponential_decay(transition_steps: int,
@@ -54,13 +88,401 @@ def make_gnomonic_optimizer(
     return optimizer, scheduler
 
 
-def train_sh_vox_grid_vol_mod_with_posed_images(*args, **kwargs):
-    """The coarse-to-fine stage loop is not ported yet."""
-    raise NotImplementedError(
-        "the stage loop of train_sh_vox_grid_vol_mod_with_posed_images "
-        "(variant buckets, trilinear growth, checkpoints with Adam moments), "
-        "like data/dataset.py and apps/train_sh_voxel_grid.py, is not ported "
-        "yet (ROADMAP.md, 'Modules to port', item 5); take "
-        "steps with rendering.gnomonic_train.gnomonic_train_step_multi and "
-        "make_gnomonic_optimizer"
+# --------------------------------------------------------------- optimizer checkpoints
+
+
+def _opt_state_path(model_path: Path) -> Path:
+    # checkpoints are written from a suffix-less stem, but --resume_from is
+    # usually given the model's ".npz" path: accept both spellings
+    base = str(model_path)
+    if base.endswith(".npz"):
+        base = base[: -len(".npz")]
+    return Path(base + "_opt.npz")
+
+
+def _adam_count(optimizer: torch.optim.Adam) -> int:
+    steps = {int(optimizer.state[p]["step"]) for g in optimizer.param_groups
+             for p in g["params"] if p in optimizer.state}
+    if len(steps) > 1:
+        raise ValueError(f"Adam parameters at different steps {steps}")
+    return steps.pop() if steps else 0
+
+
+def save_optimizer_state(model_path: Path, optimizer: torch.optim.Adam, stage: int,
+                         stage_iteration: int) -> None:
+    """Adam moments + schedule count beside the model npz, in the leaf layout
+    of the JAX package's optax ``adam(schedule)`` state over a VoxelGrid:
+    leaf_0 the Adam count (int32), leaf_1 / leaf_2 the first moments of the
+    densities / features, leaf_3 / leaf_4 the second moments, leaf_5 the
+    schedule count (int32)."""
+    params = optimizer.param_groups[0]["params"]  # densities, features
+    count = _adam_count(optimizer)
+
+    def moment(p, name):
+        state = optimizer.state.get(p)
+        if state is None:
+            return np.zeros(tuple(p.shape), np.float32)
+        return state[name].detach().cpu().numpy().astype(np.float32)
+
+    leaves = [np.int32(count)]
+    leaves += [moment(p, "exp_avg") for p in params]
+    leaves += [moment(p, "exp_avg_sq") for p in params]
+    leaves.append(np.int32(count))
+    np.savez(
+        str(_opt_state_path(model_path)),
+        stage=np.int64(stage),
+        stage_iteration=np.int64(stage_iteration),
+        **{f"leaf_{i}": x for i, x in enumerate(leaves)},
     )
+
+
+def load_optimizer_state(model_path: Path, optimizer: torch.optim.Adam,
+                         scheduler=None) -> Optional[Tuple[int, int]]:
+    """Load ``<model>_opt.npz`` (either package's) into ``optimizer`` (over
+    densities, features) and set ``scheduler`` to its count. Returns (stage,
+    stage_iteration), or None when the file is absent or its leaves do not
+    match the parameters' shapes (nothing is changed then)."""
+    path = _opt_state_path(model_path)
+    if not path.exists():
+        return None
+    params = optimizer.param_groups[0]["params"]
+    with np.load(str(path)) as data:
+        shapes = [()] + [tuple(p.shape) for p in params] * 2 + [()]
+        if any(f"leaf_{i}" not in data or data[f"leaf_{i}"].shape != s
+               for i, s in enumerate(shapes)):
+            return None
+        leaves = [data[f"leaf_{i}"] for i in range(len(shapes))]
+        stage, stage_iteration = int(data["stage"]), int(data["stage_iteration"])
+    count = int(leaves[0])
+    for i, p in enumerate(params):
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.as_tensor(leaves[1 + i], dtype=torch.float32).to(p.device),
+            "exp_avg_sq": torch.as_tensor(leaves[1 + len(params) + i],
+                                          dtype=torch.float32).to(p.device),
+        }
+    if scheduler is not None:
+        _set_schedule_count(optimizer, scheduler, int(leaves[-1]))
+    return stage, stage_iteration
+
+
+def _set_schedule_count(optimizer, scheduler, count: int) -> None:
+    """Put a LambdaLR at ``count`` steps (the learning rate of update count + 1)."""
+    scheduler.last_epoch = count
+    for group, fn in zip(optimizer.param_groups, scheduler.lr_lambdas):
+        group["lr"] = group["initial_lr"] * fn(count)
+    scheduler._last_lr = [g["lr"] for g in optimizer.param_groups]
+
+
+# ----------------------------------------------------------------------- summaries
+
+
+class SummaryLog:
+    """Scalar summaries as JSON lines {"step", "name", "value"} (the port's
+    stand-in for TensorBoard event files; the names are the JAX package's)."""
+
+    def __init__(self, path: Path):
+        self._path = Path(path)
+        self._path.parent.mkdir(parents=True, exist_ok=True)
+
+    def add_scalar(self, name: str, value: float, global_step: int) -> None:
+        with open(self._path, "a") as f:
+            f.write(json.dumps({"step": int(global_step), "name": name,
+                                "value": float(value)}) + "\n")
+
+
+# ------------------------------------------------------------------------- procedure
+
+
+def _pose_buckets(poses_np: np.ndarray, height: int, width: int, focal: float):
+    """{(axis, flip, warp swap): [view indices]} in first-seen order, and the
+    buckets' weights (their share of the views)."""
+    from thr3ed_atom_tpu_torch.rendering.gnomonic import dominant_axis_for_pose
+    from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_swap_for_pose
+
+    buckets = {}
+    for i in range(len(poses_np)):
+        rot = poses_np[i][:, :3]
+        a, f = dominant_axis_for_pose(rot)
+        buckets.setdefault((a, f, warp_swap_for_pose(rot, a, f, height, width, focal)),
+                           []).append(i)
+    weights = np.array([len(v) for v in buckets.values()], np.float64)
+    return buckets, weights / weights.sum()
+
+
+def train_sh_vox_grid_vol_mod_with_posed_images(
+    vol_mod: VolumetricModel,
+    train_dataset: PosedImagesDataset,
+    output_dir: Path,
+    test_dataset: Optional[PosedImagesDataset] = None,
+    ray_batch_size: int = 32768,
+    num_stages: int = 4,
+    num_iterations_per_stage: int = 2000,
+    scale_factor: float = 2.0,
+    learning_rate: float = 0.03,
+    lr_decay_gamma_per_stage: float = 0.1,
+    lr_decay_steps_per_stage: int = 1000,
+    stagewise_lr_decay_gamma: float = 0.9,
+    render_feedback_pose: Optional[CameraPose] = None,
+    save_freq: int = 1000,
+    test_freq: int = 1000,
+    feedback_freq: int = 100,
+    summary_freq: int = 10,
+    apply_diffuse_render_regularization: bool = True,
+    use_mesh: bool = False,
+    fast_debug_mode: bool = False,
+    seed: int = 42,
+    resume_from: Optional[Path] = None,
+    gnomonic_poses_per_step: int = 0,
+) -> VolumetricModel:
+    """Coarse-to-fine training loop: per stage a fresh Adam at the stage's
+    learning rate with the in-stage staircase decay, whole-pose gnomonic steps,
+    periodic summaries / feedback renders / held-out tests / checkpoints;
+    between stages 2x trilinear grid growth. Runs on ``vol_mod``'s device;
+    ``seed`` drives the pose picker (numpy, as the JAX package) and a
+    ``torch.Generator`` for the initial grid and the phase jitter."""
+    from thr3ed_atom_tpu_torch.modules.tester import (
+        test_sh_vox_grid_vol_mod_with_posed_images,
+    )
+    from thr3ed_atom_tpu_torch.rendering.gnomonic_train import (
+        draw_phase,
+        gnomonic_train_step,
+        gnomonic_train_step_multi,
+        make_gnomonic_train_statics,
+    )
+    from thr3ed_atom_tpu_torch.visualizations.static import (
+        visualize_camera_rays,
+        visualize_sh_vox_grid_vol_mod_rendered_feedback,
+    )
+
+    if vol_mod.render_procedure_name != _GNOMONIC:
+        raise NotImplementedError(
+            f"training through '{vol_mod.render_procedure_name}' is not ported: the "
+            "ray-batch procedures (ROADMAP.md, 'Modules to port', items 3 and 8) and "
+            "the bricked trainer (item 8) come later; the port trains the gnomonic procedure"
+        )
+    if use_mesh:
+        raise NotImplementedError(
+            "the device mesh (use_mesh) is not ported (ROADMAP.md, 'Modules to port', "
+            "item 9: multi-GPU)"
+        )
+    dev = vol_mod.device
+    output_dir = Path(output_dir)
+    model_dir = output_dir / "saved_models"
+    logs_dir = output_dir / "training_logs"
+    render_dir = logs_dir / "rendered_output"
+    for directory in (model_dir, logs_dir, render_dir):
+        directory.mkdir(exist_ok=True, parents=True)
+
+    stagewise_voxel_grid_sizes = compute_thre3d_grid_sizes(
+        final_required_resolution=vol_mod.thre3d_repr.grid_dims,
+        num_stages=num_stages,
+        scale_factor=scale_factor,
+    )
+
+    # per-stage downsampled datasets
+    dataset_config = train_dataset.get_config_dict()
+    base_downsample = dataset_config["downsample_factor"]
+    stagewise_train_datasets = [train_dataset]
+    for stage in range(1, num_stages):
+        config = dict(dataset_config)
+        config["downsample_factor"] = base_downsample * (scale_factor**stage)
+        stagewise_train_datasets.insert(0, PosedImagesDataset(**config))
+
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    start_stage = 1
+    start_iteration = 1
+    resume_opt_source: Optional[Path] = None
+    if resume_from is not None:
+        # the checkpointed grid and, where its _opt.npz exists, the Adam state
+        # and the exact (stage, iteration); without it, the stage whose grid
+        # size matches, from iteration 1 with a fresh optimizer
+        resume_from = Path(resume_from)
+        loaded, _ = create_volumetric_model_from_saved_model(resume_from, device=dev)
+        vol_mod.thre3d_repr = loaded.thre3d_repr
+        loaded_dims = loaded.thre3d_repr.grid_dims
+        matches = [i for i, size in enumerate(stagewise_voxel_grid_sizes)
+                   if tuple(size) == tuple(loaded_dims)]
+        assert matches, (f"checkpoint grid {loaded_dims} matches no stage of the plan "
+                         f"{stagewise_voxel_grid_sizes}")
+        if _opt_state_path(resume_from).exists():
+            with np.load(str(_opt_state_path(resume_from))) as saved:
+                saved_stage = int(saved["stage"])
+                saved_iter = int(saved["stage_iteration"])
+            if saved_iter < num_iterations_per_stage:
+                start_stage = saved_stage
+                start_iteration = saved_iter + 1
+                resume_opt_source = resume_from
+            else:
+                start_stage = saved_stage + 1
+                if saved_stage < num_stages:
+                    vol_mod.thre3d_repr = scale_voxel_grid_with_required_output_size(
+                        vol_mod.thre3d_repr,
+                        output_size=stagewise_voxel_grid_sizes[saved_stage],
+                    )
+        else:
+            start_stage = matches[0] + 1
+            log.warning(f"no optimizer state found at {_opt_state_path(resume_from)}; "
+                        f"re-entering stage {start_stage} from iteration 1 with a "
+                        "fresh optimizer")
+        log.info(f"resuming from {resume_from} at stage {start_stage} "
+                 f"iteration {start_iteration}")
+    else:
+        # downscale the grid to the smallest stage's size, re-init from uniform(-1, 1)
+        small = scale_voxel_grid_with_required_output_size(
+            vol_mod.thre3d_repr, output_size=stagewise_voxel_grid_sizes[0])
+        with torch.no_grad():
+            for t in (small.densities, small.features):
+                t.copy_(torch.rand(t.shape, generator=generator, device=dev) * 2.0 - 1.0)
+        vol_mod.thre3d_repr = small
+
+    # feedback pose: the first test (or train) image's pose
+    feedback_dataset = test_dataset if test_dataset is not None else train_dataset
+    if render_feedback_pose is None:
+        pose0 = feedback_dataset.poses[0]
+        render_feedback_pose = CameraPose(rotation=pose0[:, :3], translation=pose0[:, 3:])
+        write_png(render_dir / "1__real_log.png", to8b(feedback_dataset.images[0]))
+
+    camera_bounds = train_dataset.camera_bounds
+    camera_intrinsics = train_dataset.camera_intrinsics
+    dataset_size = len(train_dataset) * camera_intrinsics.height * camera_intrinsics.width
+    summaries = SummaryLog(logs_dir / "summaries.jsonl")
+    if not fast_debug_mode:
+        visualize_camera_rays(train_dataset, output_dir, num_rays_per_image=1)
+
+    log.info("beginning training")
+    time_spent_actually_training = 0.0
+    extra_info = {
+        CAMERA_BOUNDS: list(camera_bounds),
+        CAMERA_INTRINSICS: list(camera_intrinsics),
+        HEMISPHERICAL_RADIUS: train_dataset.get_hemispherical_radius_estimate(),
+    }
+    render_config = vol_mod.render_config
+    jitter = bool(render_config.perturb_sampled_points)
+
+    for stage in range(start_stage, num_stages + 1):
+        vol_mod.drop_prepared_cache()
+        stage_dataset = stagewise_train_datasets[stage - 1]
+        intr = stage_dataset.camera_intrinsics
+        images = torch.as_tensor(stage_dataset.images).to(dev)
+        poses_np = np.asarray(stage_dataset.poses)
+
+        grid = vol_mod.thre3d_repr
+        current_stage_lr = learning_rate * (stagewise_lr_decay_gamma ** (stage - 1))
+        optimizer, scheduler = make_gnomonic_optimizer(
+            grid, current_stage_lr, lr_decay_steps_per_stage, lr_decay_gamma_per_stage)
+        if resume_opt_source is not None and stage == start_stage:
+            if load_optimizer_state(resume_opt_source, optimizer, scheduler) is not None:
+                log.info("restored optimizer state (Adam moments + schedule count)")
+            else:
+                log.info("optimizer checkpoint incompatible; starting a fresh Adam")
+
+        # whole-pose steps over views of one (axis, flip, warp swap) bucket
+        buckets, weights = _pose_buckets(poses_np, intr.height, intr.width, intr.focal)
+        variants = list(buckets)
+        pose_picker = np.random.default_rng(seed + stage)
+        tstats = {}
+        pose_rays = intr.height * intr.width
+        if gnomonic_poses_per_step > 0:
+            poses_per_step = gnomonic_poses_per_step
+        else:
+            poses_per_step = max(_GN_MIN_POSES_PER_STEP, round(ray_batch_size / pose_rays))
+        rays_per_step = pose_rays * poses_per_step
+        if poses_per_step > 1:
+            log.info(f"gnomonic whole-pose steps accumulate {poses_per_step} poses/step "
+                     f"({pose_rays} rays/pose vs ray_batch_size {ray_batch_size})")
+        log.info(f"training stage: {stage}   voxel grid resolution: {grid.grid_dims} "
+                 f"training images resolution: [{intr.height} x {intr.width}]")
+        log.info(f"current stage learning rate: {current_stage_lr}")
+
+        rays_meter = ThroughputMeter(window=8)
+        steps_since_sync = 0
+        last_time = time.perf_counter()
+        first = start_iteration if stage == start_stage else 1
+        for stage_iteration in range(first, num_iterations_per_stage + 1):
+            variant = variants[int(pose_picker.choice(len(variants), p=weights))]
+            tstat = tstats.get(variant)
+            if tstat is None:
+                tstat = tstats[variant] = make_gnomonic_train_statics(
+                    grid, variant[0], variant[1],
+                    image_height=intr.height, image_width=intr.width,
+                    white_bkgd=render_config.white_bkgd,
+                    apply_diffuse_render_regularization=apply_diffuse_render_regularization,
+                    pos_per_cell=render_config.gnomonic_pos_per_cell,
+                    supersample=render_config.gnomonic_supersample,
+                    warp_order=render_config.gnomonic_warp_order,
+                    qb=render_config.gnomonic_qb,
+                    warp_impl=render_config.gnomonic_warp_impl,
+                    warp_swap=variant[2],
+                )
+            bucket = buckets[variant]
+            gen = generator if jitter else None
+            if poses_per_step > 1:
+                idx = np.asarray(pose_picker.choice(bucket, size=poses_per_step))
+                metrics = gnomonic_train_step_multi(
+                    tstat, optimizer, grid, images[torch.as_tensor(idx, device=dev)],
+                    poses_np[idx, :, :3], poses_np[idx, :, 3], intr.focal, gen,
+                    scheduler=scheduler)
+            else:
+                p_i = int(pose_picker.choice(bucket))
+                metrics = gnomonic_train_step(
+                    tstat, optimizer, grid, images[p_i], poses_np[p_i, :, :3],
+                    poses_np[p_i, :, 3], intr.focal, gen, scheduler=scheduler)
+            steps_since_sync += 1
+
+            global_step = (stage - 1) * num_iterations_per_stage + stage_iteration
+            is_edge = stage_iteration == 1 or stage_iteration == num_iterations_per_stage
+
+            if global_step % summary_freq == 0 or is_edge:
+                metrics_host = {k: float(v) for k, v in metrics.items()}  # syncs
+                rays_meter.tick(rays_per_step * steps_since_sync)
+                steps_since_sync = 0
+                metrics_host["num_epochs"] = rays_per_step * global_step / dataset_size
+                metrics_host["train_rays_per_sec"] = rays_meter.per_sec
+                for name, value in metrics_host.items():
+                    summaries.add_scalar(name, value, global_step=global_step)
+                log.info(f"Stage: {stage} Global Iteration: {global_step} "
+                         f"Stage Iteration: {stage_iteration} "
+                         + " ".join(f"{k}: {v:.3f}" for k, v in metrics_host.items()))
+
+            time_spent_actually_training += time.perf_counter() - last_time
+
+            if (global_step % feedback_freq == 0 or is_edge) and not fast_debug_mode:
+                log.info("TIME CHECK: time spent actually training till now: "
+                         f"{timedelta(seconds=time_spent_actually_training)}")
+                visualize_sh_vox_grid_vol_mod_rendered_feedback(
+                    vol_mod=vol_mod,
+                    render_feedback_pose=render_feedback_pose,
+                    camera_intrinsics=camera_intrinsics,
+                    global_step=global_step,
+                    feedback_logs_dir=render_dir,
+                    training_time=time_spent_actually_training,
+                    log_diffuse_rendered_version=apply_diffuse_render_regularization,
+                    overridden_num_samples_per_ray=render_config.render_num_samples_per_ray,
+                )
+                vol_mod.drop_prepared_cache()
+
+            if (test_dataset is not None and not fast_debug_mode
+                    and (global_step % test_freq == 0
+                         or stage_iteration == num_iterations_per_stage)):
+                test_sh_vox_grid_vol_mod_with_posed_images(
+                    vol_mod=vol_mod, test_dataset=test_dataset,
+                    tensorboard_writer=summaries, global_step=global_step)
+                vol_mod.drop_prepared_cache()
+
+            if global_step % save_freq == 0 or is_edge:
+                ckpt_path = model_dir / f"model_stage_{stage}_iter_{global_step}"
+                vol_mod.save(ckpt_path, extra_info=extra_info)
+                save_optimizer_state(ckpt_path, optimizer, stage, stage_iteration)
+
+            last_time = time.perf_counter()
+
+        del optimizer, scheduler, images
+        if stage != num_stages:
+            vol_mod.thre3d_repr = scale_voxel_grid_with_required_output_size(
+                vol_mod.thre3d_repr, output_size=stagewise_voxel_grid_sizes[stage])
+
+    vol_mod.save(model_dir / "model_final", extra_info=extra_info)
+    log.info("Training complete")
+    log.info(f"Total actual training time: {timedelta(seconds=time_spent_actually_training)}")
+    return vol_mod

@@ -60,6 +60,12 @@ class VolumetricModel:
     def thre3d_repr(self) -> VoxelGrid:
         return self._thre3d_repr
 
+    @thre3d_repr.setter
+    def thre3d_repr(self, grid: VoxelGrid) -> None:
+        """Adopt ``grid`` (moved to the model's device); drops the render cache."""
+        self._thre3d_repr = grid.to(self.device)
+        self._image_render_cache.clear()
+
     @property
     def render_procedure(self):
         return get_render_procedure(self._render_procedure_name)

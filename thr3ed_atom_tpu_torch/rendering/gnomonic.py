@@ -1,7 +1,7 @@
 """Gnomonic shear-warp renderer: the serving path of the port.
 
-Counterpart of thr3ed_atom_tpu/rendering/gnomonic.py, fused (v3) pipeline
-only. Per pose:
+Counterpart of thr3ed_atom_tpu/rendering/gnomonic.py. Per pose, in the fused
+(v3) pipeline (``qb`` > 0, the default):
 
   1. the pose's dominant march axis selects a "virtual axis-aligned camera"
      whose texel (p, q) is the ray ``D = g*e_axis + x_p*e_u + y_q*e_v``; every
@@ -20,13 +20,21 @@ only. Per pose:
      csrc/resample_rows.cu) resamples the composited texel image to the
      camera's pixels in two scanline passes.
 
+``gnomonic_qb=0`` selects the v2 stripe pipeline instead (whole-height
+stripes): the repack interleaves the interior positions (one bf16 stack of
+every position), ``gnomonic_geometry(lite=False)`` builds the per-position
+tents ``Ru`` / ``RvT`` and liveness, ``resample_u`` u-resamples the stack with
+a bf16 matmul (t1), ``gnomonic_occupancy`` flags (128-row block, position)
+pairs, and ``composite_positions`` (CUDA kernel csrc/composite_stripe.cu)
+v-resamples t1 through the tents, folds the SH basis and composites; the same
+warp follows. Both pipelines use one texel frame (Pb = 128).
+
 The training path (rendering/gnomonic_train.py) runs the same stages with the
 materialized SH basis and norm (``gnomonic_geometry(skip_basis=False)``) as
 operands of the composite, and a sub-texel phase shift of the frame.
 
-Out of this slice (each raises NotImplementedError): the v2 stripe kernels
-(``gnomonic_qb=0``), warp order 5, the gather warp, flat ray batches through
-the procedure object, and the per-position tent tensors (``lite=False``).
+Out of this slice (each raises NotImplementedError): warp order 5, the gather
+warp and flat ray batches through the procedure object.
 """
 from __future__ import annotations
 
@@ -72,7 +80,8 @@ class GnomonicStatics(NamedTuple):
     # early exit: a texel tile stops marching once every texel's
     # transmittance is at most this (0 disables)
     exit_eps: float = 0.0
-    # q-block width of the occupancy flags, in texels (multiple of 128)
+    # q-block width of the occupancy flags, in texels (multiple of 128); 0
+    # selects the v2 stripe pipeline (whole-height stripes)
     qb: int = 128
 
 
@@ -99,13 +108,8 @@ def statics_for_grid(
         )
     if voxel_grid.feature_postactivation != "identity":
         raise ValueError("gnomonic renderer needs an identity feature postactivation")
-    if qb == 0:
-        raise NotImplementedError(
-            "gnomonic_qb=0 selects the v2 stripe kernels, not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port', K5-K8)"
-        )
     if qb < 0 or qb % 128 != 0:
-        raise ValueError("gnomonic qb must be a positive multiple of 128")
+        raise ValueError("gnomonic qb must be 0 or a positive multiple of 128")
     dims = voxel_grid.grid_dims
     if pos_per_cell == 0:
         # AUTO: ~256 positions across the grid (32^3 -> 8, 128^3 -> 2, 256^3 -> 1)
@@ -149,27 +153,37 @@ def repack_position_slices(voxel_grid: VoxelGrid, statics: GnomonicStatics,
                            vertex_only: bool = True) -> torch.Tensor:
     """The vertex slices [nvert, nu, C, nv] front to back along the march axis
     (pre-activated, C = 3*ncoeff + 1 padded to a multiple of 8), bf16 unless
-    ``round_output`` is False. Interior quadrature positions are lerped by the
-    composite, so only the vertex stack exists.
+    ``round_output`` is False. The fused composite lerps interior quadrature
+    positions itself, so only the vertex stack exists; its storage is
+    channel-last: a permuted view of a contiguous [nvert, nu, nv, C] tensor,
+    the layout the CUDA composite gathers from (one 16-byte load per 8
+    channels).
 
-    The values are the JAX package's; the storage is channel-last: the result
-    is a permuted view of a contiguous [nvert, nu, nv, C] tensor, the layout
-    the CUDA composite gathers from (one 16-byte load per 8 channels)."""
-    if not vertex_only:
-        raise NotImplementedError(
-            "the interleaved position stack feeds the v2 stripe kernels, not "
-            "ported yet (ROADMAP.md, 'TPU kernels to port', K5-K8)"
-        )
+    ``vertex_only=False`` (the v2 stripe pipeline) returns every position
+    [NP, nu, C, nv], contiguous: the interior ones lerped from the two
+    neighbouring vertex slices in f32, rounded once at the end. The values are
+    the JAX package's either way."""
     axis = statics.axis
     u_ax, v_ax = _uv_axes(axis)
     pre_densities, pre_features = voxel_grid.activated_grids()
     unified = torch.cat([pre_features, pre_densities], dim=-1)
     C = _padded_channels(statics)
     unified = F.pad(unified, (0, C - unified.shape[-1]))
+    out_dtype = torch.bfloat16 if round_output else F32
+    if not vertex_only:
+        slices = unified.permute(axis, u_ax, 3, v_ax)  # [nvert, nu, C, nv]
+        if statics.flip:
+            slices = torch.flip(slices, dims=(0,))
+        P = statics.pos_per_cell
+        if P > 1:
+            lo, hi = slices[:-1], slices[1:]
+            subs = [lo] + [(1.0 - k / P) * lo + (k / P) * hi for k in range(1, P)]
+            inter = torch.stack(subs, dim=1).reshape((-1,) + tuple(slices.shape[1:]))
+            slices = torch.cat([inter, slices[-1:]], dim=0)
+        return slices.to(out_dtype).contiguous()
     slices = unified.permute(axis, u_ax, v_ax, 3)  # [nvert, nu, nv, C]
     if statics.flip:
         slices = torch.flip(slices, dims=(0,))
-    out_dtype = torch.bfloat16 if round_output else F32
     # one copy into contiguous [nvert, nu, nv, C]; a same-dtype .to() would
     # return the permuted view itself
     if slices.dtype == out_dtype:
@@ -231,13 +245,18 @@ def _corner_ranges(rotation, height, width, focal, statics):
 
 
 class GnomonicGeometry(NamedTuple):
-    """Per-pose operands of the fused march."""
+    """Per-pose operands of the march."""
 
     geom: torch.Tensor  # [NP, 8] f32: s_j, cell_step, bu, ku, bv, kv, 0, 0
     xr: Tuple[torch.Tensor, torch.Tensor]  # gnomonic x range of the frame
     yr: Tuple[torch.Tensor, torch.Tensor]
     ybasis: Optional[torch.Tensor] = None  # [ncoeff, Pn, Qn] f32 (skip_basis=False)
     norm: Optional[torch.Tensor] = None  # [Pn, Qn] f32 (skip_basis=False)
+    # the v2 stripe pipeline's per-position tents and liveness (lite=False)
+    Ru: Optional[torch.Tensor] = None  # [NP, Pn, nu] bf16 u-axis tent weights
+    RvT: Optional[torch.Tensor] = None  # [NP, nv, Qn] bf16 v-axis tent weights
+    live_u: Optional[torch.Tensor] = None  # [NP, Pn, 1] f32
+    live_v: Optional[torch.Tensor] = None  # [NP, 1, Qn] f32
 
 
 def gnomonic_geometry(
@@ -251,12 +270,10 @@ def gnomonic_geometry(
     order in f32. ``phase`` (two numbers in [-0.5, 0.5], texel units) shifts
     the whole texel frame sub-texel, which the warp compensates exactly (the
     training path's jitter); ``skip_basis=False`` also materializes the SH
-    basis and norm of every texel direction (the training operands)."""
-    if not lite:
-        raise NotImplementedError(
-            "the per-position tent tensors (lite=False) feed the v2 kernels, "
-            "not ported yet (ROADMAP.md, 'TPU kernels to port', K5-K8)"
-        )
+    basis and norm of every texel direction (the training operands), and
+    ``lite=False`` the v2 pipeline's per-position tents and liveness from
+    ``U = a_u + (s_j su) xs`` (the reference's v2 formula, which rounds
+    differently from the fused kernels' ``bu + ku p``)."""
     axis = statics.axis
     u_ax, v_ax = _uv_axes(axis)
     g = -1.0 if statics.flip else 1.0
@@ -283,9 +300,9 @@ def gnomonic_geometry(
         y0, y1 = y0 + dyt, y1 + dyt
 
     ybasis = norm = None
+    xs = x0 + _div((x1 - x0) * torch.arange(Pn, dtype=F32, device=dev), Pn - 1)
+    ys = y0 + _div((y1 - y0) * torch.arange(Qn, dtype=F32, device=dev), Qn - 1)
     if not skip_basis:
-        xs = x0 + _div((x1 - x0) * torch.arange(Pn, dtype=F32, device=dev), Pn - 1)
-        ys = y0 + _div((y1 - y0) * torch.arange(Qn, dtype=F32, device=dev), Qn - 1)
         norm = torch.sqrt(1.0 + xs[:, None] ** 2 + ys[None, :] ** 2)
         comp = [None, None, None]
         comp[u_ax] = xs[:, None] / norm
@@ -300,6 +317,22 @@ def gnomonic_geometry(
 
     a_u = (origin[u_ax] - aabb[u_ax][0]) * su - 0.5
     a_v = (origin[v_ax] - aabb[v_ax][0]) * sv - 0.5
+    tents = {}
+    if not lite:
+        nu, nv = dims[u_ax], dims[v_ax]
+        U = a_u + (s_j[:, None] * su) * xs[None, :]  # [NP, Pn]
+        V = a_v + (s_j[:, None] * sv) * ys[None, :]  # [NP, Qn]
+
+        def tent(pos, n):
+            idx = torch.arange(n, dtype=F32, device=dev)
+            return torch.clamp_min(1.0 - torch.abs(pos[..., None] - idx), 0.0)
+
+        tents = dict(
+            Ru=tent(U, nu).to(torch.bfloat16),
+            RvT=tent(V, nv).transpose(1, 2).to(torch.bfloat16).contiguous(),
+            live_u=((U >= -0.5) & (U <= nu - 0.5) & (s_j[:, None] > 0.0)).to(F32)[..., None],
+            live_v=((V >= -0.5) & (V <= nv - 0.5)).to(F32)[:, None, :],
+        )
     cell_step = torch.full((NP,), cell_a / P, dtype=F32, device=dev)
     bu = a_u + (s_j * su) * x0
     ku = (s_j * su) * _div(x1 - x0, Pn - 1)
@@ -308,7 +341,44 @@ def gnomonic_geometry(
     zeros = torch.zeros_like(s_j)
     geom = torch.stack([s_j, cell_step, bu, ku, bv, kv, zeros, zeros], dim=-1)
     return GnomonicGeometry(geom=geom, xr=(x0, x1), yr=(y0, y1),
-                            ybasis=ybasis, norm=norm)
+                            ybasis=ybasis, norm=norm, **tents)
+
+
+def resample_u(slices: torch.Tensor, Ru: torch.Tensor) -> torch.Tensor:
+    """The v2 pipeline's u-resample of every position, t1 [NP, C, Pn, nv]
+    bf16: one bf16 matmul per position (f32 sums rounded once, as the
+    reference's preferred_element_type=bf16 einsum; on the card
+    ``_strict_f32`` keeps cuBLAS from rounding partial sums to bf16). Its
+    gradient is autograd's, the transposed matmul."""
+    return torch.einsum("jpu,jucv->jcpv", Ru, slices.to(torch.bfloat16))
+
+
+def use_fused_composite(statics: GnomonicStatics) -> bool:
+    """The fused (v3) pipeline serves ``qb`` > 0, the v2 stripe pipeline
+    ``qb`` = 0. The CUDA kernels have no lane rule (on the TPU the JAX package
+    also sends grids with nv % 128 != 0 to v2). Callers repack with
+    ``vertex_only=`` this value."""
+    return statics.qb > 0
+
+
+def gnomonic_occupancy(slices, Ru, statics: GnomonicStatics, PB: int, Pb: int):
+    """The v2 pipeline's exact-zero skip flags per (u-block, position):
+    (cell_live, pos_needed), both [PB, NP] int32. A block is live at position
+    j when a tent tap of one of its texel rows reaches a grid column u that
+    holds a positive density anywhere along v (the reference's whole-stripe
+    rule; every grain is lossless). ``slices`` is the position stack
+    [NP, nu, C, nv]."""
+    NP = slices.shape[0]
+    sig = slices[:, :, 3 * statics.ncoeff, :]  # [NP, nu, nv] pre-relu density
+    sup = (Ru > 0).to(F32).reshape(NP, PB, Pb, -1).sum(dim=2)  # [NP, PB, nu]
+    col_live = (sig.amax(dim=-1) > 0.0).to(F32)  # [NP, nu]
+    slab_live = (torch.einsum("jbu,ju->jb", sup, col_live) > 0.0).to(torch.int32)
+    zero = torch.zeros((1, PB), dtype=torch.int32, device=slab_live.device)
+    prev_l = torch.cat([zero, slab_live[:-1]], 0)
+    next_l = torch.cat([slab_live[1:], zero], 0)
+    cell_live = (prev_l | slab_live).T.contiguous()
+    pos_needed = (prev_l | slab_live | next_l).T.contiguous()
+    return cell_live, pos_needed
 
 
 def gnomonic_occupancy_lite(slices, geom, statics: GnomonicStatics, Pn: int,
@@ -485,31 +555,26 @@ def _flag_blocks(flags, Pb: int, Qb: int):
     return (flags > 0).repeat_interleave(Pb, 0).repeat_interleave(Qb, 1)
 
 
-def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
-                                    Qn, PB, Pb, occupancy, xr=None, yr=None,
-                                    exit_tile=None, return_work=False):
-    """Plain PyTorch version of the fused composite (the TPU kernel
-    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions_fused). Marches
-    the whole frame position by position with the reference's roundings: the
-    lerped slice, the u-tent and the u-resample round to bf16, the v-resample
-    sums in f32; both tents have two taps, so the gather form equals the
-    reference's tent matmuls exactly. The SH basis and norm are the
-    ``ybasis`` [ncoeff, Pn, Qn] / ``norm`` [Pn, Qn] operands (training), or
-    are built from the frame ranges ``xr`` / ``yr`` (serving).
+def _texel_flags(flags, j: int, Pb: int, Qn: int):
+    """Position j's block flags -- [PB, QB, NP] (fused) or [PB, NP] (stripe)
+    -- as a [Pn, Qn] bool mask."""
+    fl = flags[..., j]
+    if fl.dim() == 1:
+        fl = fl[:, None]
+    return _flag_blocks(fl, Pb, Qn // fl.shape[1])
 
-    ``exit_tile`` (rows, cols) is the early exit's grain: the JAX kernel's
-    (Pb, Qb) by default, ``CUDA_EXIT_TILE`` to reproduce the CUDA kernel.
-    ``return_work`` also returns which (position, texel) pairs were marched,
-    a [NP, Pn, Qn] bool tensor.
-    Returns the state [SROWS, Pn, Qn] f32."""
-    NP = _num_positions(statics)
-    QB, Qb = _qb_blocks(statics, Qn)
-    used = 3 * statics.ncoeff + 1
-    dev = slices.device
-    cell_live, pos_needed, _ = occupancy
-    ep, eq = exit_tile if exit_tile is not None else (Pb, Qb)
-    yb, nm = _texel_basis_plain(ybasis, norm, xr, yr, statics, Pn, Qn, dev)
 
+def _march_plain(values, geom, nm, occupancy, statics: GnomonicStatics, Pn: int,
+                 Qn: int, Pb: int, exit_tile, return_work: bool):
+    """The front-to-back march of the plain composites over the whole frame:
+    ``values(j)`` gives position j's (sig, rgb [3], dif [3], live), each
+    [Pn, Qn]; flags gate the work per block, the early exit per
+    ``exit_tile`` (rows, cols) tile. Returns the state [SROWS, Pn, Qn] (and
+    the marched mask [NP, Pn, Qn] with ``return_work``)."""
+    NP = geom.shape[0]
+    cell_live, pos_needed = occupancy[0], occupancy[1]
+    dev = geom.device
+    ep, eq = exit_tile
     zeros = torch.zeros((Pn, Qn), dtype=F32, device=dev)
     T = torch.ones((Pn, Qn), dtype=F32, device=dev)
     col = [zeros] * 3
@@ -519,9 +584,8 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
     prev_rgb = [zeros] * 3
     prev_dif = [zeros] * 3
     marched = []
-    slices_u = slices[:, :, :used, :]
     for j in range(NP):
-        work = _flag_blocks(pos_needed[:, :, j], Pb, Qb)
+        work = _texel_flags(pos_needed, j, Pb, Qn)
         if statics.exit_eps > 0.0:
             tmax = T.reshape(Pn // ep, ep, Qn // eq, eq).amax(dim=(1, 3))
             running = tmax > statics.exit_eps
@@ -529,10 +593,10 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
         if return_work:
             marched.append(work)
         s_j, cell_step = geom[j, 0], geom[j, 1]
-        sig, rgb, dif_j, live = _position_values(slices_u, geom, j, statics, yb)
+        sig, rgb, dif_j, live = values(j)
 
         if j > 0:
-            upd = work & _flag_blocks(cell_live[:, :, j], Pb, Qb)
+            upd = work & _texel_flags(cell_live, j, Pb, Qn)
             integ, tbar, _, _ = relu_trap_plain(prev_sig, sig, statics.relu_sigma)
             integ = integ * (prev_live * live)
             delta = cell_step * nm
@@ -558,6 +622,31 @@ def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
     rows = [T, *col, acc, dep] + (dif if statics.with_diffuse else [])
     state = torch.stack(rows, dim=0)
     return (state, torch.stack(marched)) if return_work else state
+
+
+def composite_positions_fused_plain(slices, ybasis, norm, geom, statics, Pn,
+                                    Qn, PB, Pb, occupancy, xr=None, yr=None,
+                                    exit_tile=None, return_work=False):
+    """Plain PyTorch version of the fused composite (the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions_fused). Marches
+    the whole frame position by position with the reference's roundings: the
+    lerped slice, the u-tent and the u-resample round to bf16, the v-resample
+    sums in f32; both tents have two taps, so the gather form equals the
+    reference's tent matmuls exactly. The SH basis and norm are the
+    ``ybasis`` [ncoeff, Pn, Qn] / ``norm`` [Pn, Qn] operands (training), or
+    are built from the frame ranges ``xr`` / ``yr`` (serving).
+
+    ``exit_tile`` (rows, cols) is the early exit's grain: the JAX kernel's
+    (Pb, Qb) by default, ``CUDA_EXIT_TILE`` to reproduce the CUDA kernel.
+    ``return_work`` also returns which (position, texel) pairs were marched,
+    a [NP, Pn, Qn] bool tensor.
+    Returns the state [SROWS, Pn, Qn] f32."""
+    _, Qb = _qb_blocks(statics, Qn)
+    yb, nm = _texel_basis_plain(ybasis, norm, xr, yr, statics, Pn, Qn, slices.device)
+    slices_u = slices[:, :, :3 * statics.ncoeff + 1, :]
+    return _march_plain(lambda j: _position_values(slices_u, geom, j, statics, yb),
+                        geom, nm, occupancy, statics, Pn, Qn, Pb,
+                        exit_tile or (Pb, Qb), return_work)
 
 
 def _vertex_stack(slices, statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
@@ -661,6 +750,115 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
 composite_positions_fused.launches = 0
 
 
+# ----------------------------------------------------------- stripe composite
+
+
+def _stripe_values(t1, rvt, yb, live_u, live_v, j: int, ncoeff: int):
+    """Position j's values over the whole frame from the u-resampled stack, as
+    the reference's kernel computes them: vals = t1[j] @ RvT[j] (bf16 values,
+    f32 products and sums), sigma, the SH fold, band 0, and the liveness
+    live_u * live_v."""
+    nc = ncoeff
+    vals = torch.matmul(t1[j, :3 * nc + 1].to(F32), rvt[j].to(F32))  # [used, Pn, Qn]
+    rgb = []
+    for c in range(3):
+        a = yb[0] * vals[c * nc]
+        for k in range(1, nc):
+            a = a + yb[k] * vals[c * nc + k]
+        rgb.append(a)
+    dif = [yb[0] * vals[c * nc] for c in range(3)]
+    return vals[3 * nc], rgb, dif, live_u[j] * live_v[j]
+
+
+def composite_positions_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                              statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                              Pb: int, occupancy, exit_tile=None, return_work=False):
+    """Plain PyTorch version of the stripe composite (the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic.py composite_positions, QB = 1): per
+    position the dense product t1[j] @ RvT[j] with f32 sums, the SH fold
+    with the ``ybasis`` / ``norm`` operands and the front-to-back composite,
+    gated by the [PB, NP] flags of ``occupancy`` = (cell_live, pos_needed).
+
+    t1 [NP, C, Pn, nv] bf16, rvt [NP, nv, Qn] bf16, live_u [NP, Pn, 1],
+    live_v [NP, 1, Qn]. ``exit_tile`` is the early exit's grain: the JAX
+    kernel's whole (Pb, Qn) stripe by default, ``CUDA_EXIT_TILE`` to
+    reproduce the CUDA kernel. Returns the state [SROWS, Pn, Qn] f32 (and the
+    marched mask with ``return_work``)."""
+    return _march_plain(
+        lambda j: _stripe_values(t1, rvt, ybasis, live_u, live_v, j, statics.ncoeff),
+        geom, norm, occupancy, statics, Pn, Qn, Pb, exit_tile or (Pb, Qn), return_work)
+
+
+def _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
+                           occupancy, statics: GnomonicStatics, Pn, Qn, PB, Pb):
+    """The operands of the CUDA stripe kernels, checked and made contiguous f32
+    / int32 where the kernels read them so: (t1, rvt, ybasis, live_u, live_v,
+    norm, geom, cell_live, pos_needed)."""
+    NP, C, _, nv = t1.shape
+    dev = t1.device
+    if t1.dtype != torch.bfloat16 or t1.shape[2] != Pn or t1.stride(3) != 1:
+        raise ValueError(f"{what}: t1 [NP, C, Pn, nv] bf16 with unit v stride required")
+    if rvt.dtype != torch.bfloat16 or rvt.shape != (NP, nv, Qn):
+        raise ValueError(f"{what}: rvt [NP, nv, Qn] bf16 required")
+    if (C != _padded_channels(statics) or NP != _num_positions(statics)
+            or PB * Pb != Pn or Pb % CUDA_EXIT_TILE[0] or Qn % CUDA_EXIT_TILE[1]):
+        raise ValueError(f"{what}: t1 {tuple(t1.shape)}, frame {Pn}x{Qn} blocks {PB}x{Pb}")
+    if (ybasis.shape != (statics.ncoeff, Pn, Qn) or norm.shape != (Pn, Qn)
+            or live_u.shape != (NP, Pn, 1) or live_v.shape != (NP, 1, Qn)
+            or geom.shape != (NP, 8)):
+        raise ValueError(f"{what}: operand shapes")
+    flags = tuple(fl.to(device=dev, dtype=torch.int32).contiguous() for fl in occupancy[:2])
+    if any(fl.shape != (PB, NP) for fl in flags):
+        raise ValueError(f"{what}: flags must be [PB, NP]")
+    ops = tuple(x.to(device=dev, dtype=F32).contiguous()
+                for x in (ybasis, live_u, live_v, norm, geom))
+    return (t1, rvt.contiguous()) + ops + flags
+
+
+def _stripe_lib():
+    fn = kernels.load("composite_stripe").composite_stripe_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def composite_positions(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                        statics: GnomonicStatics, Pn: int, Qn: int, PB: int, Pb: int,
+                        occupancy):
+    """The stripe composite: the u-resampled stack in, the state
+    [SROWS, Pn, Qn] f32 out. On a CUDA tensor one call of
+    csrc/composite_stripe.cu (the column taps of ``rvt``, then the march); on a
+    CPU tensor ``composite_positions_plain``. The kernel exits early per
+    ``CUDA_EXIT_TILE`` tile. Operands as ``composite_positions_plain``."""
+    if t1.device.type == "cpu":
+        return composite_positions_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                         statics, Pn, Qn, PB, Pb, occupancy)
+    if t1.device.type != "cuda":
+        raise ValueError(f"composite_positions: unsupported device {t1.device}")
+    t1, rvt, yb, lu, lv, nm, geom, cl, pn = _check_stripe_operands(
+        "composite_positions", t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
+        statics, Pn, Qn, PB, Pb)
+    NP, _, _, nv = t1.shape
+    dev = t1.device
+    taps = torch.empty((NP, Qn, 4), dtype=F32, device=dev)
+    out = torch.empty((_sprows(statics.with_diffuse), Pn, Qn), dtype=F32, device=dev)
+    err = _stripe_lib()(
+        t1.data_ptr(), *t1.stride()[:3], rvt.data_ptr(), taps.data_ptr(),
+        lu.data_ptr(), lv.data_ptr(), geom.data_ptr(), cl.data_ptr(), pn.data_ptr(),
+        yb.data_ptr(), nm.data_ptr(), out.data_ptr(),
+        statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
+        NP, nv, Pn, Qn, Pb, float(statics.exit_eps),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "composite_stripe")
+    composite_positions.launches += 1
+    return out
+
+
+composite_positions.launches = 0
+
+
 # ------------------------------------------------------------------ pipeline
 
 
@@ -733,9 +931,13 @@ def _warp_to_camera(state, xr, yr, rotation, statics: GnomonicStatics,
 
 def _strict_f32() -> None:
     """True f32 on the geometry, occupancy and warp paths: TF32 keeps ~3
-    decimal digits, which quantizes texel positions and caps image quality."""
+    decimal digits, which quantizes texel positions and caps image quality;
+    and bf16 matmuls that sum in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the v2 pipeline's bf16 u-resample: f32 sums rounded once, as the
+    # reference's (cuBLAS may otherwise round partial sums to bf16)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def _variant_statics(voxel_grid, axis, flip, config) -> GnomonicStatics:
@@ -751,19 +953,46 @@ def _variant_statics(voxel_grid, axis, flip, config) -> GnomonicStatics:
 
 
 def _cached_slices(voxel_grid, statics, cache):
-    """The variant's vertex slices, from ``cache`` while the grid's tensors are
-    unchanged (same storage, same version counter)."""
+    """The variant's slices (the vertex stack, or every position for the v2
+    pipeline), from ``cache`` while the grid's tensors are unchanged (same
+    storage, same version counter)."""
     stamp = tuple((t.data_ptr(), t._version)
                   for t in (voxel_grid.densities, voxel_grid.features))
-    key = ("gnomonic", statics.axis, statics.flip, statics.pos_per_cell)
+    vertex = use_fused_composite(statics)
+    key = ("gnomonic", statics.axis, statics.flip, statics.pos_per_cell, vertex)
     if cache is not None:
         entry = cache.get(key)
         if entry is not None and entry[0] == stamp:
             return entry[1]
-    slices = repack_position_slices(voxel_grid, statics)
+    slices = repack_position_slices(voxel_grid, statics, vertex_only=vertex)
     if cache is not None:
         cache[key] = (stamp, slices)
     return slices
+
+
+def _march_gnomonic(slices, rot, origin, statics: GnomonicStatics, height: int,
+                    width: int, focal, supersample: float, plain: bool = False):
+    """The march of one pose through the variant's pipeline: (state
+    [SROWS, Pn, Qn], x range, y range). ``slices`` are the vertex stack
+    (fused) or every position (v2)."""
+    Pn, Qn, PB, Pb = gnomonic_frame(None, height, width, focal, supersample, statics)
+    if use_fused_composite(statics):
+        QB, Qb = _qb_blocks(statics, Qn)
+        geo = gnomonic_geometry(rot, origin, statics, height, width, focal, supersample)
+        occupancy = gnomonic_occupancy_lite(slices, geo.geom, statics, Pn, Qn, PB,
+                                            Pb, QB, Qb)
+        composite = composite_positions_fused_plain if plain else composite_positions_fused
+        state = composite(slices, None, None, geo.geom, statics, Pn, Qn, PB, Pb,
+                          occupancy, xr=geo.xr, yr=geo.yr)
+        return state, geo.xr, geo.yr
+    geo = gnomonic_geometry(rot, origin, statics, height, width, focal, supersample,
+                            lite=False, skip_basis=False)
+    t1 = resample_u(slices, geo.Ru)
+    occupancy = gnomonic_occupancy(slices, geo.Ru, statics, PB, Pb)
+    composite = composite_positions_plain if plain else composite_positions
+    state = composite(t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm,
+                      geo.geom, statics, Pn, Qn, PB, Pb, occupancy)
+    return state, geo.xr, geo.yr
 
 
 @torch.no_grad()
@@ -792,20 +1021,12 @@ def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
     )
     rot = torch.as_tensor(rotation).to(dev)
     focal = torch.tensor(focal_f, dtype=F32, device=dev)
-    Pn, Qn, PB, Pb = gnomonic_frame(None, height, width, focal_f, supersample,
-                                    statics)
-    QB, Qb = _qb_blocks(statics, Qn)
-    geo = gnomonic_geometry(rot, torch.as_tensor(origin).to(dev), statics,
-                            height, width, focal, supersample)
-    occupancy = gnomonic_occupancy_lite(slices, geo.geom, statics, Pn, Qn, PB,
-                                        Pb, QB, Qb)
-    composite = composite_positions_fused_plain if plain else composite_positions_fused
-    state = composite(slices, None, None, geo.geom, statics, Pn, Qn, PB, Pb,
-                      occupancy, xr=geo.xr, yr=geo.yr)
+    state, xr, yr = _march_gnomonic(slices, rot, torch.as_tensor(origin).to(dev),
+                                    statics, height, width, focal, supersample, plain)
     warp_impl = str(getattr(config, "gnomonic_warp_impl", "auto"))
     swap = warp_swap_for_pose(rotation, axis, flip, height, width, focal_f)
     return _warp_to_camera(
-        state, geo.xr, geo.yr, rot, statics, height, width, focal, supersample,
+        state, xr, yr, rot, statics, height, width, focal, supersample,
         bool(config.white_bkgd),
         warp_order=int(getattr(config, "gnomonic_warp_order", 3)),
         warp_impl="matmul" if warp_impl == "auto" else warp_impl,

@@ -1,8 +1,8 @@
 """Differentiable gnomonic pipeline: the whole-pose training step of the port.
 
-Counterpart of thr3ed_atom_tpu/rendering/gnomonic_train.py, fused (v3)
-pipeline only. One pose's loss runs the serving path's stages with the
-training operands: repack -> geometry with the materialized SH basis and norm
+Counterpart of thr3ed_atom_tpu/rendering/gnomonic_train.py. One pose's loss
+runs the serving path's stages with the training operands; in the fused (v3)
+pipeline (``qb`` > 0): repack -> geometry with the materialized SH basis and norm
 (and a sub-texel phase jitter) -> occupancy -> the fused composite (CUDA
 kernel csrc/composite_fused.cu, training branch) -> the two-pass warp (CUDA
 kernel csrc/resample_rows.cu) -> L1 loss on the pixels (specular + diffuse).
@@ -20,9 +20,13 @@ resample (csrc/resample_rows_adjoint.cu). On CPU tensors every kernel's plain
 PyTorch version runs instead; ``plain=True`` selects the plain versions on
 any device (a reference for checking the kernels on the card).
 
-Out of this module (each raises NotImplementedError): the v2 pipeline
-(``fused=False`` or ``qb=0``, kernels K5-K8), the gather warp, and the mesh
-step.
+``qb=0`` trains through the v2 stripe pipeline instead: the interleaved
+position stack, the u-resample as a bf16 matmul (its gradient autograd's), the
+stripe composite (csrc/composite_stripe.cu) and its replay VJP with respect to
+the u-resampled stack (csrc/composite_stripe_backward.cu).
+
+Out of this module (each raises NotImplementedError): the q-split v2 kernels
+(``fused=False`` with ``qb`` > 0, K6/K8), the gather warp and the mesh step.
 """
 from __future__ import annotations
 
@@ -38,21 +42,27 @@ from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap_plain
 from thr3ed_atom_tpu_torch.rendering.gnomonic import (
     GnomonicStatics,
     _bf16r,
-    _flag_blocks,
+    _check_stripe_operands,
     _num_positions,
     _position_values,
     _qb_blocks,
     _sprows,
+    _stripe_values,
     _strict_f32,
+    _texel_flags,
     _vertex_stack,
     _warp_to_camera,
+    composite_positions,
     composite_positions_fused,
     composite_positions_fused_plain,
+    composite_positions_plain,
     effective_supersample,
     gnomonic_frame,
     gnomonic_geometry,
+    gnomonic_occupancy,
     gnomonic_occupancy_lite,
     repack_position_slices,
+    resample_u,
     statics_for_grid,
 )
 from thr3ed_atom_tpu_torch.utils.constants import EXTRA_DIFFUSE_COLOUR
@@ -65,8 +75,9 @@ F32 = torch.float32
 # stays f32 either way
 _BF16_SLICES_BYTES = 512 * 1024 * 1024
 
-_V2_KERNELS = ("the v2 gnomonic pipeline (K5-K8 in ROADMAP.md, 'TPU kernels "
-               "to port') is not ported; the fused pipeline needs qb > 0")
+_QSPLIT_KERNELS = ("fused=False with qb > 0 selects the q-split v2 kernels, not "
+                   "ported yet (K6/K8 in ROADMAP.md, 'TPU kernels to port'); "
+                   "qb=0 trains through the v2 stripe kernels K5/K7")
 
 
 # ------------------------------------------------------- replay backward (K3)
@@ -91,54 +102,44 @@ def _fold_tents(dvals: torch.Tensor, g_row: torch.Tensor, nu: int, nv: int):
     return _bf16r(torch.einsum("pu,cpv->ucv", Wu, dt1))
 
 
-def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
-                                   statics: GnomonicStatics, Pn: int, Qn: int,
-                                   PB: int, Pb: int) -> torch.Tensor:
-    """Plain PyTorch version of the TPU kernel
-    thr3ed_atom_tpu/rendering/gnomonic_train.py _composite_backward_fused:
-    the replay VJP of the fused composite, step by step as the kernel runs it
-    (autograd of the forward would differentiate the emission centroid and
-    give a different gradient).
+def _replay_vjp_plain(values, flush, geom, ybasis, norm, gaux, occupancy,
+                      statics: GnomonicStatics, Pn: int, Qn: int, Pb: int) -> None:
+    """The replay VJP of a composite, step by step as the kernels run it, on
+    the whole frame. ``values(j)`` gives position j's (sig, rgb, dif, live) as
+    the forward computed them; ``flush(j, dvals)`` receives position j's
+    cotangent [used, Pn, Qn] per channel (bf16 values, zero where its block
+    is not needed).
 
     ``gaux`` [SROWS + 2, Pn, Qn] is the state cotangent, S_total = sum over
     rows >= 1 of cotangent x state, and the final transmittance. Per step j =
-    0 .. NP: replay position j as the forward computed it, composite cell
-    (j-1, j) again, form dinteg = delta * ((1 - alpha) T inner - suffix) and
-    route it to both endpoints with dI/da, dI/db; position j-1's cotangent
-    (its pending b-side plus cell j's a-side) folds through the SH basis,
-    rounds to bf16, and folds through position j-1's v- and u-tents
-    (``_fold_tents``). Masks are ``where`` selections applied after the
-    products. Returns per-position dslices [NP, nu, C, nv] bf16, zero for
-    dead positions and pad channels."""
-    nvert, nu, C, nv = slices.shape
-    NP = _num_positions(statics)
-    QB, Qb = _qb_blocks(statics, Qn)
+    0 .. NP: replay position j, composite cell (j-1, j) again, form dinteg =
+    delta * ((1 - alpha) T inner - suffix) and route it to both endpoints with
+    dI/da, dI/db; position j-1's cotangent (its pending b-side plus cell j's
+    a-side) folds through the SH basis and rounds to bf16. Masks are ``where``
+    selections applied after the products."""
+    NP = geom.shape[0]
     nc = statics.ncoeff
-    used = 3 * nc + 1
     SROWS = _sprows(statics.with_diffuse)
-    dev = slices.device
-    cell_live, pos_needed, _ = occupancy
+    cell_live, pos_needed = occupancy[0], occupancy[1]
     yb, nm = ybasis, norm
     g_T, g_acc, g_dep = gaux[0], gaux[4], gaux[5]
     g_col = [gaux[1 + c] for c in range(3)]
     g_dif = [gaux[6 + c] for c in range(3)] if statics.with_diffuse else []
     S_total, T_fin = gaux[SROWS], gaux[SROWS + 1]
 
-    zeros = torch.zeros((Pn, Qn), dtype=F32, device=dev)
+    zeros = torch.zeros((Pn, Qn), dtype=F32, device=geom.device)
     T, S = torch.ones_like(zeros), zeros
     prev_sig = prev_live = zeros
     prev_rgb, prev_dif = [zeros] * 3, [zeros] * 3
     pend_sig, pend_rgb, pend_dif = zeros, [zeros] * 3, [zeros] * 3
-    dpos = torch.zeros((NP, nu, C, nv), dtype=F32, device=dev)
-    slices_u = slices[:, :, :used, :]
     for j in range(NP + 1):
         d_a = d_b = zeros
         a_rgb = b_rgb = a_dif = b_dif = [zeros] * 3
         if j < NP:
-            replay = _flag_blocks(pos_needed[:, :, j], Pb, Qb)
-            sig, rgb, dif_j, live = _position_values(slices_u, geom, j, statics, yb)
+            replay = _texel_flags(pos_needed, j, Pb, Qn)
+            sig, rgb, dif_j, live = values(j)
         if 0 < j < NP:
-            cell = replay & _flag_blocks(cell_live[:, :, j], Pb, Qb)
+            cell = replay & _texel_flags(cell_live, j, Pb, Qn)
             s_j, cell_step = geom[j, 0], geom[j, 1]
             integ_raw, tbar, dIda, dIdb = relu_trap_plain(prev_sig, sig,
                                                           statics.relu_sigma)
@@ -188,15 +189,37 @@ def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
                     blk = blk + yb[0] * ddif[c]
                 rows.append(blk)
             rows.append(dsig)
-            flush = _flag_blocks(pos_needed[:, :, j - 1], Pb, Qb)
-            dvals = torch.where(flush, _bf16r(torch.stack(rows)), 0.0)
-            dpos[j - 1, :, :used, :] = _fold_tents(dvals, geom[j - 1], nu, nv)
+            needed = _texel_flags(pos_needed, j - 1, Pb, Qn)
+            flush(j - 1, torch.where(needed, _bf16r(torch.stack(rows)), 0.0))
         pend_sig, pend_rgb, pend_dif = d_b, b_rgb, b_dif
         if j < NP:
             prev_sig = torch.where(replay, sig, prev_sig)
             prev_rgb = [torch.where(replay, rgb[c], prev_rgb[c]) for c in range(3)]
             prev_dif = [torch.where(replay, dif_j[c], prev_dif[c]) for c in range(3)]
             prev_live = torch.where(replay, live, prev_live)
+
+
+def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
+                                   statics: GnomonicStatics, Pn: int, Qn: int,
+                                   PB: int, Pb: int) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic_train.py _composite_backward_fused:
+    the replay VJP of the fused composite (``_replay_vjp_plain``; autograd of
+    the forward would differentiate the emission centroid and give a
+    different gradient), each position's bf16 cotangent folded through its v-
+    and u-tents (``_fold_tents``). Returns per-position dslices
+    [NP, nu, C, nv] bf16, zero for dead positions and pad channels."""
+    nvert, nu, C, nv = slices.shape
+    NP = _num_positions(statics)
+    used = 3 * statics.ncoeff + 1
+    dpos = torch.zeros((NP, nu, C, nv), dtype=F32, device=slices.device)
+    slices_u = slices[:, :, :used, :]
+
+    def flush(j, dvals):
+        dpos[j, :, :used, :] = _fold_tents(dvals, geom[j], nu, nv)
+
+    _replay_vjp_plain(lambda j: _position_values(slices_u, geom, j, statics, ybasis),
+                      flush, geom, ybasis, norm, gaux, occupancy, statics, Pn, Qn, Pb)
     return dpos.to(torch.bfloat16)
 
 
@@ -329,16 +352,135 @@ def composite_positions_fused_diff(slices, ybasis, norm, geom, cell_live,
                                      Pb, plain)
 
 
+# -------------------------------------------------- stripe replay backward (K7)
+
+
+def composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
+                             occupancy, statics: GnomonicStatics, Pn: int, Qn: int,
+                             PB: int, Pb: int) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic_train.py _composite_backward (QB = 1):
+    the replay VJP of the stripe composite (``_replay_vjp_plain`` with the
+    stripe values), each position's bf16 cotangent folded through its
+    v-tents, dt1[j] = bf16(dvals @ RvT[j]^T) with f32 sums. Returns dt1
+    [NP, C, Pn, nv] bf16, zero for dead blocks and pad channels."""
+    NP, C, _, nv = t1.shape
+    used = 3 * statics.ncoeff + 1
+    dt1 = torch.zeros((NP, C, Pn, nv), dtype=torch.bfloat16, device=t1.device)
+
+    def flush(j, dvals):
+        dt1[j, :used] = torch.matmul(dvals, rvt[j].to(F32).T).to(torch.bfloat16)
+
+    _replay_vjp_plain(
+        lambda j: _stripe_values(t1, rvt, ybasis, live_u, live_v, j, statics.ncoeff),
+        flush, geom, ybasis, norm, gaux, occupancy, statics, Pn, Qn, Pb)
+    return dt1
+
+
+def _stripe_backward_fn():
+    fn = kernels.load("composite_stripe_backward").composite_stripe_backward_launch
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 15
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupancy,
+                       statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                       Pb: int) -> torch.Tensor:
+    """The replay VJP of the stripe composite (see
+    ``composite_backward_plain``): dt1 [NP, C, Pn, nv] bf16. On a CUDA tensor
+    one call of csrc/composite_stripe_backward.cu (column taps, a march over
+    the texels into a compact cotangent buffer of ``dvals_slots(pos_needed)``
+    slots of [3 ncoeff + 1, Pb, Qn] bf16, a fold over (texel rows,
+    position)); on a CPU tensor the plain version."""
+    if t1.device.type == "cpu":
+        return composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                        gaux, occupancy, statics, Pn, Qn, PB, Pb)
+    if t1.device.type != "cuda":
+        raise ValueError(f"composite_backward: unsupported device {t1.device}")
+    t1, rvt, yb, lu, lv, nm, geom, cl, pn = _check_stripe_operands(
+        "composite_backward", t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
+        statics, Pn, Qn, PB, Pb)
+    if gaux.shape != (_sprows(statics.with_diffuse) + 2, Pn, Qn):
+        raise ValueError("composite_backward: gaux shape")
+    NP, C, _, nv = t1.shape
+    dev = t1.device
+    slot, n_slots = dvals_slots(pn)
+    used = 3 * statics.ncoeff + 1
+    dvals = torch.empty((max(n_slots, 1), used, Pb, Qn), dtype=torch.bfloat16, device=dev)
+    taps = torch.empty((NP, Qn, 4), dtype=F32, device=dev)
+    q_lo = torch.full((NP, nv), 2 ** 31 - 1, dtype=torch.int32, device=dev)
+    q_hi = torch.full((NP, nv), -1, dtype=torch.int32, device=dev)
+    dt1 = torch.empty((NP, C, Pn, nv), dtype=torch.bfloat16, device=dev)
+    gaux = gaux.to(F32).contiguous()
+    err = _stripe_backward_fn()(
+        t1.data_ptr(), *t1.stride()[:3], rvt.data_ptr(), taps.data_ptr(),
+        q_lo.data_ptr(), q_hi.data_ptr(), lu.data_ptr(), lv.data_ptr(),
+        geom.data_ptr(), cl.data_ptr(), pn.data_ptr(), slot.data_ptr(), yb.data_ptr(),
+        nm.data_ptr(), gaux.data_ptr(), dvals.data_ptr(), dt1.data_ptr(),
+        statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
+        NP, C, nv, Pn, Qn, Pb, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    kernels.check(err, "composite_stripe_backward")
+    composite_backward.launches += 1
+    return dt1
+
+
+composite_backward.launches = 0
+
+
+class _CompositeStripeDiff(torch.autograd.Function):
+    """composite_positions with the replay VJP with respect to t1 (the only
+    grid-dependent input; the rest is pose geometry)."""
+
+    @staticmethod
+    def forward(ctx, t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live,
+                pos_needed, statics, Pn, Qn, PB, Pb, plain):
+        occupancy = (cell_live, pos_needed)
+        forward = composite_positions_plain if plain else composite_positions
+        state = forward(t1, rvt, ybasis, live_u, live_v, norm, geom, statics, Pn, Qn,
+                        PB, Pb, occupancy)
+        ctx.save_for_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live,
+                              pos_needed, state)
+        ctx.meta = (statics, Pn, Qn, PB, Pb, plain)
+        return state
+
+    @staticmethod
+    def backward(ctx, gstate):
+        (t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live, pos_needed,
+         state) = ctx.saved_tensors
+        statics, Pn, Qn, PB, Pb, plain = ctx.meta
+        S_total = torch.sum(gstate[1:] * state[1:], dim=0)
+        gaux = torch.cat([gstate, S_total[None], state[0:1]], dim=0)
+        backward = composite_backward_plain if plain else composite_backward
+        dt1 = backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
+                       (cell_live, pos_needed), statics, Pn, Qn, PB, Pb)
+        return (dt1,) + (None,) * 14
+
+
+def composite_positions_diff(t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live,
+                             pos_needed, statics: GnomonicStatics, Pn: int, Qn: int,
+                             PB: int, Pb: int, plain: bool = False) -> torch.Tensor:
+    """The stripe composite, differentiable in ``t1`` through the replay VJP
+    (the gradient of the u-resample that made t1 is autograd's). ``plain``
+    runs both directions through the plain versions."""
+    return _CompositeStripeDiff.apply(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                      cell_live, pos_needed, statics, Pn, Qn, PB, Pb,
+                                      plain)
+
+
 # ----------------------------------------------------------------- train step
 
 
 class GnomonicTrainStatics(NamedTuple):
     """Constants of one march variant's train step. ``frame`` is the serving
-    frame (``gnomonic_frame``): the TPU plan (``_fused_train_blocking``) sizes
-    its blocking to a 100 MB VMEM budget and needs nv % 128 == 0, but the CUDA
-    kernels keep no frame-resident state, so every frame and grid takes
-    Pb = 128, the occupancy grain (the plan the TPU picks wherever its budget
-    fits)."""
+    frame (``gnomonic_frame``) for both pipelines: the TPU plans
+    (``_fused_train_blocking``, ``_p_blocking_train``) size their blocking to
+    VMEM budgets and the fused one needs nv % 128 == 0, but the CUDA kernels
+    keep no frame-resident state, so every frame and grid takes Pb = 128, the
+    occupancy grain (the plan the TPU picks wherever its budget fits; the
+    texel grid Pn x Qn is the same under every plan)."""
 
     statics: GnomonicStatics
     height: int
@@ -351,6 +493,8 @@ class GnomonicTrainStatics(NamedTuple):
     # the matmul warp's pass order, a per-pose decision (warp_swap_for_pose):
     # the steps take the views of one (axis, flip, swap) bucket
     warp_swap: bool = False
+    # the fused (v3) pipeline (qb > 0), or the v2 stripe pipeline (qb = 0)
+    fused: bool = True
 
 
 def make_gnomonic_train_statics(
@@ -370,11 +514,15 @@ def make_gnomonic_train_statics(
     warp_swap: bool = False,
     fused: Optional[bool] = None,
 ) -> GnomonicTrainStatics:
-    """The train step's constants for march variant (axis, flip). The port
-    runs the fused pipeline only (``qb`` > 0, the JAX package's production
-    setting); ``fused=False`` and ``qb=0`` select the v2 kernels and raise."""
-    if fused is False or qb == 0:
-        raise NotImplementedError(_V2_KERNELS)
+    """The train step's constants for march variant (axis, flip): the fused
+    pipeline for ``qb`` > 0, the v2 stripe pipeline for ``qb`` = 0
+    (``fused=None`` chooses so; ``fused=True`` with ``qb=0`` is refused, and
+    ``fused=False`` with ``qb`` > 0, the q-split kernels K6/K8, raises)."""
+    if fused is False and qb > 0:
+        raise NotImplementedError(_QSPLIT_KERNELS)
+    if fused and qb == 0:
+        raise ValueError("fused gnomonic training needs qb > 0 (qb=0 is the v2 "
+                         "stripe pipeline, K5/K7)")
     if warp_impl not in ("auto", "matmul"):
         raise NotImplementedError(
             f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "
@@ -398,6 +546,7 @@ def make_gnomonic_train_statics(
                              statics),
         warp_order=int(warp_order),
         warp_swap=bool(warp_swap),
+        fused=qb > 0,
     )
 
 
@@ -416,10 +565,12 @@ def render_pose_from_slices(slices, rotation, origin, focal,
                             tstat: GnomonicTrainStatics,
                             generator: Optional[torch.Generator] = None,
                             phase=None, plain: bool = False):
-    """Differentiable whole-pose render from repacked vertex slices (bf16 or
-    f32; f32 is rounded to bf16 here, as the repack rounds). ``generator``
-    draws the pose's sub-texel phase jitter (``draw_phase``); ``phase`` gives
-    it directly. Returns the warped RenderOut (colour [H, W, 3], extra)."""
+    """Differentiable whole-pose render from repacked slices (bf16 or f32; f32
+    is rounded to bf16 here, as the repack rounds), repacked with
+    ``vertex_only=tstat.fused``: the fused pipeline reads the vertex stack,
+    the v2 pipeline every position. ``generator`` draws the pose's sub-texel
+    phase jitter (``draw_phase``); ``phase`` gives it directly. Returns the
+    warped RenderOut (colour [H, W, 3], extra)."""
     statics = tstat.statics
     Pn, Qn, PB, Pb = tstat.frame
     dev = slices.device
@@ -430,14 +581,24 @@ def render_pose_from_slices(slices, rotation, origin, focal,
     with torch.no_grad():
         geo = gnomonic_geometry(rot, org, statics, tstat.height, tstat.width,
                                 foc, tstat.supersample, phase=phase,
-                                skip_basis=False)
-        QB, Qb = _qb_blocks(statics, Qn)
-        occupancy = gnomonic_occupancy_lite(slices.detach(), geo.geom, statics,
-                                            Pn, Qn, PB, Pb, QB, Qb)
-    state = composite_positions_fused_diff(
-        slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,
-        PB, Pb, plain=plain,
-    )
+                                lite=tstat.fused, skip_basis=False)
+        if tstat.fused:
+            QB, Qb = _qb_blocks(statics, Qn)
+            occupancy = gnomonic_occupancy_lite(slices.detach(), geo.geom, statics,
+                                                Pn, Qn, PB, Pb, QB, Qb)
+        else:
+            occupancy = gnomonic_occupancy(slices.detach(), geo.Ru, statics, PB, Pb)
+    if tstat.fused:
+        state = composite_positions_fused_diff(
+            slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,
+            PB, Pb, plain=plain,
+        )
+    else:
+        t1 = resample_u(slices, geo.Ru)
+        state = composite_positions_diff(
+            t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom,
+            *occupancy, statics, Pn, Qn, PB, Pb, plain=plain,
+        )
     return _warp_to_camera(
         state, geo.xr, geo.yr, rot, statics, tstat.height, tstat.width, foc,
         tstat.supersample, tstat.white_bkgd, warp_order=tstat.warp_order,
@@ -451,7 +612,7 @@ def render_pose_diff(voxel_grid: VoxelGrid, rotation, origin, focal,
                      plain: bool = False):
     """Differentiable whole-pose render of the grid (repack +
     ``render_pose_from_slices``)."""
-    slices = repack_position_slices(voxel_grid, tstat.statics)
+    slices = repack_position_slices(voxel_grid, tstat.statics, vertex_only=tstat.fused)
     return render_pose_from_slices(slices, rotation, origin, focal, tstat,
                                    generator=generator, phase=phase, plain=plain)
 
@@ -487,7 +648,7 @@ def _pose_loss_from_slices(tstat: GnomonicTrainStatics, slices, image, rotation,
 def _pose_loss(tstat: GnomonicTrainStatics, grid: VoxelGrid, image, rotation,
                origin, focal, generator=None, phase=None, plain: bool = False):
     """Whole-pose objective on the grid (repack + ``_pose_loss_from_slices``)."""
-    slices = repack_position_slices(grid, tstat.statics)
+    slices = repack_position_slices(grid, tstat.statics, vertex_only=tstat.fused)
     return _pose_loss_from_slices(tstat, slices, image, rotation, origin, focal,
                                   generator=generator, phase=phase, plain=plain)
 
@@ -524,10 +685,13 @@ def _multi_pose_grads(tstat: GnomonicTrainStatics, grid: VoxelGrid, images,
     with the repack hoisted: one f32 repack, each pose's loss differentiated
     with respect to the slices (rounded to bf16 inside the render), the
     per-pose slice cotangents summed in f32, and one repack backward of the
-    mean. Above ``_BF16_SLICES_BYTES`` the poses read bf16 slices. Returns the
-    averaged metrics."""
+    mean. Above ``_BF16_SLICES_BYTES`` of f32 slices (the vertex stack, or
+    the v2 pipeline's stack of every position) the poses read bf16 slices.
+    Each pose's graph is freed before the next. Returns the averaged
+    metrics."""
     k = len(phases)
-    slices_f32 = repack_position_slices(grid, tstat.statics, round_output=False)
+    slices_f32 = repack_position_slices(grid, tstat.statics, round_output=False,
+                                        vertex_only=tstat.fused)
     big = slices_f32.numel() * slices_f32.element_size() > _BF16_SLICES_BYTES
     leaf = slices_f32.detach()
     if big:

@@ -64,8 +64,8 @@ class SHVoxGridRenderConfig:
     # early-exit threshold on transmittance (0 disables; the CUDA kernel exits
     # per texel tile, the JAX kernel per 128 x 128 block)
     gnomonic_exit_eps: float = 1e-4
-    # q-block width of the occupancy flags (texels, multiple of 128); the port
-    # serves only the fused path, qb > 0 (qb = 0 is the JAX v2 stripe kernel)
+    # q-block width of the occupancy flags (texels, multiple of 128) of the
+    # fused pipeline; 0 selects the v2 stripe pipeline (whole-height stripes)
     gnomonic_qb: int = 128
 
     def replace(self, **overrides) -> "SHVoxGridRenderConfig":

@@ -65,13 +65,31 @@ def adjust_dynamic_range(
     return data.clip(drange_out[0], drange_out[1])
 
 
+# matplotlib's "magma" colormap at 17 evenly spaced points (entries 0, 16, ...,
+# 255 of its 256), interpolated linearly: within 4/255 of matplotlib's
+# 1024-entry table, so the port draws depth maps without matplotlib
+_MAGMA_ANCHORS = np.array([
+    [0.0015, 0.0005, 0.0139], [0.0396, 0.0311, 0.1335], [0.1131, 0.0655, 0.2768],
+    [0.2117, 0.062, 0.4186], [0.3167, 0.0717, 0.4854], [0.4147, 0.1104, 0.5047],
+    [0.5128, 0.1482, 0.5076], [0.6136, 0.1818, 0.4985], [0.7164, 0.215, 0.4753],
+    [0.8109, 0.2529, 0.4393], [0.8996, 0.3146, 0.391], [0.9585, 0.4113, 0.36],
+    [0.9857, 0.5281, 0.3794], [0.9958, 0.6463, 0.4414], [0.997, 0.7624, 0.5288],
+    [0.9928, 0.8772, 0.6331], [0.9871, 0.9914, 0.7495],
+], dtype=np.float64)
+
+
+def magma(values: np.ndarray) -> np.ndarray:
+    """RGB in [0, 1] of the magma colormap at ``values`` in [0, 1] (clipped)."""
+    t = np.clip(np.asarray(values, np.float64), 0.0, 1.0)
+    xp = np.round(np.linspace(0.0, 255.0, len(_MAGMA_ANCHORS))) / 255.0
+    return np.stack([np.interp(t, xp, _MAGMA_ANCHORS[:, k]) for k in range(3)], axis=-1)
+
+
 def postprocess_depth_map(
     depth_map: np.ndarray, acc_map: Optional[np.ndarray] = None
 ) -> np.ndarray:
     """Magma-colormapped depth visualization, optionally composited over white using the
-    accumulation map (reference imaging_utils.py:93-122)."""
-    import matplotlib.pyplot as plt
-
+    accumulation map."""
     if acc_map is not None:
         fg_depth_map = depth_map * acc_map
         depth_min, depth_max = depth_map.min(), fg_depth_map.max()
@@ -85,8 +103,7 @@ def postprocess_depth_map(
         depth_map, drange_in=(depth_min, depth_max), drange_out=(0, 1), slack=True
     )
 
-    colour_map = plt.get_cmap("magma", lut=1024)
-    coloured = colour_map(depth_map)[..., :NUM_COLOUR_CHANNELS]
+    coloured = magma(depth_map)[..., :NUM_COLOUR_CHANNELS]
 
     if acc_map is not None:
         composite_nr = (coloured * acc_map) + ((1.0 - acc_map) ** 2)
