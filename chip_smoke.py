@@ -30,10 +30,25 @@ version on the card at the main paths' shapes:
   12.  the training CLI end to end, main([...]) twice (the default qb, and
        --gnomonic_qb 0) on 20 views it renders and writes first: each
        stage's first step is held against the plain versions' step, and the
-       loss on that step's views must fall by 1% over the stage.
-The launch counts of phases 5, 8, 11 and 12, each reset just before its run,
-show the paths went through the kernels; one more pass of phases 5 and 8
-under torch.profiler prints the device time and the device's busy share.
+       loss on that step's views must fall by 1% over the stage;
+  13.  the q-split stripe composite (K6) and its replay backward (K8) at
+       qb = 128 on the 128^3 blob pose, and one gnomonic_train_step_multi
+       with fused=False, qb = 128 against the plain versions' step;
+  14.  the slab-march render (K9) and its replay backward (K10) on one
+       bricked pose of the blob model (400 x 400, tile 16, K = 2, the
+       serving occupancy threshold), and on an opaque copy, where the early
+       exit must end tiles;
+  15.  bricked serving through the entry points: the blob model saved with
+       render_procedure="render_sh_voxel_grid_bricked", loaded, 8 poses
+       through render_poses, held against the plain render;
+  16.  the training CLI with --render_procedure render_sh_voxel_grid_bricked
+       (64^3 then 128^3, 4 steps a stage, 64 tiles a step): each stage's
+       first step against the plain versions' step with the same tiles and
+       theta, and the loss on those tiles falling by 1% over the stage.
+The launch counts of phases 5, 8, 11, 12, 13, 15 and 16, each reset just
+before its run, show the paths went through the kernels; one more pass of
+phases 5 and 8 under torch.profiler prints the device time and the device's
+busy share.
 
 Prints the card's name and power limit first, one JSON line of per-kernel
 results before the last line, and as the last line
@@ -67,9 +82,12 @@ def load_port():
     from thr3ed_atom_tpu_torch.apps import train_sh_voxel_grid as cli
     from thr3ed_atom_tpu_torch.data import png
     from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid, voxel_grid_from_numpy
+    from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
     from thr3ed_atom_tpu_torch.modules import trainer
     from thr3ed_atom_tpu_torch.modules import volumetric_model as vm
     from thr3ed_atom_tpu_torch.ops import relu_trap as rt
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+    from thr3ed_atom_tpu_torch.rendering import bricked as br
     from thr3ed_atom_tpu_torch.rendering import gnomonic as gn
     from thr3ed_atom_tpu_torch.rendering import gnomonic_train as gt
     from thr3ed_atom_tpu_torch.rendering import warp_matmul as wm
@@ -79,7 +97,7 @@ def load_port():
     return dict(kernels=kernels, voxel_grid_from_numpy=voxel_grid_from_numpy,
                 VoxelGrid=VoxelGrid, vm=vm, rt=rt, gn=gn, gt=gt, wm=wm,
                 trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera, cli=cli,
-                png=png)
+                png=png, br=br, sm=sm, bt=bt)
 
 
 def check(cond, msg):
@@ -130,6 +148,28 @@ def time_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, n, unit, top_n=6):
+    """``fn()`` (``n`` poses or steps) once under torch.profiler: (wall ms per
+    unit of the profiled pass, device ms per unit summed over kernels, a
+    summary of the device launches per unit and the top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:top_n]
+    summary = (f"{sum(e.count for e in events) / n:.1f} device launches/{unit}; top: "
+               + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.4f} ms/{unit}"
+                           for e in top))
+    return wall, device_ms, summary
 
 
 def bound(nbytes, ops):
@@ -195,9 +235,10 @@ def psnr(a, b):
 
 
 def stripe_case(torch, gn, grid, st, rot, org, size, focal, ss, phase=None):
-    """The stripe composite's operands for one pose (``st`` with qb = 0), and
-    how many elements of the u-resampled stack t1 differ from an f32
-    reference (each sums at most two exact bf16 products, so none may)."""
+    """The stripe composite's operands for one pose (``st`` with qb = 0, or
+    qb > 0 for the q-split grain), and how many elements of the u-resampled
+    stack t1 differ from an f32 reference (each sums at most two exact bf16
+    products, so none may)."""
     gn._strict_f32()
     Pn, Qn, PB, Pb = gn.gnomonic_frame(None, size, size, None, ss, st)
     slices = gn.repack_position_slices(grid, st, vertex_only=False)
@@ -207,25 +248,34 @@ def stripe_case(torch, gn, grid, st, rot, org, size, focal, ss, phase=None):
     ref = torch.einsum("jpu,jucv->jcpv", geo.Ru.float(), slices.float()).to(torch.bfloat16)
     mismatch = int((t1 != ref).sum())
     del ref
-    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb, RvT=geo.RvT,
+                                QB=gn._qb_blocks(st, Qn)[0])
     return (t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom, st,
             Pn, Qn, PB, Pb, occ), mismatch
 
 
+def stripe_plain(gn, args):
+    """The plain version of the stripe composite the operands select: K5's,
+    or K6's for q-split flags."""
+    qsplit = args[12][0].dim() == 3
+    return (gn.composite_positions_qb_plain if qsplit else gn.composite_positions_plain,
+            "K6" if qsplit else "K5")
+
+
 def stripe_compare(torch, gn, args, label):
-    """K5 against its plain version at the kernel's exit grain: colour / acc
-    (and diffuse) within 1e-4, depth within 1e-3, as K1. Returns the per-row
-    gaps and the marched (position, texel) mask."""
+    """K5 (or K6, q-split flags) against its plain version at the kernel's
+    exit grain: colour / acc (and diffuse) within 1e-4, depth within 1e-3, as
+    K1. Returns the per-row gaps and the marched (position, texel) mask."""
+    plain, k = stripe_plain(gn, args)
     got = gn.composite_positions(*args)
     torch.cuda.synchronize()
-    want, work = gn.composite_positions_plain(*args, exit_tile=gn.CUDA_EXIT_TILE,
-                                              return_work=True)
+    want, work = plain(*args, exit_tile=gn.CUDA_EXIT_TILE, return_work=True)
     gap = (got - want).abs().amax(dim=(1, 2)).tolist()
-    check(bool(torch.isfinite(got).all()), f"K5 ({label}) produced non-finite values")
+    check(bool(torch.isfinite(got).all()), f"{k} ({label}) produced non-finite values")
     check(max(gap[:5] + gap[6:]) <= 1e-4 and gap[5] <= 1e-3,
-          f"K5 vs plain ({label}): per-row max-abs {gap}")
-    check(float(want[4].max()) > 0.5, f"K5 ({label}): the scene is not hit")
-    print(f"# K5 composite_stripe {label}: max-abs per row {gap}; marched pairs "
+          f"{k} vs plain ({label}): per-row max-abs {gap}")
+    check(float(want[4].max()) > 0.5, f"{k} ({label}): the scene is not hit")
+    print(f"# {k} composite_stripe {label}: max-abs per row {gap}; marched pairs "
           f"{int(work.sum())} of {work.numel()}", flush=True)
     return gap, work
 
@@ -243,42 +293,48 @@ def stripe_counts(torch, args, work):
     vrows = (rvt != 0).any(dim=2).sum(dim=1).double()
     t1_elems = int((rows * vrows).sum()) * used
     texels = int(work.any(dim=0).sum())
-    nbytes = (t1_elems * 2 + int((rvt != 0).sum()) * 2 + NP * 8 * 4 + 2 * PB * NP * 4
+    nbytes = (t1_elems * 2 + int((rvt != 0).sum()) * 2 + NP * 8 * 4
+              + 2 * args[12][0].numel() * 4
               + (nc + 1) * texels * 4 + NP * (Pn + Qn) * 4)
     return nbytes, int(work.sum()) * (used * 4 + 3 * nc * 2)
 
 
 def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
-    """K7 against its plain version on a seeded state cotangent: max-abs
-    within 1e-2 of the largest element, cosine > 0.99999 (K3's bound), pad
-    channels zero. Returns (max-abs, cosine, ms, plain ms, bound)."""
+    """K7 (or K8, q-split flags) against its plain version on a seeded state
+    cotangent: max-abs within 1e-2 of the largest element, cosine > 0.99999
+    (K3's bound), pad channels zero. Returns (max-abs, cosine, ms, plain ms,
+    bound)."""
     t1, ops, st, frame, occ = args[0], args[1:7], args[7], args[8:12], args[12]
-    state = gn.composite_positions_plain(*args)
+    qsplit = occ[0].dim() == 3
+    k = "K8" if qsplit else "K7"
+    backward_plain = gt.composite_backward_qb_plain if qsplit else gt.composite_backward_plain
+    state = stripe_plain(gn, args)[0](*args)
     gstate = torch.randn(state.shape, generator=gen, device=state.device)
     gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
     bargs = (t1, *ops, gaux, occ, st, *frame)
     got = gt.composite_backward(*bargs)
     torch.cuda.synchronize()
-    want = gt.composite_backward_plain(*bargs)
+    want = backward_plain(*bargs)
     err, scale = max_abs(got.float(), want.float()), float(want.float().abs().max())
     cos = cosine(got.float(), want.float())
     used = 3 * st.ncoeff + 1
     check(scale > 0.0 and err <= 1e-2 * scale and cos > 0.99999,
-          f"K7 vs plain ({label}): max-abs {err} (scale {scale}), cosine {cos}")
-    check(not bool(got[:, used:].any()), f"K7 ({label}) wrote pad channels")
+          f"{k} vs plain ({label}): max-abs {err} (scale {scale}), cosine {cos}")
+    check(not bool(got[:, used:].any()), f"{k} ({label}) wrote pad channels")
     ms = time_ms(torch, lambda: gt.composite_backward(*bargs), 5)
-    plain_ms = time_ms(torch, lambda: gt.composite_backward_plain(*bargs), 1)
+    plain_ms = time_ms(torch, lambda: backward_plain(*bargs), 1)
     # bytes: the replay's reads (as K5), the cotangent rows of texels in
     # needed blocks, dt1 written; ops: the replay, ~120 per pair for the
     # cell's backward, the SH fold back, and the v-fold (2 taps x mul+add per
     # used channel and column) of every needed texel row
     Pn, Qn, PB, Pb = frame
     rb, rops = stripe_counts(torch, args, work)
-    needed_texels = int(occ[1].any(dim=1).sum()) * Pb * Qn
+    Qb = Qn // occ[1].shape[1] if qsplit else Qn
+    needed_texels = int(occ[1].any(dim=-1).sum()) * Pb * Qb
     nbytes = rb + gaux.shape[0] * needed_texels * 4 + got.numel() * 2
     nops = (rops + int(work.sum()) * (120 + used * 2)
-            + int(occ[1].sum()) * Pb * used * Qn * 4)
-    print(f"# K7 composite_stripe_backward {label}: max-abs {err:.3g} of {scale:.3g}, cosine "
+            + int(occ[1].sum()) * Pb * used * Qb * 4)
+    print(f"# {k} composite_stripe_backward {label}: max-abs {err:.3g} of {scale:.3g}, cosine "
           f"{cos:.9f}; ms={ms:.4f} plain_ms={plain_ms:.4f}; dt1 {tuple(got.shape)}", flush=True)
     return err, cos, ms, plain_ms, bound(nbytes, nops)
 
@@ -459,6 +515,93 @@ def check_cli_run(torch, trained, out_dir, steps, counts, qb):
           and all(counts[k] == 0 for k in other), f"CLI qb={qb}: launches {counts}")
     return dict(ms_per_step={f"{d}^3": round(float(np.mean(v[1:])), 3) for d, v in ms.items()},
                 losses={f"{d}^3": v for d, v in losses.items()}, test_psnr=test_psnr)
+
+
+def slab_counts(ops, work, ncoeff, out_elems):
+    """(bytes, operations) of the slab march (K9) on ``ops`` = (tables,
+    counts, rays, grid) with the plain version's ``work`` = (live samples
+    marched, slab records read): the tiles' live table entries, the ray
+    records, the used channels of every slab record the samples' taps read,
+    the output; per live sample the tents (~20), 4 taps x (mul, add) per
+    used channel, the SH fold and the shading and compositing (~50)."""
+    tables, counts, rays, _ = ops
+    n_samples, touched = work
+    nused = 3 * ncoeff + 1
+    nbytes = (int(counts.sum()) * 16 + rays.numel() * 4 + int(touched.sum()) * nused * 2
+              + out_elems * 4)
+    return nbytes, n_samples * (20 + 8 * nused + 2 * 3 * ncoeff + 50)
+
+
+def bricked_recording_step(torch, bt, original_step, counters, steps, firsts):
+    """A stand-in for bricked_train_step that draws the step's tiles and theta
+    as the step draws them, times the step (CUDA synchronized) into
+    ``steps`` as (grid size, ms, loss), keeps each stage's first step in
+    ``firsts`` (the grid it started from, its batch and draws, loss and
+    gradient) and, after the stage's CLI_STEPS-th step, the loss on that
+    batch; those evaluations' launches are not counted."""
+
+    def batch_loss(tstat, grid, batch):
+        with torch.no_grad():
+            return float(bt.tile_loss(tstat, grid, *batch)[0])
+
+    def timed_step(tstat, optimizer, grid, images, poses, pose_idx, generator=None, *,
+                   draws=None, **kw):
+        if draws is None:
+            draws = bt.draw_tiles(generator, tstat)
+        batch = (images, poses, pose_idx, draws)
+        dims = tstat.bricked.dims[0]
+        first = dims not in firsts
+        if first:
+            start = (grid.densities.detach().clone(), grid.features.detach().clone())
+            loss_before = uncounted(counters, lambda: batch_loss(tstat, grid, batch))
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        m = original_step(tstat, optimizer, grid, images, poses, pose_idx, draws=draws, **kw)
+        torch.cuda.synchronize()
+        steps.append((dims, (time.perf_counter() - t_step) * 1e3, float(m["total_loss"])))
+        if first:
+            firsts[dims] = dict(
+                tstat=tstat, start=start, voxel_size=grid.voxel_size,
+                config=grid.get_config_dict(), loss=steps[-1][2], loss_before=loss_before,
+                batch=batch, grads=(grid.densities.grad.clone(), grid.features.grad.clone()))
+        elif sum(s_[0] == dims for s_ in steps) == CLI_STEPS:
+            rec = firsts[dims]
+            rec["loss_after"] = uncounted(counters,
+                                          lambda: batch_loss(rec["tstat"], grid, rec["batch"]))
+        return m
+
+    return timed_step
+
+
+def check_bricked_first_steps(torch, port, original_step, firsts):
+    """Each bricked CLI stage's first step against the same step through the
+    plain versions (a copy of its starting grid, the same tiles, views and
+    theta): loss within rtol 1e-5, gradient cosine > 0.99999; the loss on
+    that batch, evaluated alone before the step (equal to the step's, rtol
+    1e-5) and after the stage's last step, falls by at least 1%."""
+    out = {}
+    for dims, rec in sorted(firsts.items()):
+        d0, f0 = rec["start"]
+        g = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
+        opt, sched = port["trainer"].make_gnomonic_optimizer(g, 0.03)
+        images, poses, pose_idx, draws = rec["batch"]
+        m = original_step(rec["tstat"], opt, g, images, poses, pose_idx, draws=draws,
+                          scheduler=sched, plain=True)
+        plain_loss = float(m["total_loss"])
+        cos = [cosine(a, b) for a, b in zip(rec["grads"], (g.densities.grad, g.features.grad))]
+        check(abs(rec["loss"] - plain_loss) <= 1e-5 * plain_loss and min(cos) > 0.99999,
+              f"bricked CLI: stage {dims}^3 first step vs plain: loss {rec['loss']} vs "
+              f"{plain_loss}, gradient cosines {cos}")
+        check(abs(rec["loss_before"] - rec["loss"]) <= 1e-5 * rec["loss"],
+              f"bricked CLI: stage {dims}^3 batch loss {rec['loss_before']} before the "
+              f"first step, the step's {rec['loss']}")
+        check(rec["loss_after"] <= 0.99 * rec["loss_before"],
+              f"bricked CLI: stage {dims}^3 loss on its first step's tiles "
+              f"{rec['loss_before']} -> {rec['loss_after']} after its last step")
+        out[f"{dims}^3"] = dict(loss=rec["loss"], plain_loss=plain_loss, grad_cos=cos,
+                                loss_before=rec["loss_before"], loss_after=rec["loss_after"])
+        del g, opt, sched, m
+    return out
 
 
 def main() -> int:
@@ -693,21 +836,10 @@ def run(torch, workdir: Path) -> int:
 
     # one more pass under torch.profiler: where the device time goes, and the
     # device's busy share of the timed pass's wall time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.render_poses(render_poses, intr)
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    device_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / NUM_POSES
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    _, device_ms, summary = device_profile(
+        torch, lambda: model.render_poses(render_poses, intr), NUM_POSES, "pose")
     print(f"# serving profile: device {device_ms:.4f} ms/pose summed over kernels, "
-          f"busy share {device_ms / ms_per_pose:.3f}, "
-          f"{sum(e.count for e in dev_events) / NUM_POSES:.1f} device launches/pose; top: "
-          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / NUM_POSES:.4f} ms/pose"
-                      for e in top), flush=True)
+          f"busy share {device_ms / ms_per_pose:.3f}, {summary}", flush=True)
     acc = out.extra["accumulated_weight"]
     check(out.colour.shape == (NUM_POSES, IMAGE_SIZE, IMAGE_SIZE, 3), "colour shape")
     for name, t in (("colour", out.colour), ("depth", out.depth), ("acc", acc)):
@@ -952,22 +1084,14 @@ def run(torch, workdir: Path) -> int:
           f"plain step {plain_step_ms:.1f} ms; {ms_per_step:.3f} ms/step over steps 2-{n_steps} "
           f"(host clock, synchronized; step 1 {step_ms[0]:.1f} ms); launches per step "
           f"{per_step}; peak memory {peak_gb:.2f} GB", flush=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def two_steps():
         for i in range(2):
             train_step(g_k, opt, sched, i)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3 / 2
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    train_dev_ms = sum(e.self_device_time_total for e in dev_events) / 1e3 / 2
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
+
+    prof_ms, train_dev_ms, summary = device_profile(torch, two_steps, 2, "step", top_n=8)
     print(f"# training profile: device {train_dev_ms:.4f} ms/step summed over kernels, "
           f"{prof_ms:.3f} ms/step under the profiler, busy share {train_dev_ms / prof_ms:.3f} "
-          f"(of the profiled wall time), {sum(e.count for e in dev_events) / 2:.1f} device "
-          f"launches/step; top: "
-          + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / 2:.4f} ms/step"
-                      for e in top), flush=True)
+          f"(of the profiled wall time), {summary}", flush=True)
 
     # ---- phase 9: the stripe composite (K5) vs plain: the serving
     # configuration with qb = 0 on the blob pose (exit_eps 1e-4, and 0), the
@@ -1180,6 +1304,278 @@ def run(torch, workdir: Path) -> int:
               f"the stage's last step: {stages}", flush=True)
         del firsts
 
+    # ---- phase 13: the q-split v2 kernels at qb = 128 (Qn = 512: four
+    # q-blocks): the composite (K6) on the blob pose's serving statics (exit
+    # 1e-4 and 0) and on training operands, its replay backward (K8), then
+    # one gnomonic_train_step_multi with fused=False, qb = 128 (phase 8's
+    # views, phases and start grid) against the plain versions' step
+    args13, t1_exact = stripe_case(torch, gn, grid, st, rot0_t, org0_t, IMAGE_SIZE, focal_t, ss)
+    check(t1_exact == 0 and args13[12][0].dim() == 3,
+          f"q-split operands: t1 mismatches {t1_exact}, flags {tuple(args13[12][0].shape)}")
+    k6_err, k6_work = 0.0, None
+    for eps in (0.0, 1e-4):
+        a = args13[:7] + (st._replace(exit_eps=eps),) + args13[8:]
+        gap, work = stripe_compare(torch, gn, a, f"q-split serving 128^3 exit_eps={eps}")
+        k6_err = max(k6_err, max(gap))
+        if eps > 0.0:
+            k6_work = work
+    a13 = args13[:7] + (st._replace(exit_eps=1e-4),) + args13[8:]
+    k6_ms = time_ms(torch, lambda: gn.composite_positions(*a13), 20)
+    k6_plain_ms = time_ms(torch, lambda: gn.composite_positions_qb_plain(
+        *a13, exit_tile=gn.CUDA_EXIT_TILE), 2)
+    k6_bytes, k6_ops = stripe_counts(torch, a13, k6_work)
+    print(f"# K6 composite_stripe_qb (serving, 128^3, flags {tuple(a13[12][0].shape)}): "
+          f"ms={k6_ms:.4f} plain_ms={k6_plain_ms:.4f}; {int(k6_work.sum())} marched pairs; "
+          f"bound counts {k6_bytes} bytes, {k6_ops} operations", flush=True)
+    del args13, a13, k6_work
+    tstat_q = gt.make_gnomonic_train_statics(
+        grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+        apply_diffuse_render_regularization=True, warp_swap=swap0, qb=128, fused=False)
+    check(not tstat_q.fused and gn._qb_blocks(tstat_q.statics, tstat_q.frame[1])[0] == 4,
+          f"fused=False, qb=128 statics: fused {tstat_q.fused}, frame {tstat_q.frame}")
+    args13t, _ = stripe_case(torch, gn, grid, tstat_q.statics, rot0_t, org0_t, IMAGE_SIZE,
+                             focal_t, tstat_q.supersample, phase=(0.25, -0.125))
+    gap, work13t = stripe_compare(torch, gn, args13t, "q-split training operands 128^3")
+    k6_err = max(k6_err, max(gap))
+    k6t_ms = time_ms(torch, lambda: gn.composite_positions(*args13t), 10)
+    k8_err, k8_cos, k8_ms, k8_plain_ms, k8_bound = stripe_backward_compare(
+        torch, gn, gt, args13t, work13t, gen, "q-split training 128^3")
+    del args13t, work13t
+
+    tstat13 = gt.make_gnomonic_train_statics(
+        grid, ax, fl, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+        apply_diffuse_render_regularization=True, warp_swap=sw, qb=128, fused=False)
+    idx0 = picks[0]
+    step_args = (targets[idx0], rots[idx0], orgs[idx0], intr.focal)
+    g_plain = init_grid()
+    opt_p, sched_p = trainer.make_gnomonic_optimizer(g_plain, 0.03)
+    m_plain13 = gt.gnomonic_train_step_multi(tstat13, opt_p, g_plain, *step_args,
+                                             phases=phases[0], scheduler=sched_p, plain=True)
+    ref13 = (g_plain.densities.grad.clone(), g_plain.features.grad.clone())
+    del g_plain, opt_p, sched_p
+    g_q = init_grid()
+    opt_q, sched_q = trainer.make_gnomonic_optimizer(g_q, 0.03)
+    counters13 = {"composite_stripe_qb": gn.composite_positions_qb,
+                  "composite_stripe_backward_qb": gt.composite_backward_qb,
+                  "composite_stripe": gn.composite_positions,
+                  "composite_stripe_backward": gt.composite_backward,
+                  "composite_fused": gn.composite_positions_fused,
+                  "composite_backward_fused": gt.composite_backward_fused,
+                  "resample_rows": wm.resample_rows,
+                  "resample_rows_adjoint": wm.resample_rows_adjoint}
+    for c in counters13.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    m_q = gt.gnomonic_train_step_multi(tstat13, opt_q, g_q, *step_args, phases=phases[0],
+                                       scheduler=sched_q)
+    torch.cuda.synchronize()
+    qstep_ms = (time.perf_counter() - t0) * 1e3
+    launches13 = {name: c.launches for name, c in counters13.items()}
+    check(launches13 == dict(composite_stripe_qb=k_views, composite_stripe_backward_qb=k_views,
+                             composite_stripe=0, composite_stripe_backward=0,
+                             composite_fused=0, composite_backward_fused=0,
+                             resample_rows=2 * k_views, resample_rows_adjoint=2 * k_views),
+          f"fused=False, qb=128 step launches {launches13}")
+    loss13, loss13_plain = float(m_q["total_loss"]), float(m_plain13["total_loss"])
+    cos13 = [cosine(a, b) for a, b in zip((g_q.densities.grad, g_q.features.grad), ref13)]
+    check(abs(loss13 - loss13_plain) <= 1e-5 * loss13_plain and min(cos13) > 0.99999,
+          f"q-split step vs plain: loss {loss13} vs {loss13_plain}, gradient cosines {cos13}")
+    print(f"# q-split train step (fused=False, qb=128, k={k_views}, frame {tstat13.frame}): "
+          f"loss {loss13:.6f} (plain {loss13_plain:.6f}), gradient cosines {cos13}; "
+          f"{qstep_ms:.1f} ms (host clock, synchronized, first step); launches {launches13}",
+          flush=True)
+    del g_q, opt_q, sched_q, ref13, m_q, m_plain13
+
+    # ---- phase 14: the slab march (K9) and its replay backward (K10) on one
+    # bricked pose of the blob model: the serving render config's variant
+    # (400 x 400, tile 16, K = 2, exit 1e-4, the serving occupancy
+    # threshold), and an opaque copy where the early exit must end tiles
+    br, sm, bt = port["br"], port["sm"], port["bt"]
+    bst = br.variant_statics(grid, axis, flip, config)
+    check(bst.tile_px == 16 and bst.axis_supersample == 2 and bst.exit_eps == 1e-4
+          and bst.occ_sigma_thresh > 0.0, f"bricked statics {bst}")
+    kw9 = dict(ncoeff=bst.ncoeff, relu_sigma=bst.relu_sigma, exit_eps=bst.exit_eps,
+               with_diffuse=bst.with_diffuse)
+
+    def k9_case(vgrid, label):
+        rep, occ_b = br.prepare_bricked_grid(vgrid, bst)
+        rf, tab, cnt, ovf = br.tile_operands(bst, IMAGE_SIZE, IMAGE_SIZE, intr.focal, occ_b,
+                                             rot0_t, org0_t)
+        ops = (tab, cnt, rf, rep)
+        got = sm.slab_march_render(*ops, **kw9)
+        torch.cuda.synchronize()
+        want, work = sm.slab_march_render_plain(*ops, **kw9, return_work=True)
+        _, work0 = sm.slab_march_render_plain(*ops, **{**kw9, "exit_eps": 0.0},
+                                              return_work=True)
+        err = max_abs(got, want)
+        check(bool(torch.isfinite(got).all()) and err <= 1e-6,
+              f"K9 vs plain ({label}): max-abs {err}")
+        check(float(want[..., 3].max()) > 0.5, f"K9 ({label}): the scene is not hit")
+        print(f"# K9 slab_march {label}: max-abs {err:.3g}; {rf.shape[0]} tiles, "
+              f"{int(cnt.sum())} entries; live samples marched {work[0]} (exit_eps 0: "
+              f"{work0[0]}); overflow {bool(ovf)}", flush=True)
+        return ops, want, work, work0, err
+
+    opaque = port["voxel_grid_from_numpy"](np.where(d > 0, d * 100.0, d), f, grid_config,
+                                           device=dev)
+    _, _, o_work, o_work0, k9_err_opaque = k9_case(opaque, "opaque")
+    check(o_work[0] < o_work0[0], "the slab march's early exit ended no tile on the opaque scene")
+    del opaque
+    ops9, out9, work9, _, k9_err = k9_case(grid, "blob")
+    k9_ms = time_ms(torch, lambda: sm.slab_march_render(*ops9, **kw9), 20)
+    k9_plain_ms = time_ms(torch, lambda: sm.slab_march_render_plain(*ops9, **kw9), 1)
+    k9_bytes, k9_ops = slab_counts(ops9, work9, bst.ncoeff, out9.numel())
+    gout9 = torch.randn(out9.shape, generator=gen, device=dev)
+    got10 = sm.slab_march_grad(*ops9, out9, gout9, **kw9)
+    torch.cuda.synchronize()
+    want10 = sm.slab_march_grad_plain(*ops9, out9, gout9, **kw9)
+    scale10 = float(want10.abs().max())
+    k10_err = max_abs(got10, want10)
+    k10_cos = cosine(got10, want10)
+    k10_cast = max_abs(got10.to(torch.bfloat16).float(), want10.to(torch.bfloat16).float())
+    check(scale10 > 0.0 and k10_err <= 1e-4 * scale10 and k10_cos > 0.99999
+          and k10_cast <= scale10 * 2.0 ** -8,
+          f"K10 vs plain: max-abs {k10_err} (scale {scale10}), cosine {k10_cos}, "
+          f"after the bf16 cast {k10_cast}")
+    k10_ms = time_ms(torch, lambda: sm.slab_march_grad(*ops9, out9, gout9, **kw9), 5)
+    k10_plain_ms = time_ms(torch, lambda: sm.slab_march_grad_plain(
+        *ops9, out9, gout9, **kw9), 1)
+    nused9 = 3 * bst.ncoeff + 1
+    k10_bytes = k9_bytes - out9.numel() * 4 + 2 * out9.numel() * 4 + want10.numel() * 4
+    k10_ops = k9_ops + work9[0] * (60 + 4 * nused9 * 2 + nused9)
+    print(f"# K9 slab_march (blob, 400 x 400): ms={k9_ms:.4f} plain_ms={k9_plain_ms:.4f}; "
+          f"bound counts {k9_bytes} bytes, {k9_ops} operations, {int(work9[1].sum())} slab "
+          f"records read", flush=True)
+    print(f"# K10 slab_march_backward: max-abs {k10_err:.3g} of {scale10:.3g} (f32), "
+          f"{k10_cast:.3g} after the bf16 cast, cosine {k10_cos:.9f}; ms={k10_ms:.4f} "
+          f"plain_ms={k10_plain_ms:.4f}; bound counts {k10_bytes} bytes, {k10_ops} "
+          f"operations", flush=True)
+    del ops9, out9, gout9, got10, want10
+
+    # ---- phase 15: bricked serving through the entry points: the blob model
+    # saved with the bricked procedure, loaded, 8 poses through render_poses
+    bmodel = vm.VolumetricModel(grid, "render_sh_voxel_grid_bricked", config)
+    vm.save_model(bmodel, workdir / "blob128_bricked",
+                  {"hemispherical_radius": 4.0,
+                   "camera_intrinsics": [IMAGE_SIZE, IMAGE_SIZE, intr.focal]})
+    del bmodel
+    bmodel, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128_bricked")
+    check(bmodel.render_procedure_name == "render_sh_voxel_grid_bricked"
+          and bmodel.thre3d_repr.device.type == "cuda", "the loaded bricked model")
+    bmodel.render_poses(render_poses, intr)  # warm-up: the variants' repacks
+    torch.cuda.synchronize()
+    counters15 = {"slab_march": sm.slab_march_render, "slab_march_backward": sm.slab_march_grad,
+                  "composite_fused": gn.composite_positions_fused,
+                  "resample_rows": wm.resample_rows}
+    for c in counters15.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    outb = bmodel.render_poses(render_poses, intr)
+    torch.cuda.synchronize()
+    ms_pose_b = (time.perf_counter() - t0) * 1e3 / NUM_POSES
+    launches15 = {name: c.launches for name, c in counters15.items()}
+    check(launches15 == dict(slab_march=NUM_POSES, slab_march_backward=0, composite_fused=0,
+                             resample_rows=0), f"bricked serving launches {launches15}")
+    accb = outb.extra["accumulated_weight"]
+    check(outb.colour.shape == (NUM_POSES, IMAGE_SIZE, IMAGE_SIZE, 3), "bricked colour shape")
+    for name, t in (("colour", outb.colour), ("depth", outb.depth), ("acc", accb)):
+        check(bool(torch.isfinite(t).all()), f"bricked render: non-finite {name}")
+    check(float(accb.min()) >= 0.0 and float(accb.max()) <= 1.0 + 1e-6 and float(accb.max()) > 0.5,
+          "bricked render: acc outside [0, 1] or the scene is not hit")
+    refb = br.render_poses_bricked(bmodel.thre3d_repr, render_poses, intr,
+                                   bmodel.render_config, plain=True)
+    psnr_b = psnr(outb.colour, refb.colour)
+    gmodel, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128")
+    psnr_bg = psnr(outb.colour, gmodel.render_poses(render_poses, intr).colour)
+    overflow15 = [bool(x) for x in outb.extra["bricked_tap_overflow"]]
+    print(f"# bricked serving: {NUM_POSES} poses, {ms_pose_b:.3f} ms/pose (host clock, "
+          f"synchronized), launches {launches15}; PSNR vs plain {psnr_b:.2f} dB (colour "
+          f"max-abs {max_abs(outb.colour, refb.colour):.3g}), vs the gnomonic render "
+          f"{psnr_bg:.2f} dB; tap overflow per pose {overflow15}", flush=True)
+    check(psnr_b >= 60.0, f"bricked render vs plain PSNR {psnr_b:.2f} dB < 60")
+    _, dev_b, summary_b = device_profile(
+        torch, lambda: bmodel.render_poses(render_poses, intr), NUM_POSES, "pose")
+    print(f"# bricked serving profile: device {dev_b:.4f} ms/pose summed over kernels, "
+          f"busy share {dev_b / ms_pose_b:.3f}, {summary_b}", flush=True)
+    del bmodel, gmodel, outb, refb, accb
+
+    # ---- phase 16: the training CLI with the bricked procedure on phase
+    # 12's dataset: 64^3 then 128^3, 4 steps a stage, the default ray batch
+    # (64 tiles of 16 x 16)
+    counters16 = {"slab_march": sm.slab_march_render, "slab_march_backward": sm.slab_march_grad,
+                  **counters12, "composite_stripe_qb": gn.composite_positions_qb,
+                  "composite_stripe_backward_qb": gt.composite_backward_qb}
+    original_bstep = bt.bricked_train_step
+    steps_b, firsts_b = [], {}
+    out_dir = workdir / "cli_bricked"
+    argv = ["-d", str(data), "-o", str(out_dir), "--grid_dims", *[str(CLI_GRID)] * 3,
+            "--num_stages", "2", "--num_iterations_per_stage", str(CLI_STEPS),
+            "--save_frequency", "2", "--test_frequency", "4", "--feedback_frequency", "4",
+            "--summary_frequency", "1", "--render_procedure", "render_sh_voxel_grid_bricked"]
+    bt.bricked_train_step = bricked_recording_step(torch, bt, original_bstep, counters16,
+                                                   steps_b, firsts_b)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters16.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trained = cli.main(argv)
+    finally:
+        bt.bricked_train_step = original_bstep
+    torch.cuda.synchronize()
+    wall16 = time.perf_counter() - t0
+    counts16 = {name: c.launches for name, c in counters16.items()}
+    peak16 = torch.cuda.max_memory_allocated() / 1e9
+    if counts16["slab_march"] == 0 or counts16["slab_march_backward"] == 0:
+        raise RuntimeError(f"chip_smoke: the bricked CLI run launched no slab march: {counts16}")
+    check(all(v == 0 for k_, v in counts16.items() if not k_.startswith("slab_march"))
+          and counts16["slab_march_backward"] == 2 * CLI_STEPS,
+          f"bricked CLI launches {counts16}")
+    gb = trained.thre3d_repr
+    check(trained.render_procedure_name == "render_sh_voxel_grid_bricked"
+          and gb.grid_dims == (CLI_GRID,) * 3
+          and all(bool(torch.isfinite(t).all()) for t in (gb.densities, gb.features)),
+          f"bricked CLI: final model {trained.render_procedure_name} {gb.grid_dims}")
+    for stem in ("model_stage_1_iter_4", "model_stage_2_iter_8"):
+        check((out_dir / "saved_models" / f"{stem}_opt.npz").exists(),
+              f"bricked CLI: missing {stem}_opt.npz")
+    check([s_[0] for s_ in steps_b] == [CLI_GRID // 2] * CLI_STEPS + [CLI_GRID] * CLI_STEPS,
+          f"bricked CLI steps {[s_[0] for s_ in steps_b]}")
+    summaries = [json.loads(line) for line in
+                 (out_dir / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+    psnr16 = {s_["step"]: round(s_["value"], 3) for s_ in summaries
+              if s_["name"] == "TEST_SET_PSNR"}
+    check(sorted(psnr16) == [4, 8], f"bricked CLI: held-out tests at {sorted(psnr16)}")
+    ms_step_b = {f"{dd}^3": round(float(np.mean([t for d_, t, _ in steps_b if d_ == dd][1:])), 3)
+                 for dd in (CLI_GRID // 2, CLI_GRID)}
+    losses_b = {f"{dd}^3": [round(l_, 5) for d_, _, l_ in steps_b if d_ == dd]
+                for dd in (CLI_GRID // 2, CLI_GRID)}
+    del trained, gb
+    print(f"# CLI bricked: {wall16:.1f} s in main(); ms/step per stage {ms_step_b} (steps 2-4, "
+          f"host clock, synchronized); losses per stage {losses_b}; held-out PSNR per stage "
+          f"{psnr16}; launches {counts16}; peak memory {peak16:.2f} GB", flush=True)
+    stages_b = uncounted(counters16, lambda: check_bricked_first_steps(
+        torch, port, original_bstep, firsts_b))
+    print(f"# CLI bricked: each stage's first step vs plain and its tiles' loss after the "
+          f"stage's last step: {stages_b}", flush=True)
+    del firsts_b
+
+    results["composite_stripe_qb"] = dict(
+        err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
+        extra=dict(training_operands_ms=k6t_ms))
+    results["composite_stripe_backward_qb"] = dict(
+        err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, bound=k8_bound,
+        extra=dict(cosine_vs_plain=k8_cos))
+    results["slab_march"] = dict(
+        err=max(k9_err, k9_err_opaque), ms=k9_ms, plain_ms=k9_plain_ms,
+        bound=bound(k9_bytes, k9_ops),
+        extra=dict(samples_marched=work9[0], opaque_samples_marched=o_work[0],
+                   opaque_samples_without_exit=o_work0[0]))
+    results["slab_march_backward"] = dict(
+        err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms, bound=bound(k10_bytes, k10_ops),
+        extra=dict(cosine_vs_plain=k10_cos, max_abs_err_after_bf16_cast=k10_cast,
+                   grad_scale=scale10))
+
     rows = []
     meta = {
         "composite_fused": ("cuda", "thr3ed_atom_tpu_torch/csrc/composite_fused.cu",
@@ -1198,17 +1594,32 @@ def run(torch, workdir: Path) -> int:
         "composite_stripe_backward": (
             "cuda", "thr3ed_atom_tpu_torch/csrc/composite_stripe_backward.cu",
             "thr3ed_atom_tpu/rendering/gnomonic_train.py:651"),
+        "composite_stripe_qb": ("cuda", "thr3ed_atom_tpu_torch/csrc/composite_stripe.cu",
+                                "thr3ed_atom_tpu/rendering/gnomonic.py:551"),
+        "composite_stripe_backward_qb": (
+            "cuda", "thr3ed_atom_tpu_torch/csrc/composite_stripe_backward.cu",
+            "thr3ed_atom_tpu/rendering/gnomonic_train.py:569"),
+        "slab_march": ("cuda", "thr3ed_atom_tpu_torch/csrc/slab_march.cu",
+                       "thr3ed_atom_tpu/ops/pallas/slab_march.py:277"),
+        "slab_march_backward": ("cuda", "thr3ed_atom_tpu_torch/csrc/slab_march_backward.cu",
+                                "thr3ed_atom_tpu/ops/pallas/slab_march.py:539"),
     }
-    # launches: the main path's, the two CLI runs of phase 12 (counts reset
-    # just before each run, read just after); relu_trap (K1a) is a device
-    # function of the four composite kernels. The serving run's (phase 5)
-    # and the 10-step training run's (phase 8) stand beside them
+    # launches: each kernel's main path, counts reset just before the run and
+    # read just after: the two gnomonic CLI runs of phase 12 for K1-K5 and
+    # K7; phase 13's fused=False, qb=128 step for K6 / K8; phase 16's bricked
+    # CLI run for K9 / K10. relu_trap (K1a) is a device function of the six
+    # composite kernels. The serving runs (phases 5, 15) and the 10-step
+    # training run (phase 8) stand beside them
     inside = ("composite_fused", "composite_backward_fused", "composite_stripe",
-              "composite_stripe_backward")
+              "composite_stripe_backward", "composite_stripe_qb",
+              "composite_stripe_backward_qb")
     for counts in [r["launches"] for r in cli_runs.values()] + [train_launches, launches]:
         counts["relu_trap"] = sum(counts.get(k, 0) for k in inside)
     main_path = {name: sum(r["launches"].get(name, 0) for r in cli_runs.values())
                  for name in meta}
+    main_path.update({k_: launches13[k_] for k_ in ("composite_stripe_qb",
+                                                    "composite_stripe_backward_qb")})
+    main_path.update({k_: counts16[k_] for k_ in ("slab_march", "slab_march_backward")})
     check(all(v > 0 for v in main_path.values()), f"a kernel was not launched on the main "
           f"path: {main_path}")
     for name, r in results.items():
@@ -1218,19 +1629,26 @@ def run(torch, workdir: Path) -> int:
             launches=main_path[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
             bound_by=r["bound"][1], library_ms=None,
-            launches_cli_qb128=cli_runs[128]["launches"][name],
-            launches_cli_qb0=cli_runs[0]["launches"][name],
+            launches_cli_qb128=cli_runs[128]["launches"].get(name, 0),
+            launches_cli_qb0=cli_runs[0]["launches"].get(name, 0),
             launches_training_phase8=train_launches.get(name, 0),
             launches_serving_phase5=launches.get(name, 0),
         ))
+        if name in launches13:
+            rows[-1]["launches_qsplit_step_phase13"] = launches13[name]
+        if name in counts16:
+            rows[-1]["launches_cli_bricked_phase16"] = counts16[name]
+        if name in launches15:
+            rows[-1]["launches_serving_bricked_phase15"] = launches15[name]
         if name == "relu_trap":
             rows[-1]["launches_inside"] = ", ".join(inside)
         if name == "composite_stripe":
             rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
         rows[-1].update(r.get("extra", {}))
-    print(f"# serving ms/pose {ms_per_pose:.3f} (qb=0: {ms_pose_v2:.3f}); training ms/step "
-          f"{ms_per_step:.3f}; CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
-          f"{cli_runs[0]['ms_per_step']}; total {time.perf_counter() - t_start:.1f} s")
+    print(f"# serving ms/pose {ms_per_pose:.3f} (qb=0: {ms_pose_v2:.3f}; bricked: "
+          f"{ms_pose_b:.3f}); training ms/step {ms_per_step:.3f}; CLI ms/step qb=128 "
+          f"{cli_runs[128]['ms_per_step']}, qb=0 {cli_runs[0]['ms_per_step']}, bricked "
+          f"{ms_step_b}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

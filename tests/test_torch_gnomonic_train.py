@@ -230,15 +230,15 @@ def test_staircase_adam_matches_optax():
 
 
 def test_out_of_slice_paths_raise_and_psnr(tmp_path):
-    """What the port still lacks raises, naming it: fused=False with qb > 0
-    (the q-split kernels K6/K8), fused=True with qb = 0, the gather warp,
-    the mesh step, the stage loop on another procedure or on a device mesh,
-    and image files other than 8-bit PNGs; mse2psnr matches the reference's
-    definition."""
+    """What the port still lacks raises, naming it: fused=True with qb = 0,
+    the gather warp, the mesh step, the stage loop on another procedure
+    (the fast renderer) or on a device mesh, and image files other than
+    8-bit PNGs; fused=False with qb > 0 is the v2 pipeline with the q-split
+    kernels (K6 / K8); mse2psnr matches the reference's definition."""
     _, tgrid = _grids()
     kw = dict(image_height=H, image_width=W, white_bkgd=True)
-    with pytest.raises(NotImplementedError, match="K6/K8"):
-        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, fused=False)
+    ts = gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, fused=False)
+    assert not ts.fused and ts.statics.qb == 128
     with pytest.raises(ValueError, match="qb=0 is the v2"):
         gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0, fused=True)
     with pytest.raises(NotImplementedError, match="gather warp"):
@@ -248,7 +248,7 @@ def test_out_of_slice_paths_raise_and_psnr(tmp_path):
         gt.gnomonic_train_step_mesh()
 
     class OtherProcedure:
-        render_procedure_name = "render_sh_voxel_grid_bricked"
+        render_procedure_name = "render_sh_voxel_grid_fast"
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None, tmp_path)

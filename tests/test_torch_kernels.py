@@ -378,9 +378,10 @@ def test_train_step_kernels_match_plain(cuda):
         assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999
 
 
-def _stripe_case(device, P, diffuse, exit_eps=0.0, density_scale=1.0):
-    """One pose's v2 stripe operands (qb = 0): t1, the tents and liveness,
-    the materialized basis and norm, and the [PB, NP] flags."""
+def _stripe_case(device, P, diffuse, exit_eps=0.0, density_scale=1.0, qb=0):
+    """One pose's v2 stripe operands (qb = 0; qb = 128 splits Qn = 256 into
+    two q-blocks): t1, the tents and liveness, the materialized basis and
+    norm, and the [PB, NP] (or [PB, QB, NP]) flags."""
     gn._strict_f32()
     tgrid = _grid(32, device=device, density_scale=density_scale)
     pose = pose_spherical(140.0, -30.0, 3.5 if density_scale == 1.0 else 2.2)
@@ -388,7 +389,7 @@ def _stripe_case(device, P, diffuse, exit_eps=0.0, density_scale=1.0):
     org = np.asarray(pose.translation, np.float32).reshape(3)
     axis, flip = gn.dominant_axis_for_pose(rot)
     st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=diffuse, pos_per_cell=P,
-                             exit_eps=exit_eps, qb=0)
+                             exit_eps=exit_eps, qb=qb)
     Pn, Qn, PB, Pb = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
     slices = gn.repack_position_slices(tgrid, st, vertex_only=False)
     geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
@@ -396,7 +397,8 @@ def _stripe_case(device, P, diffuse, exit_eps=0.0, density_scale=1.0):
                                torch.tensor(FOCAL, device=device), SS,
                                phase=(0.25, -0.125), lite=False, skip_basis=False)
     t1 = gn.resample_u(slices, geo.Ru)
-    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb, RvT=geo.RvT,
+                                QB=gn._qb_blocks(st, Qn)[0])
     return (t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom, st,
             Pn, Qn, PB, Pb, occ)
 
@@ -499,3 +501,165 @@ def test_v2_train_step_kernels_match_plain(cuda):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("diffuse,exit_eps,density_scale", [(True, 0.0, 1.0),
+                                                            (False, 1e-4, 30.0)])
+def test_qsplit_composite_kernel_matches_plain(cuda, diffuse, exit_eps, density_scale):
+    """The q-split stripe composite (K6: qb = 128, two q-blocks) against its
+    plain version at the kernel's exit grain: the march is K5's with the
+    q-block's flags. Bound: colour/acc 1e-4, depth 1e-3 (K5's); the opaque
+    scene must end some tiles early. composite_positions routes QB > 1 to K6
+    and launches no K5."""
+    args = _stripe_case(cuda, 2, diffuse, exit_eps, density_scale, qb=128)
+    assert args[12][0].dim() == 3 and args[12][0].shape[1] == 2
+    before = (gn.composite_positions.launches, gn.composite_positions_qb.launches)
+    got = gn.composite_positions(*args)
+    torch.cuda.synchronize()
+    assert (gn.composite_positions.launches - before[0],
+            gn.composite_positions_qb.launches - before[1]) == (0, 1)
+    want, work = gn.composite_positions_qb_plain(*args, exit_tile=gn.CUDA_EXIT_TILE,
+                                                 return_work=True)
+    if density_scale > 1.0:
+        st = args[7]
+        _, work_all = gn.composite_positions_qb_plain(
+            *args[:7], st._replace(exit_eps=0.0), *args[8:], return_work=True)
+        assert int(work.sum()) < int(work_all.sum())
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max(initial=0.0) < 1e-4, gap
+    assert float(want[4].max()) > 0.5
+
+
+@pytest.mark.gpu
+def test_qsplit_backward_kernel_matches_plain(cuda):
+    """The q-split replay backward (K8) against its plain version on a seeded
+    state cotangent: the same replay; the fold sums each q-block's part of a
+    row's range in ascending q and adds the partials in q-block order, the
+    plain version each partial in a matmul's order. Bound: max-abs <= 1e-2 of
+    the largest element, cosine > 0.99999; pad channels zero. Autograd of
+    composite_positions_diff launches K6 once and K8 once."""
+    args = _stripe_case(cuda, 2, True, qb=128)
+    t1, st, (Pn, Qn, PB, Pb), occ = args[0], args[7], args[8:12], args[12]
+    state = gn.composite_positions_qb_plain(*args)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    ops = args[1:7]
+    got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    torch.cuda.synchronize()
+    want = gt.composite_backward_qb_plain(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, 3 * st.ncoeff + 1:].any()
+    counts = (gn.composite_positions_qb.launches, gt.composite_backward_qb.launches,
+              gt.composite_backward.launches)
+    t1g = t1.detach().requires_grad_(True)
+    gt.composite_positions_diff(t1g, *ops, *occ, st, Pn, Qn, PB, Pb).backward(gstate)
+    assert (gn.composite_positions_qb.launches - counts[0],
+            gt.composite_backward_qb.launches - counts[1],
+            gt.composite_backward.launches - counts[2]) == (1, 1, 0)
+
+
+def _bricked_case(device, density_scale=1.0, size=64, image=128):
+    """One pose's slab-march operands on a carved relu scene: the repacked
+    grid, ray records, tables and counts at the serving threshold."""
+    from thr3ed_atom_tpu_torch.rendering import bricked as br
+
+    tgrid = _grid(size, device=device, density_scale=density_scale)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = torch.as_tensor(np.asarray(pose.rotation, np.float32).reshape(3, 3)).to(device)
+    org = torch.as_tensor(np.asarray(pose.translation, np.float32).reshape(3)).to(device)
+    axis, flip = br.dominant_axis_for_pose(rot.cpu().numpy())
+    st = br.statics_for_grid(tgrid, axis, flip, with_diffuse=True, axis_supersample=2)
+    rep, occ = br.prepare_bricked_grid(tgrid, st)
+    ro, rd = br._tile_image_rays(image, image, image * 1.1, image, image, rot, org, st.tile_px)
+    rf = br.compute_ray_features(ro, rd, st)
+    tables, counts, _ = br.build_tables(rf, occ, st)
+    return st, (tables, counts, rf, rep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu,exit_eps,density_scale", [(True, 1e-4, 1.0), (False, 0.0, 1.0),
+                                                         (True, 1e-4, 30.0)])
+def test_slab_march_kernels_match_plain(cuda, relu, exit_eps, density_scale):
+    """The slab-march render (K9) against its plain version: the same taps,
+    tents and order of sums, exp / sigmoid as PyTorch's. Bound: max-abs
+    1e-6. The replay backward (K10) on a seeded cotangent against its plain
+    version: f32 atomics add in another order. Bound: max-abs <= 1e-4 of the
+    largest element (f32, before the cast), cosine > 0.99999; within one
+    bf16 unit after the cast. Each wrapper counts one launch."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    st, ops = _bricked_case(cuda, density_scale)
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=relu, exit_eps=exit_eps, with_diffuse=True)
+    before = (sm.slab_march_render.launches, sm.slab_march_grad.launches)
+    got = sm.slab_march_render(*ops, **kw)
+    torch.cuda.synchronize()
+    want = sm.slab_march_render_plain(*ops, **kw)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float(want[..., 3].max()) > 0.5
+    gout = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    dg = sm.slab_march_grad(*ops, want, gout, **kw)
+    torch.cuda.synchronize()
+    dg_plain = sm.slab_march_grad_plain(*ops, want, gout, **kw)
+    assert (sm.slab_march_render.launches - before[0],
+            sm.slab_march_grad.launches - before[1]) == (1, 1)
+    scale = float(dg_plain.abs().max())
+    assert scale > 0.0 and float((dg - dg_plain).abs().max()) <= 1e-4 * scale
+    assert _cosine(dg, dg_plain) > 0.99999
+    cast = (dg.to(torch.bfloat16).float() - dg_plain.to(torch.bfloat16).float()).abs().max()
+    assert float(cast) <= scale * 2.0 ** -8
+
+
+@pytest.mark.gpu
+def test_bricked_render_and_train_step_kernels_match_plain(cuda):
+    """render_image_bricked through K9 against the plain render (max-abs
+    1e-6), and one bricked_train_step (4 tiles, diffuse, K = 2) through K9 /
+    K10 against the same step through the plain versions with the same
+    draws: losses within rtol 1e-5, grid gradients cosine > 0.99999; the
+    step launched K9 and K10 once each."""
+    from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+    from thr3ed_atom_tpu_torch.rendering import bricked as br
+    from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
+    from thr3ed_atom_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics
+
+    config = SHVoxGridRenderConfig(num_samples_per_ray=64, camera_bounds=CameraBounds(1.0, 6.0),
+                                   white_bkgd=True, perturb_sampled_points=False)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    intr = CameraIntrinsics(120, 120, 132.0)
+    tgrid = _grid(64, device=cuda)
+    got = br.render_image_bricked(tgrid, pose, intr, config)
+    want = br.render_image_bricked(tgrid, pose, intr, config, plain=True)
+    assert float((got.colour - want.colour).abs().max()) <= 1e-6
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    axis, flip = br.dominant_axis_for_pose(rot)
+    P = np.concatenate([rot, np.asarray(pose.translation, np.float32).reshape(3, 1)], 1)[None]
+    images = torch.rand((1, 120, 120, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    # tiles over the ball (about 19 pixels around the image centre) and one
+    # beside it
+    draws = (torch.tensor([44, 52, 36, 0]), torch.tensor([44, 40, 56, 60]), torch.tensor(0.4))
+    grads, losses = [], []
+    for plain in (False, True):
+        g = _grid(64, device=cuda)
+        ts = bt.make_bricked_train_statics(g, axis, flip, image_height=120, image_width=120,
+                                           focal=132.0, ray_batch_size=1024, white_bkgd=True,
+                                           axis_supersample=2)
+        opt, _ = make_gnomonic_optimizer(g)
+        before = (sm.slab_march_render.launches, sm.slab_march_grad.launches)
+        m = bt.bricked_train_step(ts, opt, g, images, P, torch.zeros(4, dtype=torch.long),
+                                  draws=draws, plain=plain)
+        torch.cuda.synchronize()
+        launched = (sm.slab_march_render.launches - before[0],
+                    sm.slab_march_grad.launches - before[1])
+        assert launched == ((0, 0) if plain else (1, 1)), launched
+        grads.append((g.densities.grad.clone(), g.features.grad.clone()))
+        losses.append(float(m["total_loss"]))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0.0
+        assert _cosine(a, b) > 0.99999

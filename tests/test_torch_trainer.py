@@ -2,8 +2,9 @@
 JAX package: the stage plan, trilinear growth, Adam state files in both
 directions, config.yml, the CLI's options, a whole CLI run whose checkpoints
 the JAX package loads, and the stage loop itself resumed from one JAX
-checkpoint in both packages (qb = 128, the fused pipeline, and qb = 0, the
-v2 stripe pipeline).
+checkpoint in both packages (qb = 128, the fused pipeline, qb = 0, the v2
+stripe pipeline, and the bricked procedure's tile-based steps), and a CLI
+run through the bricked procedure.
 
 CPU tests: the JAX side runs its Pallas kernels in interpret mode, the port
 its plain versions; tiny grids (8^3 -> 16^3), 24 x 24 views, one march
@@ -23,6 +24,7 @@ import torch
 import yaml
 
 from thr3ed_atom_tpu.models import voxels as vox_jax
+from thr3ed_atom_tpu.modules import bricked_trainer as bt_jax
 from thr3ed_atom_tpu.modules import trainer as trainer_jax
 from thr3ed_atom_tpu.modules import volumetric_model as vm_jax
 from thr3ed_atom_tpu.rendering import gnomonic_train as gt_jax
@@ -33,6 +35,7 @@ from thr3ed_atom_tpu_torch.apps import train_sh_voxel_grid as cli
 from thr3ed_atom_tpu_torch.data.dataset import PosedImagesDataset
 from thr3ed_atom_tpu_torch.data.png import write_png
 from thr3ed_atom_tpu_torch.models import voxels as vox
+from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
 from thr3ed_atom_tpu_torch.modules import trainer
 from thr3ed_atom_tpu_torch.modules import volumetric_model as vm
 from thr3ed_atom_tpu_torch.rendering import gnomonic_train as gt
@@ -43,6 +46,7 @@ from thr3ed_atom_tpu_torch.utils.camera import CameraBounds, pose_spherical
 REPO = Path(__file__).resolve().parent.parent
 SIZE, FOCAL = 24, 30.0
 PROC = "render_sh_voxel_grid_gnomonic"
+BRICKED = "render_sh_voxel_grid_bricked"
 
 
 @pytest.fixture(autouse=True)
@@ -63,9 +67,10 @@ def _jax_cli():
     return module.main
 
 
-def _write_dataset(root, n_train=6, n_test=2, seed=0):
+def _write_dataset(root, n_train=6, n_test=2, seed=0, size=SIZE):
     """Views in the JAX package's on-disk layout (RGBA PNGs, camera JSON per
-    split); the training views share one march variant."""
+    split), ``size`` pixels a side; the training views share one march
+    variant."""
     rng = np.random.default_rng(seed)
     for mode, n in (("train", n_train), ("test", n_test)):
         d = Path(root) / mode
@@ -73,13 +78,13 @@ def _write_dataset(root, n_train=6, n_test=2, seed=0):
         params = {}
         for i in range(n):
             name = f"r_{i}.png"
-            img = rng.integers(0, 256, (SIZE, SIZE, 4)).astype(np.uint8)
-            img[..., 3] = np.where(rng.random((SIZE, SIZE)) < 0.5, 255, img[..., 3])
+            img = rng.integers(0, 256, (size, size, 4)).astype(np.uint8)
+            img[..., 3] = np.where(rng.random((size, size)) < 0.5, 255, img[..., 3])
             write_png(d / name, img)
             pose = pose_spherical(40.0 + 4.0 * i, -30.0 - 2.0 * i, 3.0)
             params[name] = {
-                "intrinsic": {"bounds": [1.5, 4.5], "height": SIZE, "width": SIZE,
-                              "focal": FOCAL},
+                "intrinsic": {"bounds": [1.5, 4.5], "height": size, "width": size,
+                              "focal": FOCAL * size / SIZE},
                 "extrinsic": {
                     "rotation": np.asarray(pose.rotation, np.float32).reshape(3, 3).tolist(),
                     "translation": np.asarray(pose.translation,
@@ -261,7 +266,7 @@ def test_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
         np.testing.assert_array_equal(np.asarray(getattr(jmodel.thre3d_repr, fld)),
                                       getattr(model.thre3d_repr, fld).detach().numpy())
     assert jmodel.render_config.gnomonic_qb == 128 and "hemispherical_radius" in extra
-    for bad in (["--render_procedure", "render_sh_voxel_grid_bricked"], ["--sh_degree", "4"],
+    for bad in (["--render_procedure", "render_sh_voxel_grid_fast"], ["--sh_degree", "4"],
                 ["--use_softplus_field", "true"], ["--use_mesh", "true"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(args + bad, device="cpu")
@@ -273,7 +278,7 @@ def _relu_config():
                     (2.0, 2.0, 2.0)))
 
 
-def _jax_checkpoint(path, qb):
+def _jax_checkpoint(path, qb, proc=PROC):
     """An 8^3 model (uniform(-1, 1) from a seed, the CLI's relu field) saved by
     the JAX package with a fresh Adam state at stage 1, iteration 0."""
     rng = np.random.default_rng(7)
@@ -284,7 +289,7 @@ def _jax_checkpoint(path, qb):
     config = JaxConfig(num_samples_per_ray=64, camera_bounds=JaxBounds(1.5, 4.5),
                        perturb_sampled_points=False, white_bkgd=True,
                        gnomonic_pos_per_cell=1, gnomonic_qb=qb)
-    model = vm_jax.VolumetricModel(grid, render_procedure=PROC, render_config=config)
+    model = vm_jax.VolumetricModel(grid, render_procedure=proc, render_config=config)
     model.save(path, extra_info={})
     tx = optax.adam(optax.exponential_decay(0.03, 3000, 0.1, staircase=True), b1=0.9, b2=0.999)
     trainer_jax.save_optimizer_state(path, tx.init(grid), 1, 0)
@@ -311,34 +316,85 @@ def _record(monkeypatch, module, calls, jax_side):
     monkeypatch.setattr(module, "gnomonic_train_step_multi", step)
 
 
-@pytest.mark.parametrize("qb", [128, 0])
+def _record_bricked(monkeypatch, calls, keys):
+    """Wrap both packages' bricked_train_step to record each step's march
+    variant, per-tile views and loss (and the JAX step's key in ``keys``);
+    the port's draw_tiles returns the tiles and theta that the JAX step drew
+    from the same step's key."""
+    original_j, original_t = bt_jax.bricked_train_step, bt.bricked_train_step
+
+    def step_j(statics, tx, grid, opt_state, images, poses, pose_idx, key):
+        out = original_j(statics, tx, grid, opt_state, images, poses, pose_idx, key)
+        keys.append(key)
+        calls["jax"].append(((statics.bricked.axis, statics.bricked.flip),
+                             np.asarray(pose_idx), float(out[2]["total_loss"])))
+        return out
+
+    def step_t(statics, optimizer, grid, images, poses, pose_idx, *args, **kw):
+        out = original_t(statics, optimizer, grid, images, poses, pose_idx, *args, **kw)
+        calls["port"].append(((statics.bricked.axis, statics.bricked.flip),
+                              pose_idx.cpu().numpy(), float(out["total_loss"])))
+        return out
+
+    def draws(generator, statics):
+        key_tiles, key_theta = jax.random.split(keys[len(calls["port"])])
+        key_y, key_x = jax.random.split(key_tiles)
+        tp, nt = statics.bricked.tile_px, statics.num_tiles
+        ty = jax.random.randint(key_y, (nt,), 0, statics.image_height - tp + 1)
+        tx = jax.random.randint(key_x, (nt,), 0, statics.image_width - tp + 1)
+        theta = jax.random.uniform(key_theta, (), minval=0.05, maxval=0.95)
+        return (torch.from_numpy(np.asarray(ty)).long(),
+                torch.from_numpy(np.asarray(tx)).long(), torch.tensor(float(theta)))
+
+    monkeypatch.setattr(bt_jax, "bricked_train_step", step_j)
+    monkeypatch.setattr(bt, "bricked_train_step", step_t)
+    monkeypatch.setattr(bt, "draw_tiles", draws)
+
+
+@pytest.mark.parametrize("qb", [128, 0, "bricked"])
 def test_stage_loop_matches_jax(tmp_path, monkeypatch, qb):
     """The port's stage loop against the JAX package's, two stages (8^3 ->
-    16^3, 2 steps each of 2 views), both resumed from one checkpoint the JAX
-    package wrote (stage 1, iteration 0, fresh Adam), no phase jitter: the
-    same views at every step (the pose picker's draws), the same pipeline
-    (fused for qb = 128, v2 for qb = 0), losses within rtol 2e-5 at the first
-    step and 1e-3 after (measured 1.7e-5 at step 2 and 2.7e-5 at step 4:
-    the grid gradients agree to cosine ~1 - 1e-8, but Adam's g / |g| turns
+    16^3, 2 steps each), both resumed from one checkpoint the JAX package
+    wrote (stage 1, iteration 0, fresh Adam), no phase jitter.
+
+    Gnomonic (qb = 128, the fused pipeline; qb = 0, the v2 stripe pipeline;
+    2 views a step, 24 x 24 views): the same views at every step (the pose
+    picker's draws), the same pipeline, losses within rtol 2e-5 at the first
+    step and 1e-3 after (measured 1.7e-5 at step 2 and 2.7e-5 at step 4: the
+    grid gradients agree to cosine ~1 - 1e-8, but Adam's g / |g| turns
     noise-level gradient differences into full steps of lr on a few
     elements, 1% of the 8^3 densities after the first step). Final grids:
     the trilinear growth spreads each such element over its neighbours, so
     the share of elements off by more than 1e-3 is bounded by 25% of the
     densities and 10% of the features (measured 8.7% and 2.0%), and no
-    element is off by more than 8 lr (lr 0.03, 4 steps; measured 0.104)."""
-    data = _write_dataset(tmp_path / "data", n_test=1)
+    element is off by more than 8 lr (lr 0.03, 4 steps; measured 0.104).
+
+    Bricked (2 tiles of 16 x 16 a step from 32 x 32 views, 16 x 16 at the
+    first stage): the same march variant and the same view for every tile at
+    every step (the pose picker's draws), the port fed the tiles and theta
+    the JAX step drew from its step key; losses and final grids within the
+    same bounds (measured: losses rtol <= 4.4e-7; 1.6% of the densities off
+    by more than 1e-3, max 0.0076)."""
+    bricked = qb == "bricked"
+    proc = BRICKED if bricked else PROC
+    data = _write_dataset(tmp_path / "data", n_test=1, size=32 if bricked else SIZE)
     ckpt = tmp_path / "start" / "model_stage_1_iter_0"
-    jconfig = _jax_checkpoint(ckpt, qb)
+    jconfig = _jax_checkpoint(ckpt, 128 if bricked else qb, proc)
     common = dict(num_stages=2, num_iterations_per_stage=2, save_freq=100, test_freq=100,
                   feedback_freq=100, summary_freq=100, fast_debug_mode=True,
                   resume_from=ckpt, gnomonic_poses_per_step=2, learning_rate=0.03,
-                  lr_decay_steps_per_stage=3000, stagewise_lr_decay_gamma=1.0)
+                  lr_decay_steps_per_stage=3000, stagewise_lr_decay_gamma=1.0,
+                  ray_batch_size=512)
 
     from thr3ed_atom_tpu.data.dataset import PosedImagesDataset as JaxDataset
 
     jcalls, tcalls = [], []
-    _record(monkeypatch, gt_jax, jcalls, True)
-    _record(monkeypatch, gt, tcalls, False)
+    bcalls, keys = {"jax": [], "port": []}, []
+    if bricked:
+        _record_bricked(monkeypatch, bcalls, keys)
+    else:
+        _record(monkeypatch, gt_jax, jcalls, True)
+        _record(monkeypatch, gt, tcalls, False)
     ds = dict(images_dir=data / "train", camera_params_json=data / "train_camera_params.json",
               rgba_white_bkgd=True)
     big = vox_jax.VoxelGrid(densities=jnp.zeros((16, 16, 16, 1)),
@@ -346,7 +402,7 @@ def test_stage_loop_matches_jax(tmp_path, monkeypatch, qb):
                             voxel_size=vox_jax.VoxelSize(0.125, 0.125, 0.125), **_relu_config())
     t0 = time.perf_counter()
     jmodel = trainer_jax.train_sh_vox_grid_vol_mod_with_posed_images(
-        vm_jax.VolumetricModel(big, render_procedure=PROC, render_config=jconfig),
+        vm_jax.VolumetricModel(big, render_procedure=proc, render_config=jconfig),
         JaxDataset(**ds), tmp_path / "jax", **common)
 
     t1 = time.perf_counter()
@@ -354,18 +410,28 @@ def test_stage_loop_matches_jax(tmp_path, monkeypatch, qb):
                          voxel_size=vox.VoxelSize(0.125, 0.125, 0.125), **_relu_config())
     tconfig = SHVoxGridRenderConfig(num_samples_per_ray=64, camera_bounds=CameraBounds(1.5, 4.5),
                                     perturb_sampled_points=False, white_bkgd=True,
-                                    gnomonic_pos_per_cell=1, gnomonic_qb=qb)
+                                    gnomonic_pos_per_cell=1,
+                                    gnomonic_qb=128 if bricked else qb)
     tmodel = trainer.train_sh_vox_grid_vol_mod_with_posed_images(
-        vm.VolumetricModel(tbig, PROC, tconfig, device="cpu"), PosedImagesDataset(**ds),
+        vm.VolumetricModel(tbig, proc, tconfig, device="cpu"), PosedImagesDataset(**ds),
         tmp_path / "port", **common)
 
     print(f"JAX {t1 - t0:.1f} s, port {time.perf_counter() - t1:.1f} s")
-    assert len(jcalls) == len(tcalls) == 4
-    for i, ((rj, lj, fj), (rt, lt, ft)) in enumerate(zip(jcalls, tcalls)):
-        np.testing.assert_array_equal(rt, rj)
-        assert fj == ft == (qb > 0)
-        print(f"qb={qb} step {i + 1}: loss port {lt:.8f} JAX {lj:.8f}")
-        np.testing.assert_allclose(lt, lj, rtol=2e-5 if i == 0 else 1e-3)
+    if bricked:
+        assert len(bcalls["jax"]) == len(bcalls["port"]) == 4
+        for i, ((vj, pj, lj), (vt, pt, lt)) in enumerate(zip(bcalls["jax"], bcalls["port"])):
+            assert vt == vj
+            np.testing.assert_array_equal(pt, pj)
+            assert len(pt) == 2
+            print(f"bricked step {i + 1}: loss port {lt:.8f} JAX {lj:.8f}")
+            np.testing.assert_allclose(lt, lj, rtol=2e-5 if i == 0 else 1e-3)
+    else:
+        assert len(jcalls) == len(tcalls) == 4
+        for i, ((rj, lj, fj), (rt, lt, ft)) in enumerate(zip(jcalls, tcalls)):
+            np.testing.assert_array_equal(rt, rj)
+            assert fj == ft == (qb > 0)
+            print(f"qb={qb} step {i + 1}: loss port {lt:.8f} JAX {lj:.8f}")
+            np.testing.assert_allclose(lt, lj, rtol=2e-5 if i == 0 else 1e-3)
     for fld in ("densities", "features"):
         got = getattr(tmodel.thre3d_repr, fld).detach().numpy()
         want = np.asarray(getattr(jmodel.thre3d_repr, fld))
@@ -374,3 +440,40 @@ def test_stage_loop_matches_jax(tmp_path, monkeypatch, qb):
               f"max {diff.max():.3g}")
         assert got.shape == want.shape == (16, 16, 16, got.shape[-1])
         assert (diff > 1e-3).mean() < SHARE_BOUND[fld] and diff.max() <= 8 * 0.03
+
+
+def test_bricked_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
+    """main([..., "--render_procedure", "render_sh_voxel_grid_bricked"],
+    device="cpu"): two stages (8^3 -> 16^3) of tile-based steps on 32 x 32
+    views (2 tiles a step), feedback renders and a held-out test through the
+    bricked render, checkpoints that the JAX package loads with the bricked
+    procedure and the same arrays; SH degree 3 is routed to the gnomonic
+    procedure, as the JAX CLI routes it."""
+    data = _write_dataset(tmp_path / "data", size=32)
+    out = tmp_path / "out"
+    args = ["-d", str(data), "-o", str(out), "--grid_dims", "16", "16", "16",
+            "--num_stages", "2", "--num_iterations_per_stage", "2",
+            "--data_downsample_factor", "1", "--grid_world_size", "2", "2", "2",
+            "--ray_batch_size", "512", "--save_frequency", "2", "--summary_frequency", "1",
+            "--test_frequency", "4", "--feedback_frequency", "4",
+            "--render_procedure", BRICKED]
+    model = cli.main(args, device="cpu")
+    assert model.render_procedure_name == BRICKED and model.thre3d_repr.grid_dims == (16,) * 3
+    saved = out / "saved_models"
+    for name in ("model_stage_1_iter_2", "model_stage_2_iter_4"):
+        assert (saved / f"{name}_opt.npz").exists()
+    summaries = [json.loads(line) for line in
+                 (out / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+    losses = [s["value"] for s in summaries if s["name"] == "total_loss"]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert any(s["name"] == "TEST_SET_PSNR" for s in summaries)
+    assert (out / "training_logs" / "rendered_output" / "diffuse_4.png").exists()
+    jmodel, _ = vm_jax.create_volumetric_model_from_saved_model(saved / "model_final")
+    assert jmodel.render_procedure_name == BRICKED
+    for fld in ("densities", "features"):
+        np.testing.assert_array_equal(np.asarray(getattr(jmodel.thre3d_repr, fld)),
+                                      getattr(model.thre3d_repr, fld).detach().numpy())
+    assert cli.resolve_render_procedure(BRICKED, 3, False) == PROC
+    assert cli.resolve_render_procedure(BRICKED, 2, False) == BRICKED
+    with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
+        cli.resolve_render_procedure(BRICKED, 2, True)

@@ -2,7 +2,9 @@
 package: the interleaved repack, the per-position tents and liveness, the
 u-resample, the whole-stripe occupancy, the stripe composite (K5) and its
 replay backward (K7), render_poses, the whole-pose loss and its gradient, one
-multi-pose Adam step, and the port's v2 against its fused pipeline.
+multi-pose Adam step, and the port's v2 against its fused pipeline; and the
+q-split form (``fused=False`` with qb = 128): its occupancy, composite (K6),
+replay backward (K8) and train step.
 
 CPU tests on tests/test_torch_gnomonic.py's carved 16^3 relu scene (SH degree
 2): the JAX side runs its Pallas kernels in interpret mode, the port its plain
@@ -351,3 +353,126 @@ def test_v2_against_fused_within_jax_cross_kernel_bounds():
         p999, cos = _rel_stats(b.numpy(), a.numpy())
         print(f"port v2 vs fused gradient {fld}: p999 rel {p999:.3g}, cosine {cos:.8f}")
         assert p999 < 0.12 and cos > 0.99995, (fld, p999, cos)
+
+
+def _qsplit_case(diffuse, exit_eps, yaw=140.0, pitch=-30.0):
+    """The stripe operands of a pose at qb = 128 (Qn = 256: two q-blocks) and
+    the [PB, QB, NP] flags of the JAX package's q-split occupancy."""
+    jgrid, tgrid = _grids()
+    _, rot, org = _pose_arrays(yaw, pitch)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    sj = gn_jax.statics_for_grid(jgrid, axis, flip, with_diffuse=diffuse, pos_per_cell=2,
+                                 exit_eps=exit_eps, interpret=True, qb=128)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=diffuse, pos_per_cell=2,
+                             exit_eps=exit_eps, qb=128)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    assert (QB, Qb) == (2, 128)
+    s_j, geo_j = _jax_v2_operands(jgrid, sj, rot, org, Pn, Qn, phase=(0.3125, -0.4375))
+    t1_j = gn_jax.resample_u(s_j, geo_j.Ru)
+    occ_j = gn_jax.gnomonic_occupancy(s_j, geo_j.Ru, sj, PB, Pb, RvT=geo_j.RvT, QB=QB)
+    occ_t = gn.gnomonic_occupancy(_bf16(s_j), _bf16(geo_j.Ru), st, PB, Pb,
+                                  RvT=_bf16(geo_j.RvT), QB=QB)
+    for a, b in zip(occ_t, occ_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert occ_t[0].shape == (PB, QB, gn._num_positions(st))
+    return sj, st, (Pn, Qn, PB, Pb), t1_j, geo_j, occ_j
+
+
+@pytest.mark.parametrize("diffuse,exit_eps", [(True, 0.0), (False, 1e-4)])
+def test_qsplit_composite_plain_matches_jax(diffuse, exit_eps):
+    """composite_positions with two q-blocks (qb = 128: the q-split composite
+    K6, here its plain version) against the JAX package's
+    _composite_positions_qb (interpret mode) on shared operands and the
+    [PB, QB, NP] flags (the port's q-split occupancy equal to the JAX
+    package's); the early exit per [Pb, Qb] block as the JAX kernel's.
+    Bound: state max-abs <= 3e-6 (K5's bound; measured 4.8e-7)."""
+    sj, st, (Pn, Qn, PB, Pb), t1_j, geo_j, occ_j = _qsplit_case(diffuse, exit_eps)
+    want = np.asarray(gn_jax.composite_positions(
+        t1_j, geo_j.RvT, geo_j.ybasis, geo_j.live_u, geo_j.live_v, geo_j.norm,
+        geo_j.geom, sj, Pn, Qn, PB, Pb, occupancy=occ_j))
+    rvt, yb, lu, lv, nm, geom = _geo_ops(geo_j)
+    args = (_bf16(t1_j), rvt, yb, lu, lv, nm, geom, st, Pn, Qn, PB, Pb,
+            tuple(map(t, occ_j)))
+    before = gn.composite_positions_qb.launches
+    got = gn.composite_positions(*args).numpy()
+    assert gn.composite_positions_qb.launches == before  # CPU: the plain version
+    gap = np.abs(got - want).max()
+    print(f"q-split composite plain vs JAX: max-abs {gap:.3g}")
+    assert gap <= 3e-6 and float(want[4].max()) > 0.5
+    np.testing.assert_array_equal(got, gn.composite_positions_qb_plain(*args).numpy())
+
+
+def test_qsplit_backward_plain_matches_jax():
+    """composite_backward with two q-blocks (the q-split replay VJP K8, its
+    plain version: per q-block f32 partials of the v-fold, added in q-block
+    order and rounded to bf16 once) against the JAX package's
+    _composite_backward_qb (interpret mode) on a seeded state cotangent.
+    Bound: p999 relative error < 0.05 and cosine > 0.9999 (K7's bounds;
+    measured: bit-equal)."""
+    sj, st, (Pn, Qn, PB, Pb), t1_j, geo_j, occ_j = _qsplit_case(True, 0.0)
+    state = gn_jax.composite_positions(
+        t1_j, geo_j.RvT, geo_j.ybasis, geo_j.live_u, geo_j.live_v, geo_j.norm,
+        geo_j.geom, sj, Pn, Qn, PB, Pb, occupancy=occ_j)
+    gstate = np.random.default_rng(6).normal(size=state.shape).astype(np.float32)
+    S_total = jnp.sum(gstate[1:] * state[1:], axis=0)
+    gaux = jnp.concatenate([jnp.asarray(gstate), S_total[None], state[0:1]], axis=0)
+    want = np.asarray(gt_jax._composite_backward(
+        t1_j, geo_j.RvT, geo_j.ybasis, geo_j.live_u, geo_j.live_v, geo_j.norm,
+        geo_j.geom, gaux, occ_j, sj, Pn, Qn, PB, Pb).astype(jnp.float32))
+    rvt, yb, lu, lv, nm, geom = _geo_ops(geo_j)
+    got = gt.composite_backward(_bf16(t1_j), rvt, yb, lu, lv, nm, geom, t(gaux),
+                                tuple(map(t, occ_j)), st, Pn, Qn, PB, Pb)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert not got[:, 3 * st.ncoeff + 1:].any()
+    p999, cos = _rel_stats(got.float().numpy(), want)
+    print(f"q-split backward plain vs JAX: p999 rel {p999:.3g}, cosine {cos:.9f}")
+    assert p999 < 0.05 and cos > 0.9999 and np.abs(want).max() > 0
+
+
+def test_qsplit_train_step_matches_jax():
+    """One gnomonic_train_step_multi with fused=False and qb = 128 (k = 2
+    jittered views, 110 x 110 pixels, so Qn = 256: the q-split pipeline K6 /
+    K8, here through their plain versions) against the JAX package's step
+    with make_gnomonic_train_statics(fused=False): metrics within rtol 2e-5;
+    Adam's first moments (0.1 of the gradient) cosine > 0.99995 and p999 <
+    0.12 (measured 0.9999895 / 0.035 for the densities); the updated grids
+    within 2 lr everywhere and 1e-4 on all but 1% of the elements."""
+    k, lr, size, focal = 2, 0.03, 110, 120.0
+    jgrid, tgrid = _grids()
+    poses = [_pose_arrays(140.0 + 8.0 * i, -30.0) for i in range(k)]
+    rots = np.stack([p[1] for p in poses])
+    orgs = np.stack([p[2] for p in poses])
+    axis, flip = gn.dominant_axis_for_pose(rots[0])
+    kw = dict(image_height=size, image_width=size, white_bkgd=True,
+              apply_diffuse_render_regularization=True, pos_per_cell=2, qb=128)
+    tj = gt_jax.make_gnomonic_train_statics(jgrid, axis, flip, interpret=True, fused=False,
+                                            **kw)
+    tt = gt.make_gnomonic_train_statics(tgrid, axis, flip, fused=False, **kw)
+    assert not tj.fused and not tt.fused and tt.frame[:2] == tj.frame[:2] == (256, 256)
+    assert gn._qb_blocks(tt.statics, tt.frame[1])[0] == 2
+    images = np.random.default_rng(3).random((k, size, size, 3), dtype=np.float32)
+    key = jax.random.PRNGKey(12)
+    tx = optax.adam(optax.exponential_decay(lr, transition_steps=1, decay_rate=0.1,
+                                            staircase=True), b1=0.9, b2=0.999)
+    copy = lambda tree: jax.tree_util.tree_map(jnp.copy, tree)  # noqa: E731
+    g_j, opt_j, m_j = gt_jax.gnomonic_train_step_multi(
+        tj, tx, copy(jgrid), tx.init(jgrid), jnp.asarray(images), jnp.asarray(rots),
+        jnp.asarray(orgs), jnp.float32(focal), key)
+    phases = [_phase(kk) for kk in jax.random.split(key, k)]
+    opt, sched = trainer.make_gnomonic_optimizer(tgrid, lr, 1, 0.1)
+    m_t = gt.gnomonic_train_step_multi(tt, opt, tgrid, t(images), rots, orgs, focal,
+                                       phases=phases, scheduler=sched)
+    for name in m_j:
+        print(f"q-split step {name}: port {float(m_t[name]):.8f} JAX {float(m_j[name]):.8f}")
+        np.testing.assert_allclose(float(m_t[name]), float(m_j[name]), rtol=2e-5)
+    for fld in ("densities", "features"):
+        param = getattr(tgrid, fld)
+        p999, cos = _rel_stats(opt.state[param]["exp_avg"].numpy(),
+                               np.asarray(getattr(opt_j[0].mu, fld)))
+        new_t, new_j = param.detach().numpy(), np.asarray(getattr(g_j, fld))
+        off = np.abs(new_t - new_j) > 1e-4
+        print(f"q-split step {fld}: moment p999 {p999:.3g}, cosine {cos:.8f}; "
+              f"{off.mean():.2e} of the grid beyond 1e-4")
+        assert p999 < 0.12 and cos > 0.99995, (fld, p999, cos)
+        assert np.abs(new_t - new_j).max() <= 2 * lr + 1e-6 and off.mean() < 0.01

@@ -179,10 +179,17 @@ def test_outside_the_slice_raises(override):
 
 
 def test_other_procedures_and_flat_rays_raise():
+    """Procedures the port has not got raise naming ROADMAP.md; flat ray
+    batches through the gnomonic and bricked procedures raise naming the
+    fast renderer, where the JAX package would route them."""
     _, tmodel = _models()
-    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_bricked"):
+    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_planes"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
                                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.render_procedure(tmodel.thre3d_repr, None, tmodel.render_config)
+    bricked = vm.VolumetricModel(tmodel.thre3d_repr, "render_sh_voxel_grid_bricked",
+                                 tmodel.render_config, device="cpu")
+    with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
+        bricked.render_procedure(bricked.thre3d_repr, None, bricked.render_config)

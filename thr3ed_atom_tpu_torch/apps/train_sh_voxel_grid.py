@@ -9,9 +9,10 @@ yes/no, on/off). It reads the same dataset layout and writes checkpoints that
 either package loads. ``main(argv, device="cpu")`` runs on the CPU through the
 kernels' plain versions (tests); without ``device`` everything runs on the card.
 
-Only the gnomonic procedure trains here: other procedures, SH degree > 3,
-softplus fields and ``--use_mesh true`` raise NotImplementedError naming their
-ROADMAP.md items.
+The gnomonic and bricked procedures train here (``--render_procedure
+render_sh_voxel_grid_bricked`` runs the tile-based slab-march step); other
+procedures, SH degree > 3, softplus fields and ``--use_mesh true`` raise
+NotImplementedError naming their ROADMAP.md items.
 """
 from __future__ import annotations
 
@@ -46,15 +47,30 @@ PROCEDURES = ("render_sh_voxel_grid_gnomonic", "render_sh_voxel_grid_bricked",
 
 def resolve_render_procedure(render_procedure: str, sh_degree: int,
                              use_softplus_field: bool) -> str:
-    """The procedure to train through. The JAX package reroutes what its
-    kernels cannot take to other procedures; the port has only the gnomonic
-    one, so everything else raises."""
-    if render_procedure != "render_sh_voxel_grid_gnomonic":
+    """The procedure to train through, routed as the JAX package routes it:
+    bricked with SH degree > 2 goes to gnomonic; what neither kernel takes
+    (softplus fields, SH degree > 3) goes to the fast renderer there, which
+    the port has not got, so it raises; so does every other procedure."""
+    if render_procedure == "render_sh_voxel_grid_bricked" and (
+            sh_degree > 2 or use_softplus_field):
+        if not use_softplus_field:
+            log.info("bricked renderer supports sh_degree <= 2; using the gnomonic "
+                     "shear-warp procedure for sh_degree 3+")
+            render_procedure = "render_sh_voxel_grid_gnomonic"
+        else:
+            raise NotImplementedError(
+                "the bricked renderer does not take softplus fields; the JAX package "
+                "falls back to render_sh_voxel_grid_fast, which is not ported "
+                "(ROADMAP.md, 'Modules to port', item 8)"
+            )
+    if render_procedure not in ("render_sh_voxel_grid_gnomonic",
+                                "render_sh_voxel_grid_bricked"):
         raise NotImplementedError(
             f"render procedure '{render_procedure}' is not ported (ROADMAP.md, 'Modules "
             "to port', item 3 for the exact renderer, item 8 for the others)"
         )
-    if sh_degree > 3 or use_softplus_field:
+    if render_procedure == "render_sh_voxel_grid_gnomonic" and (
+            sh_degree > 3 or use_softplus_field):
         reason = "softplus fields" if use_softplus_field else f"sh_degree {sh_degree}"
         raise NotImplementedError(
             f"the gnomonic renderer does not take {reason}; the JAX package falls back "

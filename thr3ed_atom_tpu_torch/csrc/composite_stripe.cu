@@ -2,9 +2,11 @@
 // relu-trapezoid front-to-back composite) over all positions of one pose, from
 // the u-resampled position stack t1.
 //
-// Replaces the TPU kernel thr3ed_atom_tpu/rendering/gnomonic.py
+// Replaces the TPU kernels thr3ed_atom_tpu/rendering/gnomonic.py
 // composite_positions (kernel _make_composite_kernel, the whole-height stripe,
-// QB = 1). That kernel walks u-blocks outermost and positions innermost, and
+// QB = 1; K5) and _composite_positions_qb (kernel _make_composite_kernel_qb,
+// QB = Qn / qb q-blocks of Qb texels; K6). The stripe kernel walks u-blocks
+// outermost and positions innermost, and
 // per (u-block, position) resamples the block's values with one MXU product
 // t1[C Pb, nv] @ RvT[nv, Qn] (bf16 in, f32 sum), folds the SH basis and
 // composites with carries in VMEM. Here one thread owns one texel (p, q) and
@@ -17,10 +19,13 @@
 // channel and sums w0 t1 + w1 t1 in f32, which equals the dense product
 // exactly (bf16 products are exact in f32, the other terms are zeros). A dense
 // loop over nv would cost nv / 2 (64 at 128^3) times the arithmetic.
-// Occupancy flags of the 128-row u-block that holds the tile ([PB, NP]) gate
-// the work (lossless); with exit_eps > 0 a TP x TQ tile stops once every
-// texel's transmittance is <= exit_eps (the TPU stops a whole 128 x Qn
-// stripe; the difference is bounded by exit_eps per texel).
+// Occupancy flags of the (128-row u-block, q-block) that holds the tile
+// ([PB, QB, NP]; QB = 1 is K5's [PB, NP]) gate the work (lossless); with
+// exit_eps > 0 a TP x TQ tile stops once every texel's transmittance is <=
+// exit_eps (the TPU stops a whole 128 x Qb block; the difference is bounded
+// by exit_eps per texel). K6 is K5 with the q-block grain: a tile lies in one
+// q-block (Qb is a multiple of TQ) and reads only that block's flags; with
+// QB = 1 the flag row is the u-block's, as before.
 //
 // Bound on the H100: memory. Its inputs are t1 (1.07 GB at 128^3, P = 2,
 // 512 x 512 texels: 2 bytes per (position, channel, texel row, v)), the dense
@@ -40,12 +45,12 @@ using namespace gnomonic;
 struct Params {
   StripeOperands op;
   const float* geom;      // [NP, 8]
-  const int* cell_live;   // [PB, NP]
-  const int* pos_needed;  // [PB, NP]
+  const int* cell_live;   // [PB, QB, NP]
+  const int* pos_needed;  // [PB, QB, NP]
   const float* ybasis;    // [ncoeff, Pn, Qn]
   const float* norm;      // [Pn, Qn]
   float* out;             // [SROWS, Pn, Qn]
-  int NP, Pb;
+  int NP, Pb, QB, Qb;
   float exit_eps;
 };
 
@@ -55,9 +60,11 @@ __global__ void __launch_bounds__(TP * TQ) composite_stripe_kernel(Params prm) {
   const int q = blockIdx.x * TQ + threadIdx.x;
   const int p = blockIdx.y * TP + threadIdx.y;
   const int pb = (blockIdx.y * TP) / prm.Pb;
+  const int qblk = (blockIdx.x * TQ) / prm.Qb;
   const int tid = threadIdx.y * TQ + threadIdx.x;
-  const MarchTables tb = load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed,
-                                     nullptr, (size_t)pb * prm.NP, prm.NP, tid, TP * TQ);
+  const MarchTables tb =
+      load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed, nullptr,
+                  ((size_t)pb * prm.QB + qblk) * prm.NP, prm.NP, tid, TP * TQ);
   const size_t plane = (size_t)prm.op.Pn * prm.op.Qn;
   const size_t pix = (size_t)p * prm.op.Qn + q;
   float yb[NCOEFF];
@@ -92,13 +99,14 @@ int dispatch(const Params& prm, int with_diffuse, int relu, cudaStream_t s) {
 }  // namespace
 
 // Two launches on one stream: the column taps of rvt into ``taps`` [NP, Qn]
-// float4 (scratch), then the march.
+// float4 (scratch), then the march. QB = 1, Qb = Qn is K5; QB > 1 is K6.
 extern "C" int composite_stripe_launch(
     const void* t1, long long sj, long long sc, long long sp, const void* rvt,
     void* taps, const float* live_u, const float* live_v, const float* geom,
     const int* cell_live, const int* pos_needed, const float* ybasis,
     const float* norm, float* out, int ncoeff, int with_diffuse, int relu, int NP,
-    int nv, int Pn, int Qn, int Pb, float exit_eps, void* stream) {
+    int nv, int Pn, int Qn, int Pb, int QB, int Qb, float exit_eps, void* stream) {
+  if (QB * Qb != Qn || Qb % TQ != 0 || Pb % TP != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 tgrid((Qn + 127) / 128, NP);
   column_taps_kernel<<<tgrid, 128, 0, s>>>(
@@ -109,7 +117,7 @@ extern "C" int composite_stripe_launch(
   Params prm{StripeOperands{reinterpret_cast<const __nv_bfloat16*>(t1), sj, sc, sp,
                             reinterpret_cast<const float4*>(taps), live_u, live_v, Pn,
                             Qn, nv},
-             geom, cell_live, pos_needed, ybasis, norm, out, NP, Pb, exit_eps};
+             geom, cell_live, pos_needed, ybasis, norm, out, NP, Pb, QB, Qb, exit_eps};
   switch (ncoeff) {
     case 1: return dispatch<1>(prm, with_diffuse, relu, s);
     case 4: return dispatch<4>(prm, with_diffuse, relu, s);

@@ -1,8 +1,10 @@
 // composite_stripe_backward: the replay VJP of the stripe composite
 // (composite_stripe.cu) with respect to the u-resampled stack t1.
 //
-// Replaces the TPU kernel thr3ed_atom_tpu/rendering/gnomonic_train.py
-// _composite_backward (kernel _make_backward_kernel, QB = 1). That kernel walks
+// Replaces the TPU kernels thr3ed_atom_tpu/rendering/gnomonic_train.py
+// _composite_backward (kernel _make_backward_kernel, QB = 1; K7) and
+// _composite_backward_qb (kernel _make_backward_kernel_qb, QB q-blocks of Qb
+// texels; K8). The stripe kernel walks
 // u-blocks outermost and steps j = 0 .. NP innermost: step j replays position
 // j with the forward's MXU product, recomputes cell (j-1, j), assembles
 // position j-1's per-channel cotangent dvals [C Pb, Qn], rounds it to bf16 and
@@ -15,12 +17,20 @@
 //    whose taps reach it (the transposed tents the fold needs);
 // 2. march (one thread per texel, march_backward in gnomonic_march.cuh with
 //    the stripe source, as the fused replay backward runs it): the replay VJP,
-//    writing bf16 dvals of every needed (u-block, position) into a compact
-//    buffer with one [USED, Pb, Qn] slot per needed block;
+//    writing bf16 dvals of every needed (u-block, q-block, position) into a
+//    compact buffer with one [USED, Pb, Qb] slot per needed block;
 // 3. fold (one block per (8 texel rows, position)): for each row p and output
 //    (c, v), dt1[j, c, p, v] = bf16(sum over the columns q of v's range, in
 //    ascending q, of w(q, v) * dvals[c, p, q]) with the column taps staged in
 //    shared memory. Rows of dead blocks and pad channels come out zero.
+//
+// K8 differs from K7 in the grain and in the fold's association. Its TPU
+// kernel sums each live q-block's partial dvals[C Pb, Qb] @ rv[Qb, nv] in f32,
+// adds the partials across q-blocks in ascending order into an f32
+// accumulator and rounds to bf16 once, after the last q-block. The fold here
+// does the same: per q-block with a needed slot, the ascending-q sum over that
+// block's part of v's column range, then partial after partial. With QB = 1
+// the single partial is K7's sum, bit for bit.
 //
 // Bound on the H100: memory. The march reads what the forward reads and
 // writes 2 bytes per used channel per needed (position, texel); the fold reads
@@ -40,14 +50,14 @@ using namespace gnomonic;
 struct MarchParams {
   StripeOperands op;
   const float* geom;      // [NP, 8]
-  const int* cell_live;   // [PB, NP]
-  const int* pos_needed;  // [PB, NP]
-  const int* slot;        // [PB, NP]: dvals slot of a needed block, else -1
+  const int* cell_live;   // [PB, QB, NP]
+  const int* pos_needed;  // [PB, QB, NP]
+  const int* slot;        // [PB, QB, NP]: dvals slot of a needed block, else -1
   const float* ybasis;    // [ncoeff, Pn, Qn]
   const float* norm;      // [Pn, Qn]
   const float* gaux;      // [SROWS + 2, Pn, Qn]: gstate rows, S_total, T_final
-  __nv_bfloat16* dvals;   // [n_slots, USED, Pb, Qn]
-  int NP, Pb;
+  __nv_bfloat16* dvals;   // [n_slots, USED, Pb, Qb]
+  int NP, Pb, QB, Qb;
 };
 
 template <int NCOEFF, bool DIFFUSE, bool RELU>
@@ -56,9 +66,11 @@ __global__ void __launch_bounds__(TP * TQ) stripe_march_kernel(MarchParams prm) 
   const int q = blockIdx.x * TQ + threadIdx.x;
   const int p = blockIdx.y * TP + threadIdx.y;
   const int pb = (blockIdx.y * TP) / prm.Pb;
+  const int qblk = (blockIdx.x * TQ) / prm.Qb;
   const int tid = threadIdx.y * TQ + threadIdx.x;
-  const MarchTables tb = load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed,
-                                     prm.slot, (size_t)pb * prm.NP, prm.NP, tid, TP * TQ);
+  const MarchTables tb =
+      load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed, prm.slot,
+                  ((size_t)pb * prm.QB + qblk) * prm.NP, prm.NP, tid, TP * TQ);
   const int Qn = prm.op.Qn;
   const size_t plane = (size_t)prm.op.Pn * Qn;
   const size_t pix = (size_t)p * Qn + q;
@@ -66,20 +78,20 @@ __global__ void __launch_bounds__(TP * TQ) stripe_march_kernel(MarchParams prm) 
   const float nm = texel_basis<NCOEFF, true>(prm.ybasis, prm.norm, nullptr, pix,
                                              plane, 0.0f, 0.0f, 0, 0, 0.0f, yb);
   const StripeSource<NCOEFF> src{prm.op, p, q, yb};
-  const size_t blk = (size_t)prm.Pb * Qn;
-  const size_t in_blk = (size_t)(p - pb * prm.Pb) * Qn + q;
+  const size_t blk = (size_t)prm.Pb * prm.Qb;
+  const size_t in_blk = (size_t)(p - pb * prm.Pb) * prm.Qb + (q - qblk * prm.Qb);
   march_backward<NCOEFF, DIFFUSE, RELU>(src, tb, prm.NP, nm, yb, prm.gaux + pix, plane,
                                         prm.dvals, blk, in_blk);
 }
 
 struct FoldParams {
-  const __nv_bfloat16* dvals;  // [n_slots, used, Pb, Qn]
-  const int* slot;             // [PB, NP]
+  const __nv_bfloat16* dvals;  // [n_slots, used, Pb, Qb]
+  const int* slot;             // [PB, QB, NP]
   const float4* taps;          // [NP, Qn]
   const int* q_lo;             // [NP, nv]
   const int* q_hi;             // [NP, nv]
   __nv_bfloat16* dt1;          // [NP, C, Pn, nv]
-  int NP, C, used, Pn, Qn, nv, Pb;
+  int NP, C, used, Pn, Qn, nv, Pb, QB, Qb;
 };
 
 constexpr int FOLD_THREADS = 256;
@@ -108,20 +120,28 @@ __global__ void __launch_bounds__(FOLD_THREADS) stripe_fold_kernel(FoldParams pr
   for (int r = 0; r < FOLD_ROWS; ++r) {
     const int p = blockIdx.x * FOLD_ROWS + r;
     const int pb = p / prm.Pb, pl = p - pb * prm.Pb;
-    const int s = prm.slot[(size_t)pb * prm.NP + j];
+    const int* slots = prm.slot + (size_t)pb * prm.QB * prm.NP + j;  // stride NP
     __nv_bfloat16* o = prm.dt1 + ((size_t)j * prm.C * prm.Pn + p) * nv;
     for (int i = tid; i < n_out; i += FOLD_THREADS) {
       const int ch = i / nv, v = i - ch * nv;
       float dt = 0.0f;
-      if (s >= 0 && ch < prm.used) {
+      bool first = true;
+      for (int b = 0; b < prm.QB && ch < prm.used; ++b) {
+        const int s = slots[(size_t)b * prm.NP];
+        if (s < 0) continue;  // a dead q-block adds nothing
+        const int q0 = b * prm.Qb;
         const __nv_bfloat16* d =
-            prm.dvals + (((size_t)s * prm.used + ch) * prm.Pb + pl) * Qn;
-        for (int q = s_lo[v]; q <= s_hi[v]; ++q) {
+            prm.dvals + (((size_t)s * prm.used + ch) * prm.Pb + pl) * prm.Qb;
+        float part = 0.0f;
+        const int q_end = min(s_hi[v], q0 + prm.Qb - 1);
+        for (int q = max(s_lo[v], q0); q <= q_end; ++q) {
           const float4 tp = s_taps[q];
           const int v0 = __float_as_int(tp.x);
           const float w = v0 == v ? tp.y : (v0 + 1 == v ? tp.z : 0.0f);
-          if (w != 0.0f) dt = dt + w * __bfloat162float(d[q]);
+          if (w != 0.0f) part = part + w * __bfloat162float(d[q - q0]);
         }
+        dt = first ? part : dt + part;
+        first = false;
       }
       o[(size_t)ch * prm.Pn * nv + v] = __float2bfloat16_rn(dt);
     }
@@ -157,14 +177,15 @@ int dispatch(const MarchParams& prm, int with_diffuse, int relu, cudaStream_t s)
 // Three launches on one stream: the column taps (``taps`` [NP, Qn] float4 and
 // ``q_lo`` / ``q_hi`` [NP, nv], preset to INT_MAX / -1 by the caller), the
 // march (only the slots of needed blocks of ``dvals``) and the fold, which
-// writes every element of dt1.
+// writes every element of dt1. QB = 1, Qb = Qn is K7; QB > 1 is K8.
 extern "C" int composite_stripe_backward_launch(
     const void* t1, long long sj, long long sc, long long sp, const void* rvt,
     void* taps, int* q_lo, int* q_hi, const float* live_u, const float* live_v,
     const float* geom, const int* cell_live, const int* pos_needed, const int* slot,
     const float* ybasis, const float* norm, const float* gaux, void* dvals, void* dt1,
     int ncoeff, int with_diffuse, int relu, int NP, int C, int nv, int Pn, int Qn,
-    int Pb, void* stream) {
+    int Pb, int QB, int Qb, void* stream) {
+  if (QB * Qb != Qn || Qb % TQ != 0 || Pb % TP != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 tgrid((Qn + 127) / 128, NP);
   column_taps_kernel<<<tgrid, 128, 0, s>>>(
@@ -177,7 +198,7 @@ extern "C" int composite_stripe_backward_launch(
                           reinterpret_cast<const float4*>(taps), live_u, live_v, Pn,
                           Qn, nv};
   MarchParams mp{op, geom, cell_live, pos_needed, slot, ybasis, norm, gaux,
-                 reinterpret_cast<__nv_bfloat16*>(dvals), NP, Pb};
+                 reinterpret_cast<__nv_bfloat16*>(dvals), NP, Pb, QB, Qb};
   int err;
   switch (ncoeff) {
     case 1: err = dispatch<1>(mp, with_diffuse, relu, s); break;
@@ -191,7 +212,7 @@ extern "C" int composite_stripe_backward_launch(
   FoldParams fp{reinterpret_cast<const __nv_bfloat16*>(dvals), slot,
                 reinterpret_cast<const float4*>(taps), q_lo, q_hi,
                 reinterpret_cast<__nv_bfloat16*>(dt1), NP, C, 3 * ncoeff + 1, Pn, Qn,
-                nv, Pb};
+                nv, Pb, QB, Qb};
   const size_t smem = fold_smem_bytes(Qn, nv);
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(stripe_fold_kernel,

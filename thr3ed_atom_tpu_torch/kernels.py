@@ -34,6 +34,8 @@ SOURCES: Dict[str, List[str]] = {
     "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stripe.cuh",
                                   "gnomonic_march.cuh", "relu_trap.cuh"],
     "resample_rows": ["resample_rows.cu"],
+    "slab_march": ["slab_march.cu", "slab_march.cuh"],
+    "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh"],
     "resample_rows_adjoint": ["resample_rows_adjoint.cu"],
 }
 

@@ -1,5 +1,6 @@
 """Coarse-to-fine reconstruction trainer for SH voxel grids from posed images
-(counterpart of thr3ed_atom_tpu/modules/trainer.py, gnomonic procedure).
+(counterpart of thr3ed_atom_tpu/modules/trainer.py, gnomonic and bricked
+procedures).
 
 Each stage trains the grid with Adam (b1 0.9, b2 0.999, eps 1e-8) at the
 stage's learning rate ``learning_rate * stagewise_lr_decay_gamma ** (stage -
@@ -7,21 +8,24 @@ stage's learning rate ``learning_rate * stagewise_lr_decay_gamma ** (stage -
 lr_decay_steps_per_stage)`` after ``count`` optimizer steps (optax's
 exponential_decay with staircase=True). A step takes at least
 ``_GN_MIN_POSES_PER_STEP`` whole views of one (march axis, flip, warp order)
-bucket (rendering/gnomonic_train.py gnomonic_train_step_multi); between
-stages the grid grows by trilinear resize.
+bucket (rendering/gnomonic_train.py gnomonic_train_step_multi); with the
+bricked procedure a step takes ``ray_batch_size // tile_px^2`` pixel tiles of
+the views of one (march axis, flip) bucket (modules/bricked_trainer.py
+bricked_train_step); between stages the grid grows by trilinear resize.
 
 The loop is the JAX package's: the per-stage downsampled datasets, the
 uniform(-1, 1) re-initialization at the smallest stage, resume from a
 checkpoint with its Adam moments, the buckets and the pose picker
 (``np.random.default_rng(seed + stage)``, the same ``choice`` calls in the same
-order, so both packages train on the same views), summaries, feedback renders,
+order, so both packages train on the same views and, bricked, pick the same
+view for every tile), summaries, feedback renders,
 held-out tests, checkpoints. Checkpoints and ``<ckpt>_opt.npz`` keep the JAX
 package's format (optax's state leaves ``leaf_0 .. leaf_5``), so either
 package resumes from the other's. Summaries are JSON lines in
 ``training_logs/summaries.jsonl`` under the JAX package's scalar names.
 
-Out of this module (each raises NotImplementedError): the ray-batch and
-bricked procedures, and the device mesh.
+Out of this module (each raises NotImplementedError): the ray-batch
+procedures and the device mesh.
 """
 from __future__ import annotations
 
@@ -58,6 +62,7 @@ from thr3ed_atom_tpu_torch.utils.profiling import ThroughputMeter
 # measured floor: single-view steps at lr 0.03 thrash the grid)
 _GN_MIN_POSES_PER_STEP = 4
 _GNOMONIC = "render_sh_voxel_grid_gnomonic"
+_BRICKED = "render_sh_voxel_grid_bricked"
 
 
 def staircase_exponential_decay(transition_steps: int,
@@ -194,9 +199,11 @@ class SummaryLog:
 # ------------------------------------------------------------------------- procedure
 
 
-def _pose_buckets(poses_np: np.ndarray, height: int, width: int, focal: float):
-    """{(axis, flip, warp swap): [view indices]} in first-seen order, and the
-    buckets' weights (their share of the views)."""
+def _pose_buckets(poses_np: np.ndarray, height: int, width: int, focal: float,
+                  with_swap: bool = True):
+    """{(axis, flip[, warp swap]): [view indices]} in first-seen order, and the
+    buckets' weights (their share of the views). The bricked procedure's
+    buckets are (axis, flip) only."""
     from thr3ed_atom_tpu_torch.rendering.gnomonic import dominant_axis_for_pose
     from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_swap_for_pose
 
@@ -204,8 +211,9 @@ def _pose_buckets(poses_np: np.ndarray, height: int, width: int, focal: float):
     for i in range(len(poses_np)):
         rot = poses_np[i][:, :3]
         a, f = dominant_axis_for_pose(rot)
-        buckets.setdefault((a, f, warp_swap_for_pose(rot, a, f, height, width, focal)),
-                           []).append(i)
+        key = (a, f, warp_swap_for_pose(rot, a, f, height, width, focal)) if with_swap \
+            else (a, f)
+        buckets.setdefault(key, []).append(i)
     weights = np.array([len(v) for v in buckets.values()], np.float64)
     return buckets, weights / weights.sum()
 
@@ -236,11 +244,13 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     gnomonic_poses_per_step: int = 0,
 ) -> VolumetricModel:
     """Coarse-to-fine training loop: per stage a fresh Adam at the stage's
-    learning rate with the in-stage staircase decay, whole-pose gnomonic steps,
-    periodic summaries / feedback renders / held-out tests / checkpoints;
-    between stages 2x trilinear grid growth. Runs on ``vol_mod``'s device;
-    ``seed`` drives the pose picker (numpy, as the JAX package) and a
-    ``torch.Generator`` for the initial grid and the phase jitter."""
+    learning rate with the in-stage staircase decay, whole-pose gnomonic steps
+    or tile-based bricked steps, periodic summaries / feedback renders /
+    held-out tests / checkpoints; between stages 2x trilinear grid growth.
+    Runs on ``vol_mod``'s device; ``seed`` drives the pose picker (numpy, as
+    the JAX package) and a ``torch.Generator`` for the initial grid, the
+    phase jitter and the bricked step's tiles and slab offset."""
+    from thr3ed_atom_tpu_torch.modules import bricked_trainer
     from thr3ed_atom_tpu_torch.modules.tester import (
         test_sh_vox_grid_vol_mod_with_posed_images,
     )
@@ -255,12 +265,13 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         visualize_sh_vox_grid_vol_mod_rendered_feedback,
     )
 
-    if vol_mod.render_procedure_name != _GNOMONIC:
+    if vol_mod.render_procedure_name not in (_GNOMONIC, _BRICKED):
         raise NotImplementedError(
             f"training through '{vol_mod.render_procedure_name}' is not ported: the "
-            "ray-batch procedures (ROADMAP.md, 'Modules to port', items 3 and 8) and "
-            "the bricked trainer (item 8) come later; the port trains the gnomonic procedure"
+            "ray-batch procedures (ROADMAP.md, 'Modules to port', items 3 and 8) come "
+            "later; the port trains the gnomonic and bricked procedures"
         )
+    bricked = vol_mod.render_procedure_name == _BRICKED
     if use_mesh:
         raise NotImplementedError(
             "the device mesh (use_mesh) is not ported (ROADMAP.md, 'Modules to port', "
@@ -377,17 +388,22 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             else:
                 log.info("optimizer checkpoint incompatible; starting a fresh Adam")
 
-        # whole-pose steps over views of one (axis, flip, warp swap) bucket
-        buckets, weights = _pose_buckets(poses_np, intr.height, intr.width, intr.focal)
+        # gnomonic: whole-pose steps over views of one (axis, flip, warp swap)
+        # bucket; bricked: tiles of the views of one (axis, flip) bucket
+        buckets, weights = _pose_buckets(poses_np, intr.height, intr.width, intr.focal,
+                                         with_swap=not bricked)
         variants = list(buckets)
         pose_picker = np.random.default_rng(seed + stage)
         tstats = {}
         pose_rays = intr.height * intr.width
-        if gnomonic_poses_per_step > 0:
+        if bricked:
+            poses_per_step = 1
+            poses_dev = torch.as_tensor(poses_np, dtype=torch.float32).to(dev)
+        elif gnomonic_poses_per_step > 0:
             poses_per_step = gnomonic_poses_per_step
         else:
             poses_per_step = max(_GN_MIN_POSES_PER_STEP, round(ray_batch_size / pose_rays))
-        rays_per_step = pose_rays * poses_per_step
+        rays_per_step = ray_batch_size if bricked else pose_rays * poses_per_step
         if poses_per_step > 1:
             log.info(f"gnomonic whole-pose steps accumulate {poses_per_step} poses/step "
                      f"({pose_rays} rays/pose vs ray_batch_size {ray_batch_size})")
@@ -402,32 +418,54 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         for stage_iteration in range(first, num_iterations_per_stage + 1):
             variant = variants[int(pose_picker.choice(len(variants), p=weights))]
             tstat = tstats.get(variant)
-            if tstat is None:
-                tstat = tstats[variant] = make_gnomonic_train_statics(
-                    grid, variant[0], variant[1],
-                    image_height=intr.height, image_width=intr.width,
-                    white_bkgd=render_config.white_bkgd,
-                    apply_diffuse_render_regularization=apply_diffuse_render_regularization,
-                    pos_per_cell=render_config.gnomonic_pos_per_cell,
-                    supersample=render_config.gnomonic_supersample,
-                    warp_order=render_config.gnomonic_warp_order,
-                    qb=render_config.gnomonic_qb,
-                    warp_impl=render_config.gnomonic_warp_impl,
-                    warp_swap=variant[2],
-                )
-            bucket = buckets[variant]
-            gen = generator if jitter else None
-            if poses_per_step > 1:
-                idx = np.asarray(pose_picker.choice(bucket, size=poses_per_step))
-                metrics = gnomonic_train_step_multi(
-                    tstat, optimizer, grid, images[torch.as_tensor(idx, device=dev)],
-                    poses_np[idx, :, :3], poses_np[idx, :, 3], intr.focal, gen,
-                    scheduler=scheduler)
+            if bricked:
+                if tstat is None:
+                    # occupancy skipping stays off in training (the config's
+                    # threshold is for renders)
+                    tstat = tstats[variant] = bricked_trainer.make_bricked_train_statics(
+                        grid, variant[0], variant[1],
+                        image_height=intr.height, image_width=intr.width,
+                        focal=intr.focal, ray_batch_size=ray_batch_size,
+                        white_bkgd=render_config.white_bkgd,
+                        apply_diffuse_render_regularization=(
+                            apply_diffuse_render_regularization),
+                        exit_eps=render_config.bricked_exit_eps,
+                        tile_px=render_config.bricked_tile_px,
+                        axis_supersample=render_config.bricked_axis_supersample,
+                    )
+                tile_pose_idx = np.asarray(
+                    pose_picker.choice(buckets[variant], size=tstat.num_tiles))
+                metrics = bricked_trainer.bricked_train_step(
+                    tstat, optimizer, grid, images, poses_dev,
+                    torch.as_tensor(tile_pose_idx).to(dev), generator, scheduler=scheduler)
             else:
-                p_i = int(pose_picker.choice(bucket))
-                metrics = gnomonic_train_step(
-                    tstat, optimizer, grid, images[p_i], poses_np[p_i, :, :3],
-                    poses_np[p_i, :, 3], intr.focal, gen, scheduler=scheduler)
+                if tstat is None:
+                    tstat = tstats[variant] = make_gnomonic_train_statics(
+                        grid, variant[0], variant[1],
+                        image_height=intr.height, image_width=intr.width,
+                        white_bkgd=render_config.white_bkgd,
+                        apply_diffuse_render_regularization=(
+                            apply_diffuse_render_regularization),
+                        pos_per_cell=render_config.gnomonic_pos_per_cell,
+                        supersample=render_config.gnomonic_supersample,
+                        warp_order=render_config.gnomonic_warp_order,
+                        qb=render_config.gnomonic_qb,
+                        warp_impl=render_config.gnomonic_warp_impl,
+                        warp_swap=variant[2],
+                    )
+                bucket = buckets[variant]
+                gen = generator if jitter else None
+                if poses_per_step > 1:
+                    idx = np.asarray(pose_picker.choice(bucket, size=poses_per_step))
+                    metrics = gnomonic_train_step_multi(
+                        tstat, optimizer, grid, images[torch.as_tensor(idx, device=dev)],
+                        poses_np[idx, :, :3], poses_np[idx, :, 3], intr.focal, gen,
+                        scheduler=scheduler)
+                else:
+                    p_i = int(pose_picker.choice(bucket))
+                    metrics = gnomonic_train_step(
+                        tstat, optimizer, grid, images[p_i], poses_np[p_i, :, :3],
+                        poses_np[p_i, :, 3], intr.focal, gen, scheduler=scheduler)
             steps_since_sync += 1
 
             global_step = (stage - 1) * num_iterations_per_stage + stage_iteration

@@ -31,7 +31,10 @@ warp follows. Both pipelines use one texel frame (Pb = 128).
 
 The training path (rendering/gnomonic_train.py) runs the same stages with the
 materialized SH basis and norm (``gnomonic_geometry(skip_basis=False)``) as
-operands of the composite, and a sub-texel phase shift of the frame.
+operands of the composite, and a sub-texel phase shift of the frame. Its
+``fused=False`` with qb > 0 runs the v2 pipeline on a q-block grain: [PB, QB,
+NP] flags (``gnomonic_occupancy(..., RvT=, QB=)``) and
+``composite_positions_qb`` (K6: csrc/composite_stripe.cu with QB > 1).
 
 Out of this slice (each raises NotImplementedError): warp order 5, the gather
 warp and flat ray batches through the procedure object.
@@ -361,23 +364,35 @@ def use_fused_composite(statics: GnomonicStatics) -> bool:
     return statics.qb > 0
 
 
-def gnomonic_occupancy(slices, Ru, statics: GnomonicStatics, PB: int, Pb: int):
-    """The v2 pipeline's exact-zero skip flags per (u-block, position):
-    (cell_live, pos_needed), both [PB, NP] int32. A block is live at position
-    j when a tent tap of one of its texel rows reaches a grid column u that
-    holds a positive density anywhere along v (the reference's whole-stripe
-    rule; every grain is lossless). ``slices`` is the position stack
-    [NP, nu, C, nv]."""
+def gnomonic_occupancy(slices, Ru, statics: GnomonicStatics, PB: int, Pb: int,
+                       RvT=None, QB: int = 1):
+    """The v2 pipeline's exact-zero skip flags per (u-block[, q-block],
+    position): (cell_live, pos_needed), both [PB, NP] int32 for the stripe
+    kernel (QB = 1) or [PB, QB, NP] for the q-split kernel (pass the v-tents
+    ``RvT`` and ``QB``). A block is live at position j when a tent tap of one
+    of its texel rows reaches a grid column u (and, q-split, a tap of one of
+    its texel columns a grid row v) that holds a positive density (the
+    reference's rule; every grain is lossless). ``slices`` is the position
+    stack [NP, nu, C, nv]."""
     NP = slices.shape[0]
     sig = slices[:, :, 3 * statics.ncoeff, :]  # [NP, nu, nv] pre-relu density
     sup = (Ru > 0).to(F32).reshape(NP, PB, Pb, -1).sum(dim=2)  # [NP, PB, nu]
-    col_live = (sig.amax(dim=-1) > 0.0).to(F32)  # [NP, nu]
-    slab_live = (torch.einsum("jbu,ju->jb", sup, col_live) > 0.0).to(torch.int32)
-    zero = torch.zeros((1, PB), dtype=torch.int32, device=slab_live.device)
+    if QB == 1:
+        col_live = (sig.amax(dim=-1) > 0.0).to(F32)  # [NP, nu]
+        slab_live = (torch.einsum("jbu,ju->jb", sup, col_live) > 0.0).to(torch.int32)
+    else:
+        nv = sig.shape[-1]
+        Qb = RvT.shape[-1] // QB
+        sup_v = (RvT > 0).to(F32).reshape(NP, nv, QB, Qb).sum(dim=3)  # [NP, nv, QB]
+        uq = torch.einsum("juv,jvq->juq", (sig > 0.0).to(F32), sup_v)  # [NP, nu, QB]
+        slab_live = (torch.einsum("jbu,juq->jbq", sup, uq) > 0.0).to(torch.int32)
+    zero = torch.zeros((1,) + tuple(slab_live.shape[1:]), dtype=torch.int32,
+                       device=slab_live.device)
     prev_l = torch.cat([zero, slab_live[:-1]], 0)
     next_l = torch.cat([slab_live[1:], zero], 0)
-    cell_live = (prev_l | slab_live).T.contiguous()
-    pos_needed = (prev_l | slab_live | next_l).T.contiguous()
+    perm = (1, 0) if QB == 1 else (1, 2, 0)
+    cell_live = (prev_l | slab_live).permute(*perm).contiguous()
+    pos_needed = (prev_l | slab_live | next_l).permute(*perm).contiguous()
     return cell_live, pos_needed
 
 
@@ -789,27 +804,44 @@ def composite_positions_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
         geom, norm, occupancy, statics, Pn, Qn, Pb, exit_tile or (Pb, Qn), return_work)
 
 
+def composite_positions_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                 statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                                 Pb: int, occupancy, exit_tile=None, return_work=False):
+    """Plain PyTorch version of the q-split stripe composite (the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic.py _composite_positions_qb, QB =
+    Qn / qb > 1): ``composite_positions_plain``'s march gated by [PB, QB, NP]
+    flags, each [Pb, Qb] block exiting early on its own transmittance (the
+    default ``exit_tile``; ``CUDA_EXIT_TILE`` reproduces the CUDA kernel)."""
+    _, Qb = _qb_blocks(statics, Qn)
+    return _march_plain(
+        lambda j: _stripe_values(t1, rvt, ybasis, live_u, live_v, j, statics.ncoeff),
+        geom, norm, occupancy, statics, Pn, Qn, Pb, exit_tile or (Pb, Qb), return_work)
+
+
 def _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
                            occupancy, statics: GnomonicStatics, Pn, Qn, PB, Pb):
     """The operands of the CUDA stripe kernels, checked and made contiguous f32
     / int32 where the kernels read them so: (t1, rvt, ybasis, live_u, live_v,
-    norm, geom, cell_live, pos_needed)."""
+    norm, geom, cell_live, pos_needed). The flags are [PB, NP] (QB = 1) or
+    [PB, QB, NP]."""
     NP, C, _, nv = t1.shape
     dev = t1.device
+    QB, Qb = _qb_blocks(statics, Qn)
     if t1.dtype != torch.bfloat16 or t1.shape[2] != Pn or t1.stride(3) != 1:
         raise ValueError(f"{what}: t1 [NP, C, Pn, nv] bf16 with unit v stride required")
     if rvt.dtype != torch.bfloat16 or rvt.shape != (NP, nv, Qn):
         raise ValueError(f"{what}: rvt [NP, nv, Qn] bf16 required")
     if (C != _padded_channels(statics) or NP != _num_positions(statics)
-            or PB * Pb != Pn or Pb % CUDA_EXIT_TILE[0] or Qn % CUDA_EXIT_TILE[1]):
+            or PB * Pb != Pn or Pb % CUDA_EXIT_TILE[0] or Qb % CUDA_EXIT_TILE[1]):
         raise ValueError(f"{what}: t1 {tuple(t1.shape)}, frame {Pn}x{Qn} blocks {PB}x{Pb}")
     if (ybasis.shape != (statics.ncoeff, Pn, Qn) or norm.shape != (Pn, Qn)
             or live_u.shape != (NP, Pn, 1) or live_v.shape != (NP, 1, Qn)
             or geom.shape != (NP, 8)):
         raise ValueError(f"{what}: operand shapes")
     flags = tuple(fl.to(device=dev, dtype=torch.int32).contiguous() for fl in occupancy[:2])
-    if any(fl.shape != (PB, NP) for fl in flags):
-        raise ValueError(f"{what}: flags must be [PB, NP]")
+    want = (PB, NP) if QB == 1 else (PB, QB, NP)
+    if any(tuple(fl.shape) != want for fl in flags):
+        raise ValueError(f"{what}: flags must be {list(want)}")
     ops = tuple(x.to(device=dev, dtype=F32).contiguous()
                 for x in (ybasis, live_u, live_v, norm, geom))
     return (t1, rvt.contiguous()) + ops + flags
@@ -818,28 +850,21 @@ def _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
 def _stripe_lib():
     fn = kernels.load("composite_stripe").composite_stripe_launch
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def composite_positions(t1, rvt, ybasis, live_u, live_v, norm, geom,
-                        statics: GnomonicStatics, Pn: int, Qn: int, PB: int, Pb: int,
-                        occupancy):
-    """The stripe composite: the u-resampled stack in, the state
-    [SROWS, Pn, Qn] f32 out. On a CUDA tensor one call of
-    csrc/composite_stripe.cu (the column taps of ``rvt``, then the march); on a
-    CPU tensor ``composite_positions_plain``. The kernel exits early per
-    ``CUDA_EXIT_TILE`` tile. Operands as ``composite_positions_plain``."""
-    if t1.device.type == "cpu":
-        return composite_positions_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
-                                         statics, Pn, Qn, PB, Pb, occupancy)
+def _launch_stripe(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
+                   statics: GnomonicStatics, Pn, Qn, PB, Pb, occupancy):
+    """One call of csrc/composite_stripe.cu (K5 for QB = 1, K6 for QB > 1)."""
     if t1.device.type != "cuda":
-        raise ValueError(f"composite_positions: unsupported device {t1.device}")
+        raise ValueError(f"{what}: unsupported device {t1.device}")
     t1, rvt, yb, lu, lv, nm, geom, cl, pn = _check_stripe_operands(
-        "composite_positions", t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
+        what, t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
         statics, Pn, Qn, PB, Pb)
     NP, _, _, nv = t1.shape
+    QB, Qb = _qb_blocks(statics, Qn)
     dev = t1.device
     taps = torch.empty((NP, Qn, 4), dtype=F32, device=dev)
     out = torch.empty((_sprows(statics.with_diffuse), Pn, Qn), dtype=F32, device=dev)
@@ -848,15 +873,55 @@ def composite_positions(t1, rvt, ybasis, live_u, live_v, norm, geom,
         lu.data_ptr(), lv.data_ptr(), geom.data_ptr(), cl.data_ptr(), pn.data_ptr(),
         yb.data_ptr(), nm.data_ptr(), out.data_ptr(),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
-        NP, nv, Pn, Qn, Pb, float(statics.exit_eps),
+        NP, nv, Pn, Qn, Pb, QB, Qb, float(statics.exit_eps),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "composite_stripe")
+    return out
+
+
+def composite_positions(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                        statics: GnomonicStatics, Pn: int, Qn: int, PB: int, Pb: int,
+                        occupancy):
+    """The stripe composite: the u-resampled stack in, the state
+    [SROWS, Pn, Qn] f32 out. With ``statics.qb`` splitting Qn into QB > 1
+    q-blocks this is ``composite_positions_qb`` (K6); else, on a CUDA
+    tensor, one call of csrc/composite_stripe.cu (K5: the column taps of
+    ``rvt``, then the march), on a CPU tensor ``composite_positions_plain``.
+    The kernel exits early per ``CUDA_EXIT_TILE`` tile. Operands as
+    ``composite_positions_plain``."""
+    if _qb_blocks(statics, Qn)[0] > 1:
+        return composite_positions_qb(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                      statics, Pn, Qn, PB, Pb, occupancy)
+    if t1.device.type == "cpu":
+        return composite_positions_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                         statics, Pn, Qn, PB, Pb, occupancy)
+    out = _launch_stripe("composite_positions", t1, rvt, ybasis, live_u, live_v, norm,
+                         geom, statics, Pn, Qn, PB, Pb, occupancy)
     composite_positions.launches += 1
     return out
 
 
 composite_positions.launches = 0
+
+
+def composite_positions_qb(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                           statics: GnomonicStatics, Pn: int, Qn: int, PB: int, Pb: int,
+                           occupancy):
+    """The q-split stripe composite (K6): as ``composite_positions`` with
+    [PB, QB, NP] flags from ``gnomonic_occupancy(..., RvT=, QB=)``. On a CUDA
+    tensor one call of csrc/composite_stripe.cu with the q-block grain; on a
+    CPU tensor ``composite_positions_qb_plain``."""
+    if t1.device.type == "cpu":
+        return composite_positions_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                            statics, Pn, Qn, PB, Pb, occupancy)
+    out = _launch_stripe("composite_positions_qb", t1, rvt, ybasis, live_u, live_v, norm,
+                         geom, statics, Pn, Qn, PB, Pb, occupancy)
+    composite_positions_qb.launches += 1
+    return out
+
+
+composite_positions_qb.launches = 0
 
 
 # ------------------------------------------------------------------ pipeline

@@ -23,10 +23,12 @@ any device (a reference for checking the kernels on the card).
 ``qb=0`` trains through the v2 stripe pipeline instead: the interleaved
 position stack, the u-resample as a bf16 matmul (its gradient autograd's), the
 stripe composite (csrc/composite_stripe.cu) and its replay VJP with respect to
-the u-resampled stack (csrc/composite_stripe_backward.cu).
+the u-resampled stack (csrc/composite_stripe_backward.cu). ``fused=False``
+with ``qb`` > 0 runs the same pipeline on a q-block grain (K6, K8: flags per
+[128, qb] texel block, the fold summed per q-block), as the JAX package's.
 
-Out of this module (each raises NotImplementedError): the q-split v2 kernels
-(``fused=False`` with ``qb`` > 0, K6/K8), the gather warp and the mesh step.
+Out of this module (each raises NotImplementedError): the gather warp and
+the mesh step.
 """
 from __future__ import annotations
 
@@ -56,6 +58,7 @@ from thr3ed_atom_tpu_torch.rendering.gnomonic import (
     composite_positions_fused,
     composite_positions_fused_plain,
     composite_positions_plain,
+    composite_positions_qb_plain,
     effective_supersample,
     gnomonic_frame,
     gnomonic_geometry,
@@ -74,11 +77,6 @@ F32 = torch.float32
 # slices (the renderer rounds them to bf16 anyway); the k-pose cotangent sum
 # stays f32 either way
 _BF16_SLICES_BYTES = 512 * 1024 * 1024
-
-_QSPLIT_KERNELS = ("fused=False with qb > 0 selects the q-split v2 kernels, not "
-                   "ported yet (K6/K8 in ROADMAP.md, 'TPU kernels to port'); "
-                   "qb=0 trains through the v2 stripe kernels K5/K7")
-
 
 # ------------------------------------------------------- replay backward (K3)
 
@@ -352,7 +350,7 @@ def composite_positions_fused_diff(slices, ybasis, norm, geom, cell_live,
                                      Pb, plain)
 
 
-# -------------------------------------------------- stripe replay backward (K7)
+# ------------------------------------- stripe replay backwards (K7, K8)
 
 
 def composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
@@ -377,38 +375,58 @@ def composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
     return dt1
 
 
+def composite_backward_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
+                                occupancy, statics: GnomonicStatics, Pn: int, Qn: int,
+                                PB: int, Pb: int) -> torch.Tensor:
+    """Plain PyTorch version of the TPU kernel
+    thr3ed_atom_tpu/rendering/gnomonic_train.py _composite_backward_qb (QB =
+    Qn / qb > 1): ``composite_backward_plain``'s replay under [PB, QB, NP]
+    flags, and the v-fold in the reference's association: each q-block's
+    partial dvals[:, :, block] @ RvT[j, :, block]^T sums in f32, the partials
+    add in ascending q-block order in f32, and dt1 rounds to bf16 once."""
+    NP, C, _, nv = t1.shape
+    QB, Qb = _qb_blocks(statics, Qn)
+    used = 3 * statics.ncoeff + 1
+    dt1 = torch.zeros((NP, C, Pn, nv), dtype=torch.bfloat16, device=t1.device)
+
+    def flush(j, dvals):
+        rv = rvt[j].to(F32).T  # [Qn, nv]
+        acc = torch.matmul(dvals[..., :Qb], rv[:Qb])
+        for b in range(1, QB):
+            acc = acc + torch.matmul(dvals[..., b * Qb:(b + 1) * Qb], rv[b * Qb:(b + 1) * Qb])
+        dt1[j, :used] = acc.to(torch.bfloat16)
+
+    _replay_vjp_plain(
+        lambda j: _stripe_values(t1, rvt, ybasis, live_u, live_v, j, statics.ncoeff),
+        flush, geom, ybasis, norm, gaux, occupancy, statics, Pn, Qn, Pb)
+    return dt1
+
+
 def _stripe_backward_fn():
     fn = kernels.load("composite_stripe_backward").composite_stripe_backward_launch
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupancy,
-                       statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
-                       Pb: int) -> torch.Tensor:
-    """The replay VJP of the stripe composite (see
-    ``composite_backward_plain``): dt1 [NP, C, Pn, nv] bf16. On a CUDA tensor
-    one call of csrc/composite_stripe_backward.cu (column taps, a march over
-    the texels into a compact cotangent buffer of ``dvals_slots(pos_needed)``
-    slots of [3 ncoeff + 1, Pb, Qn] bf16, a fold over (texel rows,
-    position)); on a CPU tensor the plain version."""
-    if t1.device.type == "cpu":
-        return composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
-                                        gaux, occupancy, statics, Pn, Qn, PB, Pb)
+def _launch_stripe_backward(what, t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
+                            occupancy, statics: GnomonicStatics, Pn, Qn, PB, Pb):
+    """One call of csrc/composite_stripe_backward.cu (K7 for QB = 1, K8 for
+    QB > 1): dt1 [NP, C, Pn, nv] bf16."""
     if t1.device.type != "cuda":
-        raise ValueError(f"composite_backward: unsupported device {t1.device}")
+        raise ValueError(f"{what}: unsupported device {t1.device}")
     t1, rvt, yb, lu, lv, nm, geom, cl, pn = _check_stripe_operands(
-        "composite_backward", t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
+        what, t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
         statics, Pn, Qn, PB, Pb)
     if gaux.shape != (_sprows(statics.with_diffuse) + 2, Pn, Qn):
-        raise ValueError("composite_backward: gaux shape")
+        raise ValueError(f"{what}: gaux shape")
     NP, C, _, nv = t1.shape
+    QB, Qb = _qb_blocks(statics, Qn)
     dev = t1.device
     slot, n_slots = dvals_slots(pn)
     used = 3 * statics.ncoeff + 1
-    dvals = torch.empty((max(n_slots, 1), used, Pb, Qn), dtype=torch.bfloat16, device=dev)
+    dvals = torch.empty((max(n_slots, 1), used, Pb, Qb), dtype=torch.bfloat16, device=dev)
     taps = torch.empty((NP, Qn, 4), dtype=F32, device=dev)
     q_lo = torch.full((NP, nv), 2 ** 31 - 1, dtype=torch.int32, device=dev)
     q_hi = torch.full((NP, nv), -1, dtype=torch.int32, device=dev)
@@ -420,9 +438,30 @@ def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupa
         geom.data_ptr(), cl.data_ptr(), pn.data_ptr(), slot.data_ptr(), yb.data_ptr(),
         nm.data_ptr(), gaux.data_ptr(), dvals.data_ptr(), dt1.data_ptr(),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
-        NP, C, nv, Pn, Qn, Pb, torch.cuda.current_stream(dev).cuda_stream,
+        NP, C, nv, Pn, Qn, Pb, QB, Qb, torch.cuda.current_stream(dev).cuda_stream,
     )
     kernels.check(err, "composite_stripe_backward")
+    return dt1
+
+
+def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupancy,
+                       statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                       Pb: int) -> torch.Tensor:
+    """The replay VJP of the stripe composite (see
+    ``composite_backward_plain``): dt1 [NP, C, Pn, nv] bf16. With QB > 1
+    q-blocks this is ``composite_backward_qb`` (K8); else, on a CUDA tensor,
+    one call of csrc/composite_stripe_backward.cu (K7: column taps, a march
+    over the texels into a compact cotangent buffer of
+    ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb] bf16, a fold
+    over (texel rows, position)), on a CPU tensor the plain version."""
+    if _qb_blocks(statics, Qn)[0] > 1:
+        return composite_backward_qb(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
+                                     occupancy, statics, Pn, Qn, PB, Pb)
+    if t1.device.type == "cpu":
+        return composite_backward_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                        gaux, occupancy, statics, Pn, Qn, PB, Pb)
+    dt1 = _launch_stripe_backward("composite_backward", t1, rvt, ybasis, live_u, live_v,
+                                  norm, geom, gaux, occupancy, statics, Pn, Qn, PB, Pb)
     composite_backward.launches += 1
     return dt1
 
@@ -430,30 +469,59 @@ def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupa
 composite_backward.launches = 0
 
 
+def composite_backward_qb(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupancy,
+                          statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
+                          Pb: int) -> torch.Tensor:
+    """The q-split replay VJP (K8): as ``composite_backward`` with [PB, QB, NP]
+    flags, the fold summing per q-block partials (see
+    ``composite_backward_qb_plain``). On a CUDA tensor one call of
+    csrc/composite_stripe_backward.cu with the q-block grain; on a CPU tensor
+    the plain version."""
+    if t1.device.type == "cpu":
+        return composite_backward_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                           gaux, occupancy, statics, Pn, Qn, PB, Pb)
+    dt1 = _launch_stripe_backward("composite_backward_qb", t1, rvt, ybasis, live_u,
+                                  live_v, norm, geom, gaux, occupancy, statics, Pn, Qn,
+                                  PB, Pb)
+    composite_backward_qb.launches += 1
+    return dt1
+
+
+composite_backward_qb.launches = 0
+
+
 class _CompositeStripeDiff(torch.autograd.Function):
     """composite_positions with the replay VJP with respect to t1 (the only
-    grid-dependent input; the rest is pose geometry)."""
+    grid-dependent input; the rest is pose geometry). The q-split grain
+    (QB > 1) runs K6 / K8, else K5 / K7."""
 
     @staticmethod
     def forward(ctx, t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live,
                 pos_needed, statics, Pn, Qn, PB, Pb, plain):
         occupancy = (cell_live, pos_needed)
-        forward = composite_positions_plain if plain else composite_positions
+        qsplit = _qb_blocks(statics, Qn)[0] > 1
+        if plain:
+            forward = composite_positions_qb_plain if qsplit else composite_positions_plain
+        else:
+            forward = composite_positions
         state = forward(t1, rvt, ybasis, live_u, live_v, norm, geom, statics, Pn, Qn,
                         PB, Pb, occupancy)
         ctx.save_for_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live,
                               pos_needed, state)
-        ctx.meta = (statics, Pn, Qn, PB, Pb, plain)
+        ctx.meta = (statics, Pn, Qn, PB, Pb, plain, qsplit)
         return state
 
     @staticmethod
     def backward(ctx, gstate):
         (t1, rvt, ybasis, live_u, live_v, norm, geom, cell_live, pos_needed,
          state) = ctx.saved_tensors
-        statics, Pn, Qn, PB, Pb, plain = ctx.meta
+        statics, Pn, Qn, PB, Pb, plain, qsplit = ctx.meta
         S_total = torch.sum(gstate[1:] * state[1:], dim=0)
         gaux = torch.cat([gstate, S_total[None], state[0:1]], dim=0)
-        backward = composite_backward_plain if plain else composite_backward
+        if plain:
+            backward = composite_backward_qb_plain if qsplit else composite_backward_plain
+        else:
+            backward = composite_backward
         dt1 = backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
                        (cell_live, pos_needed), statics, Pn, Qn, PB, Pb)
         return (dt1,) + (None,) * 14
@@ -516,10 +584,10 @@ def make_gnomonic_train_statics(
 ) -> GnomonicTrainStatics:
     """The train step's constants for march variant (axis, flip): the fused
     pipeline for ``qb`` > 0, the v2 stripe pipeline for ``qb`` = 0
-    (``fused=None`` chooses so; ``fused=True`` with ``qb=0`` is refused, and
-    ``fused=False`` with ``qb`` > 0, the q-split kernels K6/K8, raises)."""
-    if fused is False and qb > 0:
-        raise NotImplementedError(_QSPLIT_KERNELS)
+    (``fused=None`` chooses so; ``fused=True`` with ``qb=0`` is refused).
+    ``fused=False`` with ``qb`` > 0 selects the v2 pipeline with the q-split
+    kernels K6 / K8 (QB = Qn / qb q-blocks; one block, K5 / K7, where qb does
+    not split Qn), as the JAX package's ``fused=False``."""
     if fused and qb == 0:
         raise ValueError("fused gnomonic training needs qb > 0 (qb=0 is the v2 "
                          "stripe pipeline, K5/K7)")
@@ -546,7 +614,7 @@ def make_gnomonic_train_statics(
                              statics),
         warp_order=int(warp_order),
         warp_swap=bool(warp_swap),
-        fused=qb > 0,
+        fused=qb > 0 if fused is None else bool(fused),
     )
 
 
@@ -587,7 +655,8 @@ def render_pose_from_slices(slices, rotation, origin, focal,
             occupancy = gnomonic_occupancy_lite(slices.detach(), geo.geom, statics,
                                                 Pn, Qn, PB, Pb, QB, Qb)
         else:
-            occupancy = gnomonic_occupancy(slices.detach(), geo.Ru, statics, PB, Pb)
+            occupancy = gnomonic_occupancy(slices.detach(), geo.Ru, statics, PB, Pb,
+                                           RvT=geo.RvT, QB=_qb_blocks(statics, Qn)[0])
     if tstat.fused:
         state = composite_positions_fused_diff(
             slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,

@@ -3,12 +3,14 @@
 Counterpart of thr3ed_atom_tpu/rendering/renderer.py. ``SHVoxGridRenderConfig``
 carries every field of the JAX package's config, so a checkpoint's JSON written
 by either package loads in the other; the knobs of procedures that are not
-ported yet are kept and ignored. ``RENDER_PROCEDURES`` holds only the procedure
-this port serves, the gnomonic shear-warp renderer; a checkpoint naming another
-one is refused by ``get_render_procedure``.
+ported yet are kept and ignored. ``RENDER_PROCEDURES`` holds the procedures
+this port serves, the gnomonic shear-warp renderer and the bricked slab-march
+renderer; a checkpoint naming another one is refused by
+``get_render_procedure``.
 """
 import dataclasses
 
+from thr3ed_atom_tpu_torch.rendering.bricked import render_sh_voxel_grid_bricked
 from thr3ed_atom_tpu_torch.rendering.gnomonic import render_sh_voxel_grid_gnomonic
 from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
 
@@ -16,8 +18,8 @@ from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
 @dataclasses.dataclass(frozen=True)
 class SHVoxGridRenderConfig:
     """Static render configuration, field for field the JAX package's. Only the
-    fields read by the gnomonic procedure act in this port; the rest are
-    carried so that checkpoints round-trip."""
+    fields read by the gnomonic and bricked procedures act in this port; the
+    rest are carried so that checkpoints round-trip."""
 
     # probing config:
     num_samples_per_ray: int
@@ -43,7 +45,12 @@ class SHVoxGridRenderConfig:
     also_render_diffuse: bool = False
     fast_pack_features: bool = True
 
-    # bricked (slab-march) and plane-march renderers: not ported yet
+    # bricked (slab-march) renderer (rendering/bricked.py): per-tile early-exit
+    # transmittance threshold (0 disables), the occupancy skip's per-sample
+    # alpha threshold (0 disables; training always uses 0), the pixel tile
+    # edge (8 or 16; 0 = 16 up to 160 vertices a side, else 8) and K samples
+    # per cell along the march axis (divides 4; 0 = about 256 samples across
+    # the grid). The plane-march knob is not ported yet.
     bricked_exit_eps: float = 1e-4
     bricked_occupancy_alpha_thresh: float = 1e-4
     bricked_tile_px: int = 0
@@ -74,6 +81,7 @@ class SHVoxGridRenderConfig:
 
 RENDER_PROCEDURES = {
     "render_sh_voxel_grid_gnomonic": render_sh_voxel_grid_gnomonic,
+    "render_sh_voxel_grid_bricked": render_sh_voxel_grid_bricked,
 }
 
 # the JAX package's other procedures: not ported yet
@@ -81,7 +89,6 @@ _NOT_PORTED = (
     "render_sh_voxel_grid",
     "render_sh_voxel_grid_fast",
     "render_sh_voxel_grid_hierarchical",
-    "render_sh_voxel_grid_bricked",
     "render_sh_voxel_grid_planes",
 )
 
@@ -93,6 +100,6 @@ def get_render_procedure(name: str):
         raise NotImplementedError(
             f"render procedure '{name}' is not ported yet (ROADMAP.md, "
             "'Modules to port', items 3 and 8); only "
-            f"{sorted(RENDER_PROCEDURES)} is"
+            f"{sorted(RENDER_PROCEDURES)} are"
         )
     raise ValueError(f"unknown render procedure '{name}'")
