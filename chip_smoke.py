@@ -44,11 +44,26 @@ version on the card at the main paths' shapes:
   16.  the training CLI with --render_procedure render_sh_voxel_grid_bricked
        (64^3 then 128^3, 4 steps a stage, 64 tiles a step): each stage's
        first step against the plain versions' step with the same tiles and
-       theta, and the loss on those tiles falling by 1% over the stage.
-The launch counts of phases 5, 8, 11, 12, 13, 15 and 16, each reset just
-before its run, show the paths went through the kernels; one more pass of
-phases 5 and 8 under torch.profiler prints the device time and the device's
-busy share.
+       theta, and the loss on those tiles falling by 1% over the stage;
+  17.  the plane-march render (K11) and its replay backward (K12) on one
+       planes pose of the blob model (400 x 400, tile 16, P = 2, the serving
+       occupancy threshold), and on an opaque copy, where the early exit
+       must end tiles;
+  18.  planes serving through the entry points: the blob model saved with
+       render_procedure="render_sh_voxel_grid_planes", loaded, 8 poses
+       through render_poses, held against the plain render; the gradient
+       through repack_plane_grid and plane_march against the plain versions';
+  19.  the render CLI, main([...]) in-process on the planes model: 7 frames
+       of 800 x 800 into rendered_video.gif, whose blocks are checked;
+  20.  the one-hot gather (K13) and its scatter-add (K14) against their plain
+       versions at the JAX package's test shapes and at the trilinear corners
+       of 256K samples in an 8^3 brick, with embedding_bag and its dense
+       backward (and index_add_) timed beside them, and the differentiable
+       gather.
+The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19 and 20, each
+reset just before its run, show the paths went through the kernels; one more
+pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
+and the device's busy share.
 
 Prints the card's name and power limit first, one JSON line of per-kernel
 results before the last line, and as the last line
@@ -64,6 +79,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -74,20 +90,25 @@ GRID_SIZE, IMAGE_SIZE, NUM_POSES = 128, 400, 8
 CLI_VIEWS, CLI_SIZE = (16, 4), 800  # the CLI's dataset: (train, test) views, pixels
 CLI_GRID = 128  # the CLI's final grid; its first stage is half that
 CLI_STEPS = 4  # the CLI's steps per stage
+ONEHOT_BCNK = (512, 128, 262_144, 8)  # phase 20: trilinear corners of 256K samples, 8^3 brick
 
 
 def load_port():
     """Import the port's modules (the repository root must be on sys.path)."""
     from thr3ed_atom_tpu_torch import kernels
+    from thr3ed_atom_tpu_torch.apps import render_sh_voxel_grid as rcli
     from thr3ed_atom_tpu_torch.apps import train_sh_voxel_grid as cli
     from thr3ed_atom_tpu_torch.data import png
     from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid, voxel_grid_from_numpy
     from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
     from thr3ed_atom_tpu_torch.modules import trainer
     from thr3ed_atom_tpu_torch.modules import volumetric_model as vm
+    from thr3ed_atom_tpu_torch.ops import onehot_gather as og
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
     from thr3ed_atom_tpu_torch.ops import relu_trap as rt
     from thr3ed_atom_tpu_torch.ops import slab_march as sm
     from thr3ed_atom_tpu_torch.rendering import bricked as br
+    from thr3ed_atom_tpu_torch.rendering import planes as pl
     from thr3ed_atom_tpu_torch.rendering import gnomonic as gn
     from thr3ed_atom_tpu_torch.rendering import gnomonic_train as gt
     from thr3ed_atom_tpu_torch.rendering import warp_matmul as wm
@@ -97,7 +118,7 @@ def load_port():
     return dict(kernels=kernels, voxel_grid_from_numpy=voxel_grid_from_numpy,
                 VoxelGrid=VoxelGrid, vm=vm, rt=rt, gn=gn, gt=gt, wm=wm,
                 trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera, cli=cli,
-                png=png, br=br, sm=sm, bt=bt)
+                png=png, br=br, sm=sm, bt=bt, pl=pl, pm=pm, og=og, rcli=rcli)
 
 
 def check(cond, msg):
@@ -517,19 +538,67 @@ def check_cli_run(torch, trained, out_dir, steps, counts, qb):
                 losses={f"{d}^3": v for d, v in losses.items()}, test_psnr=test_psnr)
 
 
-def slab_counts(ops, work, ncoeff, out_elems):
-    """(bytes, operations) of the slab march (K9) on ``ops`` = (tables,
-    counts, rays, grid) with the plain version's ``work`` = (live samples
-    marched, slab records read): the tiles' live table entries, the ray
-    records, the used channels of every slab record the samples' taps read,
-    the output; per live sample the tents (~20), 4 taps x (mul, add) per
-    used channel, the SH fold and the shading and compositing (~50)."""
+def slab_counts(ops, work, ncoeff, out_elems, shade_ops=50):
+    """(bytes, operations) of the slab march (K9) or the plane march (K11) on
+    ``ops`` = (tables, counts, rays, grid) with the plain version's ``work``
+    = (live samples or positions marched, 32-lane records read): the tiles'
+    live table entries, the ray records, the used channels of every record
+    the taps read, the output; per live sample the tents (~20), 4 taps x
+    (mul, add) per used channel, the SH fold and ``shade_ops`` for the
+    shading and compositing (~50; ~80 for a plane-march cell with its
+    relu_trap)."""
     tables, counts, rays, _ = ops
     n_samples, touched = work
     nused = 3 * ncoeff + 1
     nbytes = (int(counts.sum()) * 16 + rays.numel() * 4 + int(touched.sum()) * nused * 2
               + out_elems * 4)
-    return nbytes, n_samples * (20 + 8 * nused + 2 * 3 * ncoeff + 50)
+    return nbytes, n_samples * (20 + 8 * nused + 2 * 3 * ncoeff + shade_ops)
+
+
+def gif_frames(data: bytes):
+    """(width, height, frames) of a GIF89a, walking its blocks: the header
+    and global colour table, extensions, image descriptors with their LZW
+    sub-blocks, the trailer; raises on a malformed stream."""
+    check(data[:6] == b"GIF89a", f"GIF header {data[:6]!r}")
+    width, height = int.from_bytes(data[6:8], "little"), int.from_bytes(data[8:10], "little")
+    pos = 13 + (3 << ((data[10] & 7) + 1) if data[10] & 0x80 else 0)
+    frames = 0
+
+    def skip_sub_blocks(p):
+        while data[p]:
+            p += data[p] + 1
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            pos = skip_sub_blocks(pos + 2)
+        elif data[pos] == 0x2C:
+            flags = data[pos + 9]
+            pos += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            pos = skip_sub_blocks(pos + 1)  # after the LZW minimum code size
+            frames += 1
+        else:
+            raise RuntimeError(f"chip_smoke: GIF block 0x{data[pos]:02x} at {pos}")
+    check(pos == len(data) - 1, "bytes after the GIF trailer")
+    return width, height, frames
+
+
+def trilinear_corners(torch, gen, dev, n, side):
+    """The 8 trilinear corner indices [n, 8] int32 and weights [n, 8] f32 of
+    n uniform samples inside one brick of side^3 vertices."""
+    pts = torch.rand(n, 3, generator=gen, device=dev) * (side - 1)
+    base = torch.clamp(torch.floor(pts), max=side - 2)
+    frac = pts - base
+    idx, w = [], []
+    for corner in range(8):
+        bits = [(corner >> a) & 1 for a in range(3)]
+        ijk = base.long() + torch.tensor(bits, device=dev)
+        idx.append((ijk[:, 0] * side + ijk[:, 1]) * side + ijk[:, 2])
+        wc = torch.ones(n, device=dev)
+        for a in range(3):
+            wc = wc * (frac[:, a] if bits[a] else 1.0 - frac[:, a])
+        w.append(wc)
+    return torch.stack(idx, 1).to(torch.int32), torch.stack(w, 1)
 
 
 def bricked_recording_step(torch, bt, original_step, counters, steps, firsts):
@@ -602,6 +671,289 @@ def check_bricked_first_steps(torch, port, original_step, firsts):
                                 loss_before=rec["loss_before"], loss_after=rec["loss_after"])
         del g, opt, sched, m
     return out
+
+
+class PlanesRun(NamedTuple):
+    """What phases 17-20 hand back: the four kernels' results, the launch
+    counts of phases 18 (serving, gradient), 19 and 20, and their times."""
+    results: dict
+    launches18: dict
+    launches18g: dict
+    launches19: dict
+    launches20: dict
+    ms_pose_p: float
+    wall19: float
+
+
+def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr,
+                  render_poses, axis, flip, rot0_t, org0_t, gen, dev) -> PlanesRun:
+    """Phases 17-20 (the plane march, planes serving, the render CLI, the
+    one-hot gather pair) on the blob model of phase 5: its grid, scene
+    arrays, render config, intrinsics and poses, with phase 4's march
+    variant and pose."""
+    gn, wm, sm, vm = (port[k_] for k_ in ("gn", "wm", "sm", "vm"))
+    results = {}
+    # ---- phase 17: the plane march (K11) and its replay backward (K12) on one
+    # planes pose of the blob model: the serving render config's variant
+    # (400 x 400, tile 16, P = 2, exit 1e-4, the serving occupancy
+    # threshold), and an opaque copy where the early exit must end tiles
+    pl, pm, og = port["pl"], port["pm"], port["og"]
+    pst = pl.variant_statics(grid, axis, flip, config)
+    check(pst.tile_px == 16 and pst.pos_per_cell == (2 if GRID_SIZE == 128 else
+                                                     pst.pos_per_cell)
+          and pst.exit_eps == 1e-4 and pst.occ_sigma_thresh > 0.0, f"planes statics {pst}")
+    kw11 = dict(ncoeff=pst.ncoeff, relu_sigma=pst.relu_sigma, exit_eps=pst.exit_eps,
+                with_diffuse=pst.with_diffuse)
+
+    def k11_case(vgrid, label):
+        rep, occ_p = pl.prepare_plane_grid(vgrid, pst)
+        rf, tab, cnt, ovf = pl.tile_operands(pst, IMAGE_SIZE, IMAGE_SIZE, intr.focal, occ_p,
+                                             rot0_t, org0_t)
+        ops = (tab, cnt, rf, rep)
+        got = pm.plane_march_render(*ops, **kw11)
+        torch.cuda.synchronize()
+        want, work = pm.plane_march_render_plain(*ops, **kw11, return_work=True)
+        _, work0 = pm.plane_march_render_plain(*ops, **{**kw11, "exit_eps": 0.0},
+                                               return_work=True)
+        err = max_abs(got, want)
+        check(bool(torch.isfinite(got).all()) and err <= 1e-6,
+              f"K11 vs plain ({label}): max-abs {err}")
+        check(float(want[..., 3].max()) > 0.5, f"K11 ({label}): the scene is not hit")
+        print(f"# K11 plane_march {label}: max-abs {err:.3g}; {rf.shape[0]} tiles, "
+              f"{int(cnt.sum())} entries; live positions marched {work[0]} (exit_eps 0: "
+              f"{work0[0]}); overflow {bool(ovf)}", flush=True)
+        return ops, want, work, work0, err
+
+    opaque = port["voxel_grid_from_numpy"](np.where(d > 0, d * 100.0, d), f, grid_config,
+                                           device=dev)
+    _, _, p_work, p_work0, k11_err_opaque = k11_case(opaque, "opaque")
+    check(p_work[0] < p_work0[0], "the plane march's early exit ended no tile on the opaque scene")
+    del opaque
+    ops11, out11, work11, _, k11_err = k11_case(grid, "blob")
+    k11_ms = time_ms(torch, lambda: pm.plane_march_render(*ops11, **kw11), 20)
+    k11_plain_ms = time_ms(torch, lambda: pm.plane_march_render_plain(*ops11, **kw11), 1)
+    k11_bytes, k11_ops = slab_counts(ops11, work11, pst.ncoeff, out11.numel(), shade_ops=80)
+    gout11 = torch.randn(out11.shape, generator=gen, device=dev)
+    got12 = pm.plane_march_grad(*ops11, out11, gout11, **kw11)
+    torch.cuda.synchronize()
+    want12 = pm.plane_march_grad_plain(*ops11, out11, gout11, **kw11)
+    scale12 = float(want12.abs().max())
+    k12_err = max_abs(got12, want12)
+    k12_cos = cosine(got12, want12)
+    k12_cast = max_abs(got12.to(torch.bfloat16).float(), want12.to(torch.bfloat16).float())
+    check(scale12 > 0.0 and k12_err <= 1e-4 * scale12 and k12_cos > 0.99999
+          and k12_cast <= scale12 * 2.0 ** -8,
+          f"K12 vs plain: max-abs {k12_err} (scale {scale12}), cosine {k12_cos}, "
+          f"after the bf16 cast {k12_cast}")
+    k12_ms = time_ms(torch, lambda: pm.plane_march_grad(*ops11, out11, gout11, **kw11), 5)
+    k12_plain_ms = time_ms(torch, lambda: pm.plane_march_grad_plain(
+        *ops11, out11, gout11, **kw11), 1)
+    nused11 = 3 * pst.ncoeff + 1
+    k12_bytes = k11_bytes - out11.numel() * 4 + 2 * out11.numel() * 4 + want12.numel() * 4
+    k12_ops = k11_ops + work11[0] * (60 + 4 * nused11 * 2 + nused11)
+    print(f"# K11 plane_march (blob, 400 x 400): ms={k11_ms:.4f} plain_ms={k11_plain_ms:.4f}; "
+          f"bound counts {k11_bytes} bytes, {k11_ops} operations, {int(work11[1].sum())} "
+          f"position records read", flush=True)
+    print(f"# K12 plane_march_backward: max-abs {k12_err:.3g} of {scale12:.3g} (f32), "
+          f"{k12_cast:.3g} after the bf16 cast, cosine {k12_cos:.9f}; ms={k12_ms:.4f} "
+          f"plain_ms={k12_plain_ms:.4f}; bound counts {k12_bytes} bytes, {k12_ops} "
+          f"operations", flush=True)
+    del got12, want12
+
+    # ---- phase 18: planes serving through the entry points: the blob model
+    # saved with the planes procedure, loaded, 8 poses through render_poses;
+    # then the gradient of sum(out[..., :4]^2) through repack_plane_grid and
+    # plane_march on phase 17's pose, K11 / K12 against the plain versions
+    pmodel = vm.VolumetricModel(grid, "render_sh_voxel_grid_planes", config)
+    vm.save_model(pmodel, workdir / "blob128_planes",
+                  {"hemispherical_radius": 4.0,
+                   "camera_intrinsics": [IMAGE_SIZE, IMAGE_SIZE, intr.focal]})
+    del pmodel
+    pmodel, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128_planes")
+    check(pmodel.render_procedure_name == "render_sh_voxel_grid_planes"
+          and pmodel.thre3d_repr.device.type == "cuda", "the loaded planes model")
+    pmodel.render_poses(render_poses, intr)  # warm-up: the variants' repacks
+    torch.cuda.synchronize()
+    counters18 = {"plane_march": pm.plane_march_render, "plane_march_backward": pm.plane_march_grad,
+                  "slab_march": sm.slab_march_render, "composite_fused": gn.composite_positions_fused,
+                  "resample_rows": wm.resample_rows, "onehot_gather": og.onehot_gather_forward,
+                  "onehot_scatter_add": og.onehot_scatter_add}
+    idle18 = {k_: 0 for k_ in counters18}
+    for c in counters18.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    outp = pmodel.render_poses(render_poses, intr)
+    torch.cuda.synchronize()
+    ms_pose_p = (time.perf_counter() - t0) * 1e3 / NUM_POSES
+    launches18 = {name: c.launches for name, c in counters18.items()}
+    check(launches18 == {**idle18, "plane_march": NUM_POSES},
+          f"planes serving launches {launches18}")
+    accp = outp.extra["accumulated_weight"]
+    check(outp.colour.shape == (NUM_POSES, IMAGE_SIZE, IMAGE_SIZE, 3), "planes colour shape")
+    for name, t in (("colour", outp.colour), ("depth", outp.depth), ("acc", accp)):
+        check(bool(torch.isfinite(t).all()), f"planes render: non-finite {name}")
+    check(float(accp.min()) >= 0.0 and float(accp.max()) <= 1.0 + 1e-6 and float(accp.max()) > 0.5,
+          "planes render: acc outside [0, 1] or the scene is not hit")
+    refp = pl.render_poses_planes(pmodel.thre3d_repr, render_poses, intr, pmodel.render_config,
+                                  plain=True)
+    psnr_p = psnr(outp.colour, refp.colour)
+    gmodel, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128")
+    psnr_pg = psnr(outp.colour, gmodel.render_poses(render_poses, intr).colour)
+    overflow18 = [bool(x) for x in outp.extra["bricked_tap_overflow"]]
+    print(f"# planes serving: {NUM_POSES} poses, {ms_pose_p:.3f} ms/pose (host clock, "
+          f"synchronized), launches {launches18}; PSNR vs plain {psnr_p:.2f} dB (colour "
+          f"max-abs {max_abs(outp.colour, refp.colour):.3g}), vs the gnomonic render "
+          f"{psnr_pg:.2f} dB; tap overflow per pose {overflow18}", flush=True)
+    check(psnr_p >= 60.0, f"planes render vs plain PSNR {psnr_p:.2f} dB < 60")
+    _, dev_p, summary_p = device_profile(
+        torch, lambda: pmodel.render_poses(render_poses, intr), NUM_POSES, "pose")
+    print(f"# planes serving profile: device {dev_p:.4f} ms/pose summed over kernels, "
+          f"busy share {dev_p / ms_pose_p:.3f}, {summary_p}", flush=True)
+    del pmodel, gmodel, outp, refp, accp
+    grads18, launches18g = [], None
+    for plain in (False, True):
+        g18 = port["voxel_grid_from_numpy"](d, f, grid_config, device=dev)
+        g18.densities.requires_grad_(True)
+        g18.features.requires_grad_(True)
+        for c in counters18.values():
+            c.launches = 0
+        out18 = pm.plane_march(*ops11[:3], pl.repack_plane_grid(g18, pst), plain=plain, **kw11)
+        (out18[..., :4] ** 2).sum().backward()
+        torch.cuda.synchronize()
+        if not plain:
+            launches18g = {name: c.launches for name, c in counters18.items()}
+        grads18.append((g18.densities.grad, g18.features.grad))
+        del g18, out18
+    cos18 = [cosine(a, b) for a, b in zip(*grads18)]
+    check(launches18g == {**idle18, "plane_march": 1, "plane_march_backward": 1},
+          f"planes gradient launches {launches18g}")
+    check(all(bool(torch.isfinite(a).all()) for a in grads18[0]) and min(cos18) > 0.99999,
+          f"planes repack gradient vs plain: cosines {cos18}")
+    print(f"# planes repack gradient (one pose, sum(out[..., :4]^2)): cosines vs plain "
+          f"(densities, features) {cos18}; launches {launches18g}", flush=True)
+    del grads18, ops11, out11, gout11
+
+    # ---- phase 19: the render CLI in-process on the planes model: 8 frames
+    # asked (the thre360 path drops the closing pose: 7 rendered) at scale 2
+    # (800 x 800, 2500 tiles a pose)
+    rcli = port["rcli"]
+    for c in counters18.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    gif_path = rcli.main(["-i", str(workdir / "blob128_planes.json"), "-o",
+                          str(workdir / "render_planes"), "--num_frames", "8",
+                          "--render_scale_factor", "2"])
+    torch.cuda.synchronize()
+    wall19 = time.perf_counter() - t0
+    launches19 = {name: c.launches for name, c in counters18.items()}
+    check(launches19 == {**idle18, "plane_march": 7}, f"render CLI launches {launches19}")
+    gif_w, gif_h, gif_n = gif_frames(gif_path.read_bytes())
+    side = 2 * int(intr.height)
+    check(gif_path.name == "rendered_video.gif" and (gif_w, gif_h, gif_n) == (3 * side, side, 7),
+          f"render CLI GIF {gif_path.name}: {gif_w} x {gif_h}, {gif_n} frames")
+    print(f"# render CLI (planes, 7 frames of {side} x {side}): {wall19:.2f} s in main(); "
+          f"{gif_path.name} {gif_path.stat().st_size} bytes, {gif_w} x {gif_h}, {gif_n} "
+          f"frames; launches {launches19}", flush=True)
+
+    # ---- phase 20: the one-hot gather (K13) and its scatter-add (K14) against
+    # their plain versions at the JAX package's test shapes and at the
+    # trilinear corners of 256K samples in one 8^3-vertex brick (B = 512,
+    # C = 128, K = 8), each with out-of-range indices (-1, B); the library
+    # calls embedding_bag and its dense backward timed beside the kernels;
+    # then the differentiable gather forward and backward with the counts reset
+    k13_err = k14_err = 0.0
+    for (B, C, N, K) in [(128, 128, 300, 8), (256, 128, 1024, 4), (128, 256, 64, 1), ONEHOT_BCNK]:
+        if (B, C, N, K) == ONEHOT_BCNK:
+            idx20, w20 = trilinear_corners(torch, gen, dev, N, 8)
+        else:
+            idx20 = torch.randint(0, B, (N, K), generator=gen, device=dev, dtype=torch.int32)
+            w20 = torch.randn(N, K, generator=gen, device=dev)
+        table20 = torch.randn(B, C, generator=gen, device=dev)
+        g20 = torch.randn(N, C, generator=gen, device=dev)
+        bad = idx20.clone()
+        bad[::97, 0] = -1
+        bad[5::89, K - 1] = B
+        for ids in (idx20, bad):
+            got13 = og.onehot_gather_forward(table20, ids, w20)
+            torch.cuda.synchronize()
+            want13 = og.onehot_gather_plain(table20, ids, w20)
+            got14 = og.onehot_scatter_add(ids, w20, g20, B)
+            torch.cuda.synchronize()
+            want14 = og.onehot_scatter_add_plain(ids, w20, g20, B)
+            e13, e14 = max_abs(got13, want13), max_abs(got14, want14)
+            check(e13 <= 1e-5 * float(want13.abs().max()) + 1e-6
+                  and e14 <= 1e-5 * float(want14.abs().max()) + 1e-6,
+                  f"K13 / K14 vs plain at {(B, C, N, K)}: max-abs {e13}, {e14}")
+            k13_err, k14_err = max(k13_err, e13), max(k14_err, e14)
+    src20 = lambda: (w20[..., None] * g20[:, None, :]).reshape(-1, C)  # noqa: E731
+    idx_long = idx20.long()
+    k13_ms = time_ms(torch, lambda: og.onehot_gather_forward(table20, idx20, w20), 20)
+    k13_plain_ms = time_ms(torch, lambda: og.onehot_gather_plain(table20, idx20, w20), 5)
+    k13_lib_ms = time_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        idx_long, table20, per_sample_weights=w20, mode="sum"), 20)
+    lib13 = torch.nn.functional.embedding_bag(idx_long, table20, per_sample_weights=w20,
+                                              mode="sum")
+    k14_ms = time_ms(torch, lambda: og.onehot_scatter_add(idx20, w20, g20, B), 20)
+    k14_plain_ms = time_ms(torch, lambda: og.onehot_scatter_add_plain(idx20, w20, g20, B), 5)
+    # d_table = W^T g as one library call: embedding_bag's dense backward,
+    # given the bag of each index (row n for all K of its indices) as its
+    # forward would record it; index_add_ needs the [N K, C] product first
+    flat20 = idx_long.reshape(-1)
+    bags20 = (torch.arange(N, device=dev).repeat_interleave(K), torch.full((N,), K, device=dev),
+              torch.zeros(N, dtype=torch.long, device=dev))
+    lib14 = lambda: torch.ops.aten._embedding_bag_dense_backward(  # noqa: E731
+        g20, flat20, *bags20, B, False, 0, w20.reshape(-1), -1)
+    k14_lib_ms = time_ms(torch, lib14, 20)
+    k14_lib_err = max_abs(lib14(), og.onehot_scatter_add(idx20, w20, g20, B))
+    k14_index_add_ms = time_ms(torch, lambda: torch.zeros(B, C, device=dev).index_add_(
+        0, flat20, src20()), 20)
+    k14_src_ms = time_ms(torch, src20, 20)
+    k13_bound = bound(B * C * 4 + 2 * N * K * 4 + N * C * 4, 2 * N * K * C)
+    k14_bound = bound(2 * N * K * 4 + N * C * 4 + B * C * 4, 2 * N * K * C)
+    print(f"# K13 onehot_gather {ONEHOT_BCNK}: max-abs {k13_err:.3g} over the cases; ms={k13_ms:.4f} "
+          f"plain_ms={k13_plain_ms:.4f} embedding_bag ms={k13_lib_ms:.4f} (max-abs vs the "
+          f"kernel {max_abs(lib13, og.onehot_gather_forward(table20, idx20, w20)):.3g}); "
+          f"bound {k13_bound[0]:.4f} ms ({k13_bound[1]})", flush=True)
+    print(f"# K14 onehot_scatter_add {ONEHOT_BCNK}: max-abs {k14_err:.3g}; ms={k14_ms:.4f} "
+          f"plain_ms={k14_plain_ms:.4f} embedding_bag's dense backward ms={k14_lib_ms:.4f} "
+          f"(max-abs vs the kernel {k14_lib_err:.3g}); index_add_ with its source product "
+          f"ms={k14_index_add_ms:.4f}, the product alone ms={k14_src_ms:.4f}; bound "
+          f"{k14_bound[0]:.4f} ms ({k14_bound[1]})", flush=True)
+    t20 = table20.clone().requires_grad_(True)
+    w20g = w20.clone().requires_grad_(True)
+    for c in counters18.values():
+        c.launches = 0
+    (og.weighted_onehot_gather(t20, idx20, w20g) * g20).sum().backward()
+    torch.cuda.synchronize()
+    launches20 = {name: c.launches for name, c in counters18.items()}
+    check(launches20 == {**idle18, "onehot_gather": 2, "onehot_scatter_add": 1},
+          f"differentiable one-hot gather launches {launches20}")
+    check(bool(torch.isfinite(t20.grad).all()) and bool(torch.isfinite(w20g.grad).all()),
+          "one-hot gather gradients")
+    print(f"# differentiable one-hot gather {ONEHOT_BCNK}: launches {launches20}", flush=True)
+    del table20, g20, t20, w20g, idx20, w20, idx_long, lib13, flat20, bags20
+    results["plane_march"] = dict(
+        err=max(k11_err, k11_err_opaque), ms=k11_ms, plain_ms=k11_plain_ms,
+        bound=bound(k11_bytes, k11_ops),
+        extra=dict(positions_marched=work11[0], opaque_positions_marched=p_work[0],
+                   opaque_positions_without_exit=p_work0[0]))
+    results["plane_march_backward"] = dict(
+        err=k12_err, ms=k12_ms, plain_ms=k12_plain_ms, bound=bound(k12_bytes, k12_ops),
+        extra=dict(cosine_vs_plain=k12_cos, max_abs_err_after_bf16_cast=k12_cast,
+                   grad_scale=scale12))
+    results["onehot_gather"] = dict(
+        err=k13_err, ms=k13_ms, plain_ms=k13_plain_ms, bound=k13_bound, library=k13_lib_ms,
+        extra=dict(shape_BCNK=list(ONEHOT_BCNK), library_call="torch.nn.functional.embedding_bag("
+                   "mode='sum', per_sample_weights=w)"))
+    results["onehot_scatter_add"] = dict(
+        err=k14_err, ms=k14_ms, plain_ms=k14_plain_ms, bound=k14_bound, library=k14_lib_ms,
+        extra=dict(shape_BCNK=list(ONEHOT_BCNK), library_call="torch.ops.aten."
+                   "_embedding_bag_dense_backward(mode=sum, per_sample_weights=w)",
+                   library_max_abs_vs_kernel=k14_lib_err,
+                   index_add_with_source_product_ms=k14_index_add_ms,
+                   source_product_ms=k14_src_ms))
+    return PlanesRun(results, launches18, launches18g, launches19, launches20, ms_pose_p,
+                     wall19)
 
 
 def main() -> int:
@@ -1560,6 +1912,10 @@ def run(torch, workdir: Path) -> int:
           f"stage's last step: {stages_b}", flush=True)
     del firsts_b
 
+    planes_results, launches18, launches18g, launches19, launches20, ms_pose_p, wall19 = (
+        planes_phases(torch, port, workdir, grid=grid, d=d, f=f, grid_config=grid_config,
+                      config=config, intr=intr, render_poses=render_poses, axis=axis,
+                      flip=flip, rot0_t=rot0_t, org0_t=org0_t, gen=gen, dev=dev))
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -1575,6 +1931,7 @@ def run(torch, workdir: Path) -> int:
         err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms, bound=bound(k10_bytes, k10_ops),
         extra=dict(cosine_vs_plain=k10_cos, max_abs_err_after_bf16_cast=k10_cast,
                    grad_scale=scale10))
+    results.update(planes_results)
 
     rows = []
     meta = {
@@ -1603,16 +1960,26 @@ def run(torch, workdir: Path) -> int:
                        "thr3ed_atom_tpu/ops/pallas/slab_march.py:277"),
         "slab_march_backward": ("cuda", "thr3ed_atom_tpu_torch/csrc/slab_march_backward.cu",
                                 "thr3ed_atom_tpu/ops/pallas/slab_march.py:539"),
+        "plane_march": ("cuda", "thr3ed_atom_tpu_torch/csrc/plane_march.cu",
+                        "thr3ed_atom_tpu/ops/pallas/plane_march.py:392"),
+        "plane_march_backward": ("cuda", "thr3ed_atom_tpu_torch/csrc/plane_march_backward.cu",
+                                 "thr3ed_atom_tpu/ops/pallas/plane_march.py:652"),
+        "onehot_gather": ("cuda", "thr3ed_atom_tpu_torch/csrc/onehot_gather.cu",
+                          "thr3ed_atom_tpu/ops/pallas/onehot_gather.py:104"),
+        "onehot_scatter_add": ("cuda", "thr3ed_atom_tpu_torch/csrc/onehot_gather.cu",
+                               "thr3ed_atom_tpu/ops/pallas/onehot_gather.py:127"),
     }
     # launches: each kernel's main path, counts reset just before the run and
     # read just after: the two gnomonic CLI runs of phase 12 for K1-K5 and
     # K7; phase 13's fused=False, qb=128 step for K6 / K8; phase 16's bricked
-    # CLI run for K9 / K10. relu_trap (K1a) is a device function of the six
-    # composite kernels. The serving runs (phases 5, 15) and the 10-step
-    # training run (phase 8) stand beside them
+    # CLI run for K9 / K10; phase 19's render CLI run for K11, phase 18's
+    # gradient through the repack for K12, phase 20's differentiable gather
+    # for K13 / K14. relu_trap (K1a) is a device function of the six
+    # composite kernels and of K11 / K12. The serving runs (phases 5, 15, 18)
+    # and the 10-step training run (phase 8) stand beside them
     inside = ("composite_fused", "composite_backward_fused", "composite_stripe",
               "composite_stripe_backward", "composite_stripe_qb",
-              "composite_stripe_backward_qb")
+              "composite_stripe_backward_qb", "plane_march", "plane_march_backward")
     for counts in [r["launches"] for r in cli_runs.values()] + [train_launches, launches]:
         counts["relu_trap"] = sum(counts.get(k, 0) for k in inside)
     main_path = {name: sum(r["launches"].get(name, 0) for r in cli_runs.values())
@@ -1620,6 +1987,10 @@ def run(torch, workdir: Path) -> int:
     main_path.update({k_: launches13[k_] for k_ in ("composite_stripe_qb",
                                                     "composite_stripe_backward_qb")})
     main_path.update({k_: counts16[k_] for k_ in ("slab_march", "slab_march_backward")})
+    main_path.update(plane_march=launches19["plane_march"],
+                     plane_march_backward=launches18g["plane_march_backward"],
+                     onehot_gather=launches20["onehot_gather"],
+                     onehot_scatter_add=launches20["onehot_scatter_add"])
     check(all(v > 0 for v in main_path.values()), f"a kernel was not launched on the main "
           f"path: {main_path}")
     for name, r in results.items():
@@ -1628,7 +1999,7 @@ def run(torch, workdir: Path) -> int:
             name=name, route=route, source=source, replaces=replaces,
             launches=main_path[name], max_abs_err=r["err"], max_abs_vs_plain=r["err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-            bound_by=r["bound"][1], library_ms=None,
+            bound_by=r["bound"][1], library_ms=r.get("library"),
             launches_cli_qb128=cli_runs[128]["launches"].get(name, 0),
             launches_cli_qb0=cli_runs[0]["launches"].get(name, 0),
             launches_training_phase8=train_launches.get(name, 0),
@@ -1640,15 +2011,22 @@ def run(torch, workdir: Path) -> int:
             rows[-1]["launches_cli_bricked_phase16"] = counts16[name]
         if name in launches15:
             rows[-1]["launches_serving_bricked_phase15"] = launches15[name]
+        if name in ("plane_march", "plane_march_backward", "onehot_gather",
+                    "onehot_scatter_add"):
+            rows[-1].update(launches_serving_planes_phase18=launches18[name],
+                            launches_gradient_phase18=launches18g[name],
+                            launches_render_cli_phase19=launches19[name],
+                            launches_autograd_phase20=launches20[name])
         if name == "relu_trap":
             rows[-1]["launches_inside"] = ", ".join(inside)
         if name == "composite_stripe":
             rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
         rows[-1].update(r.get("extra", {}))
     print(f"# serving ms/pose {ms_per_pose:.3f} (qb=0: {ms_pose_v2:.3f}; bricked: "
-          f"{ms_pose_b:.3f}); training ms/step {ms_per_step:.3f}; CLI ms/step qb=128 "
-          f"{cli_runs[128]['ms_per_step']}, qb=0 {cli_runs[0]['ms_per_step']}, bricked "
-          f"{ms_step_b}; total {time.perf_counter() - t_start:.1f} s")
+          f"{ms_pose_b:.3f}; planes: {ms_pose_p:.3f}); training ms/step {ms_per_step:.3f}; "
+          f"CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
+          f"{cli_runs[0]['ms_per_step']}, bricked {ms_step_b}; render CLI {wall19:.2f} s; "
+          f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

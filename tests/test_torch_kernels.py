@@ -105,7 +105,9 @@ def test_port_imports_no_jax():
     assert len(modules) >= 19
     for name in ("rendering.gnomonic_train", "modules.trainer", "utils.metrics",
                  "apps.train_sh_voxel_grid", "data.dataset", "data.png", "modules.tester",
-                 "visualizations.static", "utils.misc", "utils.profiling"):
+                 "visualizations.static", "utils.misc", "utils.profiling",
+                 "ops.plane_march", "rendering.planes", "ops.onehot_gather",
+                 "visualizations.video", "apps.render_sh_voxel_grid"):
         assert f"thr3ed_atom_tpu_torch.{name}" in modules
 
 
@@ -663,3 +665,132 @@ def test_bricked_render_and_train_step_kernels_match_plain(cuda):
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0.0
         assert _cosine(a, b) > 0.99999
+
+
+def _planes_case(device, density_scale=1.0, size=64, image=128):
+    """One pose's plane-march operands on a carved relu scene: the repacked
+    position grid (P = 4 AUTO at 64^3), ray records, tables and counts at
+    the serving threshold."""
+    from thr3ed_atom_tpu_torch.rendering import planes as pl
+
+    tgrid = _grid(size, device=device, density_scale=density_scale)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = torch.as_tensor(np.asarray(pose.rotation, np.float32).reshape(3, 3)).to(device)
+    org = torch.as_tensor(np.asarray(pose.translation, np.float32).reshape(3)).to(device)
+    axis, flip = pl.dominant_axis_for_pose(rot.cpu().numpy())
+    st = pl.statics_for_grid(tgrid, axis, flip, with_diffuse=True)
+    rep, occ = pl.prepare_plane_grid(tgrid, st)
+    rf, tables, counts, _ = pl.tile_operands(st, image, image, image * 1.1, occ, rot, org)
+    return st, (tables, counts, rf, rep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("relu,exit_eps,density_scale", [(True, 1e-4, 1.0), (False, 0.0, 1.0),
+                                                         (True, 1e-4, 30.0)])
+def test_plane_march_kernels_match_plain(cuda, relu, exit_eps, density_scale):
+    """The plane-march render (K11) against its plain version: the same taps,
+    tents, relu_trap and order of sums, exp / sigmoid as PyTorch's. Bound:
+    max-abs 1e-6, also with the tables' groups shifted by a group offset of
+    1. The replay backward (K12) on a seeded cotangent against its plain
+    version: f32 atomics add in another order. Bound: max-abs <= 1e-4 of the
+    largest element (f32, before the cast), cosine > 0.99999; within one
+    bf16 unit after the cast. Each wrapper counts one launch a call."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+
+    st, ops = _planes_case(cuda, density_scale)
+    assert st.pos_per_cell == 4 and st.tile_px == 16
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=relu, exit_eps=exit_eps, with_diffuse=True)
+    before = (pm.plane_march_render.launches, pm.plane_march_grad.launches)
+    got = pm.plane_march_render(*ops, **kw)
+    torch.cuda.synchronize()
+    want = pm.plane_march_render_plain(*ops, **kw)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert float(want[..., 3].max()) > 0.5
+    shifted = ops[0].clone()
+    shifted[..., 0] += 1
+    got1 = pm.plane_march_render(shifted, *ops[1:], group_offset=1, **kw)
+    want1 = pm.plane_march_render_plain(shifted, *ops[1:], group_offset=1, **kw)
+    assert float((got1 - want1).abs().max()) <= 1e-6
+    gout = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    dg = pm.plane_march_grad(*ops, want, gout, **kw)
+    torch.cuda.synchronize()
+    dg_plain = pm.plane_march_grad_plain(*ops, want, gout, **kw)
+    assert (pm.plane_march_render.launches - before[0],
+            pm.plane_march_grad.launches - before[1]) == (2, 1)
+    scale = float(dg_plain.abs().max())
+    assert scale > 0.0 and float((dg - dg_plain).abs().max()) <= 1e-4 * scale
+    assert _cosine(dg, dg_plain) > 0.99999
+    cast = (dg.to(torch.bfloat16).float() - dg_plain.to(torch.bfloat16).float()).abs().max()
+    assert float(cast) <= scale * 2.0 ** -8
+
+
+@pytest.mark.gpu
+def test_planes_render_and_repack_gradient_kernels_match_plain(cuda):
+    """render_image_planes through K11 against the plain render (max-abs
+    1e-6); the gradient of sum(out[..., :4]^2) through repack_plane_grid and
+    plane_march with the kernels (K11, K12) against the plain versions':
+    cosine > 0.99999 for the densities and the features."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+    from thr3ed_atom_tpu_torch.rendering import planes as pl
+    from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
+    from thr3ed_atom_tpu_torch.utils.camera import CameraBounds, CameraIntrinsics
+
+    config = SHVoxGridRenderConfig(num_samples_per_ray=64, camera_bounds=CameraBounds(1.0, 6.0),
+                                   white_bkgd=True, perturb_sampled_points=False)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    intr = CameraIntrinsics(120, 120, 132.0)
+    tgrid = _grid(64, device=cuda)
+    got = pl.render_image_planes(tgrid, pose, intr, config)
+    want = pl.render_image_planes(tgrid, pose, intr, config, plain=True)
+    assert float((got.colour - want.colour).abs().max()) <= 1e-6
+    st, (tables, counts, rf, _) = _planes_case(cuda)
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=st.relu_sigma, exit_eps=0.0)
+    grads = []
+    for plain in (False, True):
+        g = _grid(64, device=cuda)
+        g.densities.requires_grad_(True)
+        g.features.requires_grad_(True)
+        out = pm.plane_march(tables, counts, rf, pl.repack_plane_grid(g, st), plain=plain, **kw)
+        (out[..., :4] ** 2).sum().backward()
+        grads.append((g.densities.grad, g.features.grad))
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0.0
+        assert _cosine(a, b) > 0.99999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,N,K", [(128, 128, 300, 8), (256, 128, 1024, 4), (128, 256, 64, 1),
+                                     (512, 128, 65536, 8), (100, 6, 333, 3)])
+def test_onehot_kernels_match_plain(cuda, B, C, N, K):
+    """K13 (weighted one-hot gather) and K14 (its scatter-add adjoint) against
+    their plain versions, with indices at -1, B and B + 7 among them (they
+    contribute nothing); C = 6 takes the scalar path, B x C = 512 x 128 the
+    global atomics, the others the shared-memory copy. Bounds: f32 sums in
+    another order, max-abs <= 1e-5 of the largest value + 1e-6. The autograd
+    backward launches K14 once and K13 once (the weights' cotangent)."""
+    from thr3ed_atom_tpu_torch.ops import onehot_gather as og
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn(B, C, generator=gen, device=cuda)
+    idx = torch.randint(0, B, (N, K), generator=gen, device=cuda, dtype=torch.int32)
+    idx[::7, 0] = -1
+    idx[3::11, -1] = B
+    idx[5::13, K // 2] = B + 7
+    w = torch.randn(N, K, generator=gen, device=cuda)
+    g = torch.randn(N, C, generator=gen, device=cuda)
+    out = og.onehot_gather_forward(table, idx, w)
+    torch.cuda.synchronize()
+    want = og.onehot_gather_plain(table, idx, w)
+    assert float((out - want).abs().max()) <= 1e-5 * float(want.abs().max()) + 1e-6
+    dt = og.onehot_scatter_add(idx, w, g, B)
+    torch.cuda.synchronize()
+    dt_want = og.onehot_scatter_add_plain(idx, w, g, B)
+    assert float((dt - dt_want).abs().max()) <= 1e-5 * float(dt_want.abs().max()) + 1e-6
+    t = table.clone().requires_grad_(True)
+    w_ = w.clone().requires_grad_(True)
+    before = (og.onehot_gather_forward.launches, og.onehot_scatter_add.launches)
+    (og.weighted_onehot_gather(t, idx, w_) * g).sum().backward()
+    assert (og.onehot_gather_forward.launches - before[0],
+            og.onehot_scatter_add.launches - before[1]) == (2, 1)
+    assert float((t.grad - dt_want).abs().max()) <= 1e-5 * float(dt_want.abs().max()) + 1e-6

@@ -180,16 +180,17 @@ def test_outside_the_slice_raises(override):
 
 def test_other_procedures_and_flat_rays_raise():
     """Procedures the port has not got raise naming ROADMAP.md; flat ray
-    batches through the gnomonic and bricked procedures raise naming the
-    fast renderer, where the JAX package would route them."""
+    batches through the gnomonic, bricked and planes procedures raise naming
+    the fast renderer, where the JAX package would route them."""
     _, tmodel = _models()
-    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_planes"):
+    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_fast"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
                                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmodel.render_procedure(tmodel.thre3d_repr, None, tmodel.render_config)
-    bricked = vm.VolumetricModel(tmodel.thre3d_repr, "render_sh_voxel_grid_bricked",
-                                 tmodel.render_config, device="cpu")
-    with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
-        bricked.render_procedure(bricked.thre3d_repr, None, bricked.render_config)
+    for name in ("render_sh_voxel_grid_bricked", "render_sh_voxel_grid_planes"):
+        other = vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
+                                   device="cpu")
+        with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
+            other.render_procedure(other.thre3d_repr, None, other.render_config)

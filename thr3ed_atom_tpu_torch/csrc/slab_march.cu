@@ -57,7 +57,7 @@ __global__ void slab_march_kernel(Params prm) {
 #pragma unroll
     for (int b = 0; b < GS; ++b) {
       // a dead sample adds zeros and leaves T: skipped
-      const Sample s = sample<NCOEFF>(ray, e, b, prm.U, prm.V);
+      const Sample s = sample<SlabGeom, NCOEFF>(ray, e, b, prm.U, prm.V, 0);
       if (!s.live) continue;
       float ch[NUSED];
       interp<NUSED>(prm.grid, s, ch);

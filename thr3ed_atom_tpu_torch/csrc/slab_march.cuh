@@ -59,6 +59,15 @@ struct Ray {
   }
 };
 
+// The march's shape: samples per group step (STRIDE), the patch extent
+// (PU, PV) and the lanes of a grid row (LAN). The plane march (plane_march.cuh)
+// samples the same way on its own shape.
+template <int STRIDE_, int PU_, int PV_, int LAN_>
+struct Geom {
+  static constexpr int STRIDE = STRIDE_, PU = PU_, PV = PV_, LAN = LAN_;
+};
+using SlabGeom = Geom<GS, PU, PV, LAN>;
+
 // One table entry: (group xg, patch origin u0 / v0, slab subrange jlo..jhi).
 struct Entry {
   int xg, u0, v0, jlo, jhi;
@@ -70,7 +79,8 @@ struct Entry {
 
 // The sample of slab b of an entry: its global slab index, liveness, the
 // four taps' bf16 weights (zero for a dropped tap) in ascending patch row and
-// the element offsets of their 32-lane slab blocks in the grid.
+// the element offsets of their 32-lane slab blocks in the grid. ``goff``
+// rebases the table's group index onto the grid operand.
 struct Sample {
   float jg;
   bool live;
@@ -78,11 +88,11 @@ struct Sample {
   size_t off[4];
 };
 
-template <int NCOEFF>
+template <class G, int NCOEFF>
 __device__ __forceinline__ Sample sample(const Ray<NCOEFF>& ray, const Entry& e, int b,
-                                         int U, int V) {
+                                         int U, int V, int goff) {
   Sample s;
-  s.jg = (float)e.xg * (float)GS + (float)b;
+  s.jg = (float)e.xg * (float)G::STRIDE + (float)b;
   s.live = s.jg >= ray.jmin && s.jg <= ray.jmax && e.jlo <= b && b <= e.jhi;
   if (!s.live) return s;
   const float u = ray.au + ray.bu * s.jg - (float)e.u0;
@@ -92,8 +102,8 @@ __device__ __forceinline__ Sample sample(const Ray<NCOEFF>& ray, const Entry& e,
   int iu[2], iv[2];
 #pragma unroll
   for (int t = 0; t < 2; ++t) {
-    wu[t] = tent(u, ku + (float)t, PU);
-    wv[t] = tent(v, kv + (float)t, PV);
+    wu[t] = tent(u, ku + (float)t, G::PU);
+    wv[t] = tent(v, kv + (float)t, G::PV);
     iu[t] = wu[t] != 0.0f ? (int)(ku + (float)t) : 0;
     iv[t] = wv[t] != 0.0f ? (int)(kv + (float)t) : 0;
   }
@@ -105,7 +115,7 @@ __device__ __forceinline__ Sample sample(const Ray<NCOEFF>& ray, const Entry& e,
       s.w[k] = bf16r(wu[tu] * wv[tv]);
       const int gu = e.u0 + iu[tu], gv = e.v0 + iv[tv];
       if (gu >= U || gv >= V) s.w[k] = 0.0f;  // a table past the grid reads nothing
-      s.off[k] = (((size_t)e.xg * U + gu) * V + gv) * LAN + (size_t)b * LPS;
+      s.off[k] = (((size_t)(e.xg - goff) * U + gu) * V + gv) * G::LAN + (size_t)b * LPS;
     }
   }
   return s;

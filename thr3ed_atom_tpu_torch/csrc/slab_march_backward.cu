@@ -69,7 +69,7 @@ __global__ void slab_march_backward_kernel(Params prm) {
     e.load(prm.tables + (size_t)t * prm.G + i);
 #pragma unroll
     for (int b = 0; b < GS; ++b) {
-      const Sample s = sample<NCOEFF>(ray, e, b, prm.U, prm.V);
+      const Sample s = sample<SlabGeom, NCOEFF>(ray, e, b, prm.U, prm.V, 0);
       if (!s.live) continue;  // no taps, no contribution, T unchanged
       float ch[NUSED];
       interp<NUSED>(prm.grid, s, ch);

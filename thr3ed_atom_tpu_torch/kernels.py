@@ -36,6 +36,10 @@ SOURCES: Dict[str, List[str]] = {
     "resample_rows": ["resample_rows.cu"],
     "slab_march": ["slab_march.cu", "slab_march.cuh"],
     "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh"],
+    "plane_march": ["plane_march.cu", "plane_march.cuh", "slab_march.cuh", "relu_trap.cuh"],
+    "plane_march_backward": ["plane_march_backward.cu", "plane_march.cuh", "slab_march.cuh",
+                             "relu_trap.cuh"],
+    "onehot_gather": ["onehot_gather.cu"],
     "resample_rows_adjoint": ["resample_rows_adjoint.cu"],
 }
 

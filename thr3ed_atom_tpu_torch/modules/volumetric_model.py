@@ -1,7 +1,7 @@
 """VolumetricModel: a voxel grid + a named render procedure + its config.
 
 Counterpart of thr3ed_atom_tpu/modules/volumetric_model.py for the
-pose-structured procedures (gnomonic, bricked). Checkpoints keep the JAX package's
+pose-structured procedures (gnomonic, bricked, planes). Checkpoints keep the JAX package's
 format: <path>.npz holds the arrays, <path>.json the grid config, the render
 procedure's registry name and the render config; no pickles. Either package
 loads the other's.

@@ -46,7 +46,9 @@ def _bf16r(x: torch.Tensor) -> torch.Tensor:
     return x.to(BF16).to(F32)
 
 
-def _check(what, tables, counts, rays, grid, ncoeff):
+def _check(what, tables, counts, rays, grid, ncoeff, lan=LAN, patch=(PU, PV)):
+    """Validate a march's operands; the plane march passes its own grid row
+    width ``lan`` and ``patch``."""
     T, G, four = tables.shape
     R = rays.shape[1]
     if four != 4 or tables.dtype != torch.int32:
@@ -55,12 +57,12 @@ def _check(what, tables, counts, rays, grid, ncoeff):
         raise ValueError(f"{what}: counts [T, 1] required")
     if tuple(rays.shape) != (T, R, RAY_LANES) or rays.dtype != F32:
         raise ValueError(f"{what}: rays [T, R, {RAY_LANES}] f32 required")
-    if grid.dim() != 4 or grid.shape[-1] != LAN or grid.dtype != BF16:
-        raise ValueError(f"{what}: grid [XG, U, V, {LAN}] bf16 required")
-    if grid.shape[1] < PU or grid.shape[2] < PV:
+    if grid.dim() != 4 or grid.shape[-1] != lan or grid.dtype != BF16:
+        raise ValueError(f"{what}: grid [XG, U, V, {lan}] bf16 required")
+    if grid.shape[1] < patch[0] or grid.shape[2] < patch[1]:
         raise ValueError(f"{what}: grid smaller than a patch")
     if ncoeff not in (1, 4, 9):
-        raise ValueError(f"{what}: ncoeff must be 1, 4 or 9")
+        raise ValueError(f"{what}: ncoeff must be 1, 4 or 9 (SH degree <= 2)")
 
 
 class _Entry:
@@ -68,11 +70,15 @@ class _Entry:
     its bilinear taps over the patch (plain versions). ``live`` [T, R];
     ``rows`` [T, R, 4] indices into the grid's [XG * U * V] rows; ``w``
     [T, R, 4] the bf16 tap weights (in f32), zero for a dead sample or a tap
-    outside the patch, in ascending patch row (u-major, then v)."""
+    outside the patch, in ascending patch row (u-major, then v). The plane
+    march (ops/plane_march.py) samples its positions the same way on its own
+    group ``stride`` and ``patch``; ``goff`` rebases the tables' group index
+    onto the grid operand."""
 
-    def __init__(self, rays, xg, u0, v0, jlo, jhi, b: int, shape, running):
+    def __init__(self, rays, xg, u0, v0, jlo, jhi, b: int, shape, running, stride: int = GS,
+                 patch=(PU, PV), goff: int = 0):
         XG, U, V = shape
-        jg = (xg.to(F32) * GS + float(b))[:, None]  # [T, 1] global slab index
+        jg = (xg.to(F32) * stride + float(b))[:, None]  # [T, 1] global slab index
         self.jg = jg
         u = rays[..., L_AU] + rays[..., L_BU] * jg - u0.to(F32)[:, None]
         v = rays[..., L_AV] + rays[..., L_BV] * jg - v0.to(F32)[:, None]
@@ -91,10 +97,10 @@ class _Entry:
                 ks.append(torch.where(inside, k, 0.0).long())
             return ks, ws
 
-        (ku0, ku1), (wu0, wu1) = taps(u, PU)
-        (kv0, kv1), (wv0, wv1) = taps(v, PV)
+        (ku0, ku1), (wu0, wu1) = taps(u, patch[0])
+        (kv0, kv1), (wv0, wv1) = taps(v, patch[1])
         wu0, wu1 = (torch.where(live, w, 0.0) for w in (wu0, wu1))
-        base = ((xg.long() * U + u0.long()) * V + v0.long())[:, None]
+        base = (((xg.long() - goff) * U + u0.long()) * V + v0.long())[:, None]
         rows, ws = [], []
         for ku, wu in ((ku0, wu0), (ku1, wu1)):
             for kv, wv in ((kv0, wv0), (kv1, wv1)):
@@ -290,8 +296,8 @@ def _lib(name: str, fn_name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _cuda_operands(what, tables, counts, rays, grid, ncoeff):
-    _check(what, tables, counts, rays, grid, ncoeff)
+def _cuda_operands(what, tables, counts, rays, grid, ncoeff, lan=LAN, patch=(PU, PV)):
+    _check(what, tables, counts, rays, grid, ncoeff, lan, patch)
     dev = grid.device
     if dev.type != "cuda":
         raise ValueError(f"{what}: unsupported device {dev}")

@@ -231,24 +231,31 @@ def compute_ray_features(origins: torch.Tensor, directions: torch.Tensor,
     basis of the direction on lanes c < 3 ncoeff (Y_{c % ncoeff})."""
     (u_ax, v_ax, num_slabs, _num_groups, u_real, v_real, _u_pad, _v_pad, scales
      ) = _slab_geometry(statics)
+    theta = torch.as_tensor(theta, dtype=F32, device=origins.device)
+    ssaa = statics.axis_supersample
+    inv_scale = 1.0 / scales[statics.axis]
+    frac = _div(num_slabs - theta, ssaa) if statics.flip else _div(theta, ssaa)
+    w0 = statics.aabb[statics.axis][0] + (frac + 0.5) * inv_scale
+    return ray_records(origins, directions, statics, (u_ax, v_ax, u_real, v_real, scales),
+                       w0, inv_scale / ssaa, num_slabs - 1)
+
+
+def ray_records(origins, directions, statics, geometry, w0, step: float, j_last: int):
+    """The 48-lane ray records of a march along ``statics.axis`` whose sample
+    j sits at world coordinate ``w0 +- j * step`` along the axis (minus when
+    ``statics.flip``) and whose last sample is ``j_last``; ``geometry`` =
+    (u_ax, v_ax, u_real, v_real, scales). Shared by the slab and plane
+    marches, which differ in where their samples sit."""
+    u_ax, v_ax, u_real, v_real, scales = geometry
     axis = statics.axis
     lo = [statics.aabb[i][0] for i in range(3)]
     dev = origins.device
     o_a = origins[..., axis]
     d_a = _guard(directions[..., axis])
-    theta = torch.as_tensor(theta, dtype=F32, device=dev)
-    ssaa = statics.axis_supersample
-    inv_scale = 1.0 / scales[axis]
-    step = inv_scale / ssaa
     # a true division: torch computes <python number> / tensor as a reciprocal
     # times the number
     ds = torch.full((), step, dtype=F32, device=dev) / d_a
-    if statics.flip:
-        w0 = lo[axis] + (_div(num_slabs - theta, ssaa) + 0.5) * inv_scale
-        bts = -ds
-    else:
-        w0 = lo[axis] + (_div(theta, ssaa) + 0.5) * inv_scale
-        bts = ds
+    bts = -ds if statics.flip else ds
     at = (w0 - o_a) / d_a
     forwardish = bts > 0.0
 
@@ -271,7 +278,7 @@ def compute_ray_features(origins: torch.Tensor, directions: torch.Tensor,
     lo_v, hi_v = interval(av, bv, v_real)
     lo_s = -at / _guard(bts)
     jminf = torch.maximum(torch.maximum(lo_u, lo_v), torch.clamp_min(lo_s, 0.0))
-    jmaxf = torch.clamp_max(torch.minimum(hi_u, hi_v), float(num_slabs - 1))
+    jmaxf = torch.clamp_max(torch.minimum(hi_u, hi_v), float(j_last))
     jmaxf = torch.where(forwardish, jmaxf, -1.0)
     jminf = torch.where(forwardish, jminf, 0.0)
 
@@ -467,21 +474,35 @@ def variant_statics(voxel_grid: VoxelGrid, axis: int, flip: bool, config) -> Bri
     )
 
 
-def _prepared(voxel_grid: VoxelGrid, statics: BrickedStatics, cache):
-    """The variant's (repacked grid, occupancy mip), from ``cache`` while the
-    grid's tensors are unchanged (same storage, same version counter)."""
+def per_grid(cache, key, voxel_grid: VoxelGrid, make):
+    """``make()``, kept in ``cache`` under ``key`` while the grid's tensors are
+    unchanged (same storage, same version counter)."""
     stamp = tuple((t.data_ptr(), t._version)
                   for t in (voxel_grid.densities, voxel_grid.features))
-    key = ("bricked", statics.axis, statics.flip, statics.occ_sigma_thresh,
-           statics.axis_supersample)
     if cache is not None:
         entry = cache.get(key)
         if entry is not None and entry[0] == stamp:
             return entry[1]
-    prepared = prepare_bricked_grid(voxel_grid, statics)
+    value = make()
     if cache is not None:
-        cache[key] = (stamp, prepared)
-    return prepared
+        cache[key] = (stamp, value)
+    return value
+
+
+def _prepared(voxel_grid: VoxelGrid, statics: BrickedStatics, cache):
+    """The variant's (repacked grid, occupancy mip), cached per grid."""
+    key = ("bricked", statics.axis, statics.flip, statics.occ_sigma_thresh,
+           statics.axis_supersample)
+    return per_grid(cache, key, voxel_grid, lambda: prepare_bricked_grid(voxel_grid, statics))
+
+
+def stack_renders(outs) -> RenderOut:
+    """One RenderOut of per-pose renders, each output gaining a leading pose axis."""
+    return RenderOut(
+        colour=torch.stack([o.colour for o in outs]),
+        depth=torch.stack([o.depth for o in outs]),
+        extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
+    )
 
 
 @torch.no_grad()
@@ -515,14 +536,9 @@ def render_poses_bricked(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics,
     package's per-pose loop); every output gains a leading pose axis. Poses
     of one march variant share one repack."""
     cache = {} if cache is None else cache
-    outs = [render_image_bricked(voxel_grid, pose, camera_intrinsics, config,
-                                 cache=cache, plain=plain)
-            for pose in camera_poses]
-    return RenderOut(
-        colour=torch.stack([o.colour for o in outs]),
-        depth=torch.stack([o.depth for o in outs]),
-        extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
-    )
+    return stack_renders([render_image_bricked(voxel_grid, pose, camera_intrinsics, config,
+                                               cache=cache, plain=plain)
+                          for pose in camera_poses])
 
 
 class _BrickedProcedure:

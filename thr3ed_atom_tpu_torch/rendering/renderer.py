@@ -4,22 +4,23 @@ Counterpart of thr3ed_atom_tpu/rendering/renderer.py. ``SHVoxGridRenderConfig``
 carries every field of the JAX package's config, so a checkpoint's JSON written
 by either package loads in the other; the knobs of procedures that are not
 ported yet are kept and ignored. ``RENDER_PROCEDURES`` holds the procedures
-this port serves, the gnomonic shear-warp renderer and the bricked slab-march
-renderer; a checkpoint naming another one is refused by
-``get_render_procedure``.
+this port serves, the gnomonic shear-warp renderer, the bricked slab-march
+renderer and the plane-march renderer; a checkpoint naming another one is
+refused by ``get_render_procedure``.
 """
 import dataclasses
 
 from thr3ed_atom_tpu_torch.rendering.bricked import render_sh_voxel_grid_bricked
 from thr3ed_atom_tpu_torch.rendering.gnomonic import render_sh_voxel_grid_gnomonic
+from thr3ed_atom_tpu_torch.rendering.planes import render_sh_voxel_grid_planes
 from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
 
 
 @dataclasses.dataclass(frozen=True)
 class SHVoxGridRenderConfig:
     """Static render configuration, field for field the JAX package's. Only the
-    fields read by the gnomonic and bricked procedures act in this port; the
-    rest are carried so that checkpoints round-trip."""
+    fields read by the gnomonic, bricked and plane-march procedures act in this
+    port; the rest are carried so that checkpoints round-trip."""
 
     # probing config:
     num_samples_per_ray: int
@@ -50,7 +51,9 @@ class SHVoxGridRenderConfig:
     # alpha threshold (0 disables; training always uses 0), the pixel tile
     # edge (8 or 16; 0 = 16 up to 160 vertices a side, else 8) and K samples
     # per cell along the march axis (divides 4; 0 = about 256 samples across
-    # the grid). The plane-march knob is not ported yet.
+    # the grid). The plane-march renderer (rendering/planes.py) reads the
+    # first three (its AUTO tile edge: 16 up to 128 vertices a side) and its
+    # positions per cell (1, 2, 4 or 8; 0 = about 256 positions across the grid)
     bricked_exit_eps: float = 1e-4
     bricked_occupancy_alpha_thresh: float = 1e-4
     bricked_tile_px: int = 0
@@ -82,6 +85,7 @@ class SHVoxGridRenderConfig:
 RENDER_PROCEDURES = {
     "render_sh_voxel_grid_gnomonic": render_sh_voxel_grid_gnomonic,
     "render_sh_voxel_grid_bricked": render_sh_voxel_grid_bricked,
+    "render_sh_voxel_grid_planes": render_sh_voxel_grid_planes,
 }
 
 # the JAX package's other procedures: not ported yet
@@ -89,7 +93,6 @@ _NOT_PORTED = (
     "render_sh_voxel_grid",
     "render_sh_voxel_grid_fast",
     "render_sh_voxel_grid_hierarchical",
-    "render_sh_voxel_grid_planes",
 )
 
 

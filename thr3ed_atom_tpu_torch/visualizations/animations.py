@@ -1,6 +1,6 @@
 """Camera-path animation renderer (counterpart of
-thr3ed_atom_tpu/visualizations/animations.py): the stacked panel frames only;
-writing a video is not ported yet."""
+thr3ed_atom_tpu/visualizations/animations.py): the stacked panel frames;
+visualizations/video.py writes them as a video."""
 from typing import Optional, Sequence
 
 import numpy as np
@@ -17,6 +17,7 @@ from thr3ed_atom_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
     NUM_COLOUR_CHANNELS,
 )
+from thr3ed_atom_tpu_torch.utils.logging import log
 
 
 def render_camera_path_for_volumetric_model(
@@ -25,6 +26,7 @@ def render_camera_path_for_volumetric_model(
     camera_intrinsics: CameraIntrinsics,
     render_scale_factor: Optional[float] = None,
     overridden_num_samples_per_ray: Optional[int] = None,
+    verbose: bool = True,
 ) -> np.ndarray:
     """Per pose: deterministic full render -> colour | depth | inverted-acc
     panel; returns a stacked [T, H, W*3, 3] uint8 array."""
@@ -35,6 +37,8 @@ def render_camera_path_for_volumetric_model(
     if overridden_num_samples_per_ray is not None:
         overrides["num_samples_per_ray"] = overridden_num_samples_per_ray
 
+    if verbose:
+        log.info(f"rendering camera path ({len(camera_path)} frames, batched)")
     rendered = vol_mod.render_poses(list(camera_path), camera_intrinsics, **overrides)
     colour = rendered.colour.cpu().numpy()
     acc = rendered.extra[EXTRA_ACCUMULATED_WEIGHTS].cpu().numpy()
