@@ -15,7 +15,9 @@ version on the card at the main paths' shapes:
        render_poses at 400 x 400 (P = 2, qb = 128, exit_eps = 1e-4,
        Catmull-Rom matmul warp), held against the same render through the
        plain versions;
-  6.   the warp adjoint (K4);
+  6.   the warp adjoint (K4), also on rows shuffled out of order (its
+       scatter); K2 and K4 and their library calls are also timed as
+       the host queues them, beside each wrapper's launch path;
   7.   K1's training branch (materialized SH basis and norm) and the replay
        backward (K3) on one pose with a seeded state cotangent;
   8.   the training path, bench_train.py's configuration: 10
@@ -58,8 +60,8 @@ version on the card at the main paths' shapes:
   20.  the one-hot gather (K13) and its scatter-add (K14) against their plain
        versions at the JAX package's test shapes and at the trilinear corners
        of 256K samples in an 8^3 brick, with embedding_bag and its dense
-       backward (and index_add_) timed beside them, and the differentiable
-       gather.
+       backward (and index_add_) timed beside them, K14 also at B = 4096
+       (past shared memory), and the differentiable gather.
 The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19 and 20, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
@@ -72,6 +74,7 @@ Any failed phase raises and the script exits non-zero without that line; it
 also exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
 """
+import gc
 import json
 import shutil
 import subprocess
@@ -91,6 +94,10 @@ CLI_VIEWS, CLI_SIZE = (16, 4), 800  # the CLI's dataset: (train, test) views, pi
 CLI_GRID = 128  # the CLI's final grid; its first stage is half that
 CLI_STEPS = 4  # the CLI's steps per stage
 ONEHOT_BCNK = (512, 128, 262_144, 8)  # phase 20: trilinear corners of 256K samples, 8^3 brick
+ONEHOT_LARGE_B = 4096  # phase 20: K14 past shared memory (its global-atomic branch)
+# 50-60 ms at the H100's 1.6-2.0 GHz: longer than the host takes to queue 50
+# calls of a kernel's wrapper (tens of microseconds each)
+QUEUE_CYCLES = 100_000_000
 
 
 def load_port():
@@ -158,17 +165,68 @@ def blob_scene(grid_size, seed=3, num_blobs=6):
 
 
 def time_ms(torch, fn, iters):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA
+    events). The calls are queued behind a device-side sleep of QUEUE_CYCLES,
+    so a kernel shorter than its launch path on the host is timed at the
+    device's pace, not the host's."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_paced(torch, fn, iters, repeats=3):
+    """Per-call ms of ``fn`` as the host queues it on an idle device (where a
+    call's launch path outlasts its kernel, the device waits on the host):
+    ``repeats`` runs of ``iters`` back-to-back calls on CUDA events, each
+    with the ms that Python's garbage collector took inside it; and the
+    launch path's host ms a call, on the host clock while the device sleeps."""
+    pauses, begun = [], []
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            begun.append(time.perf_counter())
+        elif begun:
+            pauses.append(time.perf_counter() - begun.pop())
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    ms, gc_ms = [], []
+    gc.callbacks.append(on_gc)
+    try:
+        for _ in range(repeats):
+            pauses.clear()
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end) / iters)
+            gc_ms.append(sum(pauses) * 1e3)
+    finally:
+        gc.callbacks.remove(on_gc)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    launch_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return dict(ms=ms, gc_ms=gc_ms, launch_ms=launch_ms)
+
+
+def paced_str(h):
+    return (f"[{', '.join(f'{m:.4f}' for m in h['ms'])}] (gc "
+            f"[{', '.join(f'{m:.2f}' for m in h['gc_ms'])}] ms), launch path "
+            f"{h['launch_ms']:.4f}")
 
 
 def device_profile(torch, fn, n, unit, top_n=6):
@@ -919,6 +977,25 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
           f"(max-abs vs the kernel {k14_lib_err:.3g}); index_add_ with its source product "
           f"ms={k14_index_add_ms:.4f}, the product alone ms={k14_src_ms:.4f}; bound "
           f"{k14_bound[0]:.4f} ms ({k14_bound[1]})", flush=True)
+    # K14 at a table past shared memory (B = 4096: its global-atomic branch),
+    # the same N, K, C and seeded indices, beside the same library call
+    BL = ONEHOT_LARGE_B
+    idxL = torch.randint(0, BL, (N, K), generator=gen, device=dev, dtype=torch.int32)
+    flatL = idxL.long().reshape(-1)
+    k14L = og.onehot_scatter_add(idxL, w20, g20, BL)
+    torch.cuda.synchronize()
+    k14L_want = og.onehot_scatter_add_plain(idxL, w20, g20, BL)
+    k14L_err = max_abs(k14L, k14L_want)
+    check(k14L_err <= 1e-5 * float(k14L_want.abs().max()) + 1e-6,
+          f"K14 vs plain at B = {BL}: max-abs {k14L_err}")
+    k14L_ms = time_ms(torch, lambda: og.onehot_scatter_add(idxL, w20, g20, BL), 20)
+    k14L_lib_ms = time_ms(torch, lambda: torch.ops.aten._embedding_bag_dense_backward(
+        g20, flatL, *bags20, BL, False, 0, w20.reshape(-1), -1), 20)
+    k14L_bound = bound(2 * N * K * 4 + N * C * 4 + BL * C * 4, 2 * N * K * C)
+    print(f"# K14 onehot_scatter_add at B = {BL} (global atomics): max-abs {k14L_err:.3g}; "
+          f"ms={k14L_ms:.4f}, embedding_bag's dense backward ms={k14L_lib_ms:.4f}; bound "
+          f"{k14L_bound[0]:.4f} ms", flush=True)
+    del idxL, flatL, k14L, k14L_want
     t20 = table20.clone().requires_grad_(True)
     w20g = w20.clone().requires_grad_(True)
     for c in counters18.values():
@@ -951,7 +1028,9 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
                    "_embedding_bag_dense_backward(mode=sum, per_sample_weights=w)",
                    library_max_abs_vs_kernel=k14_lib_err,
                    index_add_with_source_product_ms=k14_index_add_ms,
-                   source_product_ms=k14_src_ms))
+                   source_product_ms=k14_src_ms, large_B=ONEHOT_LARGE_B,
+                   large_B_max_abs_err=k14L_err, large_B_ms=k14L_ms,
+                   large_B_library_ms=k14L_lib_ms, large_B_bound_ms=k14L_bound[0]))
     return PlanesRun(results, launches18, launches18g, launches19, launches20, ms_pose_p,
                      wall19)
 
@@ -1083,6 +1162,15 @@ def run(torch, workdir: Path) -> int:
     print(f"# K2 order 1 without taps: kernel ms={bil_ms:.4f}, F.grid_sample ms={lib_ms:.4f} "
           f"(max-abs {max_abs(k1o, lib[:, :, 0]):.3g}: grid_sample renormalizes positions)",
           flush=True)
+    # the same calls queued as they come from the host (the serving path's
+    # pace), the wrapper's launch path beside them
+    k2_paced = dict(
+        order3_taps=host_paced(torch, lambda: wm.resample_rows(X, p3, 3, True), 50),
+        order1=host_paced(torch, lambda: wm.resample_rows(X, p1, 1), 50),
+        order1_library=host_paced(torch, lambda: torch.nn.functional.grid_sample(
+            X4, gxy[:, None], mode="bilinear", padding_mode="zeros", align_corners=True), 50))
+    for label, h in k2_paced.items():
+        print(f"# K2 host-paced ms, {label}: {paced_str(h)}", flush=True)
     # bytes: the source samples the band reads, the positions, the output
     n_src = resample_sources(torch, p3, 3, K)
     results["resample_rows"] = dict(
@@ -1209,18 +1297,25 @@ def run(torch, workdir: Path) -> int:
     # ---- phase 6: resample_rows_adjoint (K4) vs plain at [512, 3, 8, 512] -> [512, 8, 512]
     dY3 = torch.randn(NB, 3, CH, N, generator=gen, device=dev)
     dY1 = dY3[:, 0].contiguous()
-    adj_err = 0.0
-    for order in (1, 3):
-        p_o = pos.clamp(*wm._clip_range(order, K)).contiguous()
-        for taps in (False, True):
-            dY = dY3 if taps else dY1
-            got = wm.resample_rows_adjoint(dY, p_o, order, K, taps)
-            torch.cuda.synchronize()
-            want = wm.resample_rows_adjoint_plain(dY, p_o, order, K, taps)
-            # shared-memory atomics add in a varying order: f32 round-off
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-            adj_err = max(adj_err, max_abs(got, want))
+    # the same positions with each row shuffled: not monotone, so scattered
+    perm = torch.argsort(torch.rand(NB, N, device=dev,
+                                    generator=torch.Generator(device=dev).manual_seed(6)), 1)
+    p3s = torch.gather(p3[:, 0], 1, perm)[:, None].contiguous()
+    adj_err = plain32_err = 0.0
+    for order, p_o, taps in [(o, pos.clamp(*wm._clip_range(o, K)).contiguous(), t)
+                             for o in (1, 3) for t in (False, True)] + [(3, p3s, True)]:
+        dY = dY3 if taps else dY1
+        got = wm.resample_rows_adjoint(dY, p_o, order, K, taps)
+        torch.cuda.synchronize()
+        # held against the plain version summed in float64; the f32 plain
+        # version's own gap to those sums is printed beside the kernel's
+        want = wm.resample_rows_adjoint_plain(dY.double(), p_o, order, K, taps).float()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        adj_err = max(adj_err, max_abs(got, want))
+        plain32 = wm.resample_rows_adjoint_plain(dY, p_o, order, K, taps)
+        plain32_err = max(plain32_err, max_abs(plain32, want))
     adj_ms = time_ms(torch, lambda: wm.resample_rows_adjoint(dY3, p3, 3, K, True), 50)
+    adj_scatter_ms = time_ms(torch, lambda: wm.resample_rows_adjoint(dY3, p3s, 3, K, True), 50)
     adj_plain_ms = time_ms(torch, lambda: wm.resample_rows_adjoint_plain(dY3, p3, 3, K, True), 10)
     # the library yardstick of the bilinear pass without taps: grid_sample's
     # input gradient at the same positions (never used by the port)
@@ -1231,20 +1326,34 @@ def run(torch, workdir: Path) -> int:
     adj_bil_ms = time_ms(torch, lambda: wm.resample_rows_adjoint(dY1, p1, 1, K), 50)
     adj_lib_ms = time_ms(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
         g4, X4, gxy[:, None], 0, 0, True, [True, False]), 50)
-    print(f"# K4 resample_rows_adjoint: [{NB},3,{CH},{N}] -> [{NB},{CH},{K}] max_abs={adj_err:.3g} "
-          f"ms={adj_ms:.4f} plain_ms={adj_plain_ms:.4f}; order 1 without taps: kernel "
+    adj_bil_bound = bound(4 * (NB * CH * N + NB * N + NB * CH * K), NB * N * (8 + CH * 4 * 2))
+    print(f"# K4 resample_rows_adjoint: [{NB},3,{CH},{N}] -> [{NB},{CH},{K}] max-abs to the "
+          f"float64 sums {adj_err:.3g} (the f32 plain version's {plain32_err:.3g}) "
+          f"ms={adj_ms:.4f} plain_ms={adj_plain_ms:.4f}; rows shuffled (scattered) "
+          f"ms={adj_scatter_ms:.4f}; order 1 without taps: kernel "
           f"ms={adj_bil_ms:.4f}, grid_sample input gradient ms={adj_lib_ms:.4f} (max-abs "
-          f"{max_abs(k4o, lib_adj[:, :, 0]):.3g}: grid_sample renormalizes positions)", flush=True)
+          f"{max_abs(k4o, lib_adj[:, :, 0]):.3g}: grid_sample renormalizes positions), bound "
+          f"{adj_bil_bound[0]:.4f} ms", flush=True)
+    k4_paced = dict(
+        order3_taps=host_paced(torch, lambda: wm.resample_rows_adjoint(dY3, p3, 3, K, True), 50),
+        order1=host_paced(torch, lambda: wm.resample_rows_adjoint(dY1, p1, 1, K), 50),
+        order1_library=host_paced(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
+            g4, X4, gxy[:, None], 0, 0, True, [True, False]), 50))
+    for label, h in k4_paced.items():
+        print(f"# K4 host-paced ms, {label}: {paced_str(h)}", flush=True)
     # bytes: the cotangent read, the positions, dX written. ops: the four
     # weights (~40) and per channel 4 weighted taps (mul, add) + 2 tap adds
     results["resample_rows_adjoint"] = dict(
         err=adj_err, ms=adj_ms, plain_ms=adj_plain_ms,
         bound=bound(4 * (NB * 3 * CH * N + NB * N + NB * CH * K),
                     NB * N * (40 + CH * (4 * 2 + 2))),
-        extra=dict(order1_ms=adj_bil_ms, order1_library_ms=adj_lib_ms),
+        extra=dict(order1_ms=adj_bil_ms, order1_library_ms=adj_lib_ms,
+                   order1_bound_ms=adj_bil_bound[0], shuffled_rows_ms=adj_scatter_ms,
+                   plain_f32_max_abs_vs_float64=plain32_err, host_paced=k4_paced),
     )
-    results["resample_rows"]["extra"] = dict(order1_ms=bil_ms, order1_library_ms=lib_ms)
-    del dY3, dY1, got, want
+    results["resample_rows"]["extra"] = dict(order1_ms=bil_ms, order1_library_ms=lib_ms,
+                                             host_paced=k2_paced)
+    del dY3, dY1, got, want, plain32, p3s
 
     # ---- phase 7: the composite's training branch (K1, ybasis / norm
     # operands) and its replay backward (K3) vs plain, one pose, diffuse on
@@ -1553,12 +1662,17 @@ def run(torch, workdir: Path) -> int:
             dY = torch.randn(got.shape, generator=gen, device=dev)
             got_a = wm.resample_rows_adjoint(dY, p, order, X.shape[2], taps)
             torch.cuda.synchronize()
-            want_a = wm.resample_rows_adjoint_plain(dY, p, order, X.shape[2], taps)
+            want_a = wm.resample_rows_adjoint_plain(dY.double(), p, order, X.shape[2],
+                                                    taps).float()
             torch.testing.assert_close(got_a, want_a, rtol=1e-5, atol=1e-5)
             e2, e4 = max(e2, max_abs(got, want)), max(e4, max_abs(got_a, want_a))
+        # K4 gathers the rows whose positions never decrease or never increase
+        monotone = [int(((d >= 0).all(1) | (d <= 0).all(1)).sum())
+                    for d in (torch.diff(p[:, 0], dim=1) for _, p, _, _ in warp_ops)]
         print(f"# K2 / K4 at the CLI's first stage: passes "
               f"{[(tuple(X.shape), tuple(p.shape), order, taps) for X, p, order, taps in warp_ops]}"
-              f"; K2 max-abs {e2:.3g}, K4 max-abs {e4:.3g}", flush=True)
+              f"; K2 max-abs {e2:.3g}, K4 max-abs {e4:.3g}; monotone rows a pass {monotone}",
+              flush=True)
         for name, e in (("resample_rows", e2), ("resample_rows_adjoint", e4)):
             results[name]["err"] = max(results[name]["err"], e)
             results[name]["extra"]["stage1_64_max_abs_err"] = e

@@ -12,26 +12,53 @@
 // one-hots added in k order) and run W @ table, or W^T @ g accumulated across
 // the sequential grid, on the MXU with the table or d_table resident in VMEM.
 //
-// Here a row's W has at most K nonzeros. A thread owns a row and a chunk of
-// VEC channels: it merges the row's in-range indices into distinct rows with
-// their weights summed in k order (merge_row), orders them by row, and
-//   K13: sums W * table[b] over the distinct b in ascending b (the dot's
-//        order), VEC channels per 16-byte load;
-//   K14: adds W * g[n] into d_table: into a block-private copy in shared
-//        memory when [B, C] f32 fits, flushed with one atomicAdd per element,
-//        else straight into device memory with f32 atomics. Blocks run in no
-//        order, so the sums round in another order than the plain version's.
+// Here a row's W has at most K nonzeros.
+//
+// K13: a thread owns a row and a chunk of VEC channels: it merges the row's
+// in-range indices into distinct rows with their weights summed in k order
+// (merge_row), orders them by row, and sums W * table[b] over the distinct b
+// in ascending b (the dot's order), VEC channels per 16-byte load.
+//
+// K14: a warp owns a sample row at a time and its lanes own channels. Lanes
+// k < K load the row's indices and weights once, and __match_any_sync finds
+// repeated indices. A row without repeats (the trilinear corners) adds each
+// k's term as it is; in a row with repeats, each group's first lane sums the
+// group's weights in k order (shuffles, no local arrays) and adds once. The
+// lanes add W * g[n, c], lane l on channels c0 + l + 32 v (v < VEC), so g is
+// read in coalesced 128-byte rows and a warp's adds for one index hit 32
+// consecutive words: 32 banks, no conflicts. A block of 32 warps
+// accumulates a [B, 32 VEC] channel slice of d_table in shared memory (64
+// channels up to B = 800, 32 up to B = 1600); the grid is channel slices x
+// ranges of rows, one wave of blocks. Each block flushes its slice once
+// with one f32 atomicAdd per nonzero word into d_table (zeroed by the
+// caller), 4.3M atomics at B = 512, C = 128: per-block partials would write
+// as many words, read them back in a second pass, and buy no fixed order,
+// since the shared-memory atomics fix none. Past B = 1600 the lanes add
+// straight into d_table with f32 atomics, 32 consecutive words a warp
+// instruction. Blocks and warps run in no order, so the sums round in
+// another order than the plain version's.
+//
+// What bounds K14 on the card is the shared-memory pipe, not the bytes: an
+// f32 atomicAdd on shared memory is a compare-and-swap loop (a load and an
+// ATOMS.CAST a word), beside two shuffles an index; skipping the merge where
+// nothing repeats and 64-wide slices cut those. Global atomics instead of
+// shared ones are bound by the L2's atomic rate (vector float4 atomics too).
 //
 // Bound on the H100: memory. K13 reads the indices, weights and the rows they
 // name (the table, 256 KB at B = 512, C = 128, stays in L2) and writes
-// [N, C] f32; K14 reads the indices, weights and g and writes [B, C] f32.
+// [N, C] f32; K14 reads the indices and weights (once per channel slice) and
+// g and writes [B, C] f32.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int MAXK = 32;  // indices per row
 constexpr int THREADS = 256;
-constexpr size_t SMEM_MAX = 160 * 1024;  // K14's shared-memory copy of d_table
+constexpr unsigned FULL = 0xffffffffu;
+// K14
+constexpr int SCATTER_WARPS = 32;  // warps a block
+constexpr int SCATTER_ROWS = 4;  // rows a warp loads before it adds them
+constexpr size_t SMEM_CAP = 200 * 1024;  // a block's slice: 64 wide to B = 800, 32 to 1600
 
 // The row's distinct in-range indices b[0..m) in ascending order, each with
 // the sum of its weights in k order.
@@ -104,36 +131,127 @@ __global__ void onehot_gather_kernel(const float* __restrict__ table, const int*
   }
 }
 
-template <bool SMEM>
-__global__ void onehot_scatter_add_kernel(const int* __restrict__ idx, const float* __restrict__ w,
-                                          const float* __restrict__ g,
-                                          float* __restrict__ dtable, int N, int K, int B, int C) {
-  extern __shared__ float shared_acc[];
-  float* acc = SMEM ? shared_acc : dtable;
+// K14: adds W * g[v] into acc row b for the lane's channels
+template <int VEC>
+__device__ __forceinline__ void add_slice(float* acc, size_t stride, int b, float W,
+                                          const float* g, const bool* live) {
+  float* dst = acc + (size_t)b * stride;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const float x = W * g[v];
+    if (live[v] && x != 0.0f) atomicAdd(dst + 32 * v, x);
+  }
+}
+
+// K14: adds row n's W[n, :] * g[n, c] for the lane's channels into acc
+// (row b at acc + b * stride); lane k < K holds (idx[n, k], w[n, k]) and g
+// the lane's VEC values of g[n].
+template <int VEC>
+__device__ __forceinline__ void scatter_row(float* acc, size_t stride, int ik, float wk,
+                                            const float* g, int K, int B, int lane,
+                                            const bool* live) {
+  const bool valid = ik >= 0 && ik < B;  // lanes >= K carry -1
+  const unsigned peers = __match_any_sync(FULL, valid ? ik : -1);
+  if (__ballot_sync(FULL, valid && __popc(peers) > 1) == 0u) {
+    // no index repeats (the trilinear corners): each k's term as it is,
+    // fewer shuffles than the merge
+    for (int j = 0; j < K; ++j) {
+      const int b = __shfl_sync(FULL, ik, j);
+      const float Wb = __shfl_sync(FULL, wk, j);
+      if (b >= 0 && b < B) add_slice<VEC>(acc, stride, b, Wb, g, live);
+    }
+    return;
+  }
+  // each lane's sum of its group's weights in k order (the group's first lane
+  // keeps the one that is used)
+  float W = 0.0f;
+  for (int j = 0; j < K; ++j) {
+    const float wj = __shfl_sync(FULL, wk, j);
+    if ((peers >> j) & 1u) W = W + wj;
+  }
+  for (unsigned lead = __ballot_sync(FULL, valid && (peers & ((1u << lane) - 1u)) == 0u);
+       lead; lead &= lead - 1) {
+    const int j = __ffs(lead) - 1;
+    add_slice<VEC>(acc, stride, __shfl_sync(FULL, ik, j), __shfl_sync(FULL, W, j), g, live);
+  }
+}
+
+// grid: (channel slices of 32 VEC, ranges of rows_per_block rows)
+template <int VEC, bool SMEM>
+__global__ void __launch_bounds__(SCATTER_WARPS * 32)
+    onehot_scatter_add_kernel(const int* __restrict__ idx, const float* __restrict__ w,
+                              const float* __restrict__ g, float* __restrict__ dtable, int N,
+                              int K, int B, int C, int rows_per_block) {
+  constexpr int CS = 32 * VEC;
+  extern __shared__ float shared_acc[];  // [B, CS]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * CS;
+  bool live[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) live[v] = c0 + lane + 32 * v < C;
+  float* acc = SMEM ? shared_acc + lane : dtable + c0 + lane;
+  const size_t stride = SMEM ? CS : C;
   if constexpr (SMEM) {
-    for (int j = threadIdx.x; j < B * C; j += blockDim.x) shared_acc[j] = 0.0f;
+    for (int j = threadIdx.x; j < B * CS; j += blockDim.x) shared_acc[j] = 0.0f;
     __syncthreads();
   }
-  const long long total = (long long)N * C;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(e / C);
-    const int c = (int)(e % C);
-    int b[MAXK];
-    float W[MAXK];
-    const int m = merge_row(idx + (size_t)n * K, w + (size_t)n * K, K, B, b, W);
-    const float gv = __ldg(g + e);
-    for (int j = 0; j < m; ++j) {
-      const float v = W[j] * gv;
-      if (v != 0.0f) atomicAdd(acc + (size_t)b[j] * C + c, v);
+  const int n0 = blockIdx.y * rows_per_block;
+  const int n1 = min(N, n0 + rows_per_block);
+  for (int base = n0 + warp * SCATTER_ROWS; base < n1; base += SCATTER_WARPS * SCATTER_ROWS) {
+    int ik[SCATTER_ROWS];
+    float wk[SCATTER_ROWS], gv[SCATTER_ROWS][VEC];
+#pragma unroll
+    for (int u = 0; u < SCATTER_ROWS; ++u) {  // all loads first, then the adds
+      const int n = base + u;
+      const bool row = n < n1 && lane < K;
+      ik[u] = row ? __ldg(idx + (size_t)n * K + lane) : -1;
+      wk[u] = row ? __ldg(w + (size_t)n * K + lane) : 0.0f;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        gv[u][v] = n < n1 && live[v] ? __ldg(g + (size_t)n * C + c0 + lane + 32 * v) : 0.0f;
     }
+#pragma unroll
+    for (int u = 0; u < SCATTER_ROWS; ++u)
+      scatter_row<VEC>(acc, stride, ik[u], wk[u], gv[u], K, B, lane, live);
   }
   if constexpr (SMEM) {
     __syncthreads();
-    for (int j = threadIdx.x; j < B * C; j += blockDim.x) {
-      if (shared_acc[j] != 0.0f) atomicAdd(dtable + j, shared_acc[j]);
+    for (int j = threadIdx.x; j < B * CS; j += blockDim.x) {
+      const int c = c0 + j % CS;
+      if (c < C && shared_acc[j] != 0.0f) atomicAdd(dtable + (size_t)(j / CS) * C + c,
+                                                    shared_acc[j]);
     }
   }
+}
+
+template <int VEC, bool SMEM>
+int launch_scatter(const int* idx, const float* w, const float* g, float* dtable, int N, int K,
+                   int B, int C, cudaStream_t s) {
+  auto kern = onehot_scatter_add_kernel<VEC, SMEM>;
+  const size_t smem = SMEM ? (size_t)B * 32 * VEC * sizeof(float) : 0;
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SCATTER_WARPS * 32,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // one wave of blocks: the channel slices times ranges of rows
+  const int slices = (C + 32 * VEC - 1) / (32 * VEC);
+  const int per_range = SCATTER_WARPS * SCATTER_ROWS;
+  int ranges = (sms * per_sm + slices - 1) / slices;
+  const int most = (N + per_range - 1) / per_range;
+  if (ranges > most) ranges = most;
+  const int rows = (N + ranges - 1) / ranges;
+  kern<<<dim3(slices, ranges), SCATTER_WARPS * 32, smem, s>>>(idx, w, g, dtable, N, K, B, C,
+                                                              rows);
+  return (int)cudaGetLastError();
 }
 
 int blocks_for(long long work, int cap) {
@@ -169,19 +287,12 @@ extern "C" int onehot_scatter_add_launch(const int* idx, const float* w, const f
   if (N <= 0 || C <= 0) return 0;
   if (K < 1 || K > MAXK || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)B * C * sizeof(float);
-  const long long work = (long long)N * C;
-  if (smem <= SMEM_MAX) {
-    cudaError_t err = cudaFuncSetAttribute(onehot_scatter_add_kernel<true>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    // one block per SM: each block flushes its whole copy
-    onehot_scatter_add_kernel<true><<<blocks_for(work, 132), THREADS, smem, s>>>(
-        idx, w, g, dtable, N, K, B, C);
-  } else {
-    onehot_scatter_add_kernel<false><<<blocks_for(work, 132 * 16), THREADS, 0, s>>>(
-        idx, w, g, dtable, N, K, B, C);
-  }
-  return (int)cudaGetLastError();
+  const size_t row = 32 * sizeof(float);  // a 32-wide slice's bytes per table row
+  // 64-wide slices where C needs them and they fit: half the re-reads of idx
+  // and w, and half the shuffles a channel
+  if (C > 32 && (size_t)B * 2 * row <= SMEM_CAP)
+    return launch_scatter<2, true>(idx, w, g, dtable, N, K, B, C, s);
+  if ((size_t)B * row <= SMEM_CAP)
+    return launch_scatter<1, true>(idx, w, g, dtable, N, K, B, C, s);
+  return launch_scatter<1, false>(idx, w, g, dtable, N, K, B, C, s);
 }

@@ -15,15 +15,26 @@
 // Bound on the H100: memory. At the warp's shapes (NB = K = N = 512, CH = 8,
 // taps on) a pass reads 25 MB of cotangent and writes 8.4 MB, about 10 us at
 // 3.35 TB/s.
-// Design: a scatter — many outputs n can land on one k (the warp clips whole
-// runs of positions onto the frame's edge, and a row's positions need not be
-// monotone). One block owns one scanline i and holds its dX[i] (CH x K f32,
-// 16 KB at K = 512) in shared memory; its threads walk the outputs n, compute
-// the four weights of each once and add their CH contributions with shared-
-// memory atomics (the tap planes folded into the central taps' adds, four
-// atomics per output and channel); the row is written to global memory once. No global
-// atomics, no band masks. The order of the additions varies from run to run,
-// so the result matches the plain version to f32 round-off, not bit for bit.
+//
+// Design: one block owns one scanline i. It stages the row's positions in
+// shared memory and votes (__syncthreads_and) on whether they never decrease
+// or never increase; the warp's rows are monotone maps clipped at both ends,
+// so that is the rule.
+//  - Monotone rows gather. A thread owns a texel k; the outputs whose taps
+//    reach k (floor(pos) in [k - 2, k + 1], [k - 1, k] for order 1) are one
+//    contiguous run, found by two binary searches over the staged positions.
+//    The thread sums the run's weighted cotangents in registers and writes
+//    dX[i, :, k] once: no atomics, a fixed order. A run longer than LONG_RUN
+//    (whole stretches clipped onto the frame's edge) is split over the
+//    warp's 32 lanes and summed by a butterfly of shuffles, so one thread
+//    does not walk it alone.
+//  - Other rows scatter into a CH x K copy of dX[i] in shared memory, a
+//    thread per output n, one shared-memory atomic per tap and channel. No
+//    path of the port sends such rows; the scatter keeps the kernel's
+//    contract for any positions.
+// The order of the scatter's atomics varies from run to run, and the gather
+// sums in n order where the plain version's scatter_add_ sums in another, so
+// the result matches the plain version to f32 round-off, not bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,21 +54,102 @@ __device__ __forceinline__ float kernel_weight(float t, int order) {
 }
 
 constexpr int THREADS = 256;
+constexpr int LONG_RUN = 16;  // runs longer than this are summed by the whole warp
+constexpr unsigned FULL = 0xffffffffu;
+
+// First j in [0, n) with ps[j] >= x, for non-decreasing ps.
+__device__ __forceinline__ int lower_bound(const float* ps, int n, float x) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n >> 1;
+    if (ps[lo + half] < x) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+struct Row {
+  const float* g0;  // [CH, N] the resample's cotangent
+  const float* g1;  // [CH, N] the tap planes (nullptr without taps)
+  const float* g2;
+  const float* ps;  // [N] the positions in non-decreasing order (shared memory)
+  int N, order;
+  bool reversed;  // ps[j] is pos[N - 1 - j]
+};
+
+// a[c] += the contribution of staged output j to texel k
+template <int CH>
+__device__ __forceinline__ void add_output(const Row& r, int j, int k, float* a) {
+  const int n = r.reversed ? r.N - 1 - j : j;
+  const float p = r.ps[j];
+  const float f = floorf(p);
+  const float kf = (float)k;
+  const float w = kernel_weight(kf - p, r.order);
+#pragma unroll
+  for (int c = 0; c < CH; ++c) a[c] = a[c] + w * __ldg(r.g0 + (size_t)c * r.N + n);
+  if (r.g1 != nullptr) {
+    if (kf == f) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) a[c] = a[c] + __ldg(r.g1 + (size_t)c * r.N + n);
+    } else if (kf == f + 1.0f) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) a[c] = a[c] + __ldg(r.g2 + (size_t)c * r.N + n);
+    }
+  }
+}
 
 template <int CH>
-__global__ void __launch_bounds__(THREADS)
-    resample_rows_adjoint_kernel(const float* __restrict__ dY,
-                                 const float* __restrict__ pos,
-                                 float* __restrict__ dX, int K, int N,
-                                 int order, int taps) {
-  extern __shared__ float acc[];  // [CH, K]
-  const int i = blockIdx.x;
+__device__ void gather_row(const Row& r, float* dxi, int K) {
+  const int lane = threadIdx.x & 31;
+  // outputs reach texel k from floor(pos) in [k - below, k + above]
+  const float below = r.order == 1 ? 1.0f : 2.0f;
+  const float above = r.order == 1 ? 1.0f : 2.0f;
+  for (int kb = threadIdx.x - lane; kb < K; kb += THREADS) {  // warp-uniform
+    const int k = kb + lane;
+    int lo = 0, hi = 0;
+    if (k < K) {
+      lo = lower_bound(r.ps, r.N, (float)k - below);
+      hi = lower_bound(r.ps, r.N, (float)k + above);
+    }
+    float a[CH];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) a[c] = 0.0f;
+    const bool long_run = hi - lo > LONG_RUN;
+    if (!long_run)
+      for (int j = lo; j < hi; ++j) add_output<CH>(r, j, k, a);
+    for (unsigned todo = __ballot_sync(FULL, long_run); todo; todo &= todo - 1) {
+      const int src = __ffs(todo) - 1;
+      const int lo_s = __shfl_sync(FULL, lo, src);
+      const int hi_s = __shfl_sync(FULL, hi, src);
+      float part[CH];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) part[c] = 0.0f;
+      for (int j = lo_s + lane; j < hi_s; j += 32) add_output<CH>(r, j, kb + src, part);
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+#pragma unroll
+        for (int d = 16; d > 0; d >>= 1) part[c] = part[c] + __shfl_xor_sync(FULL, part[c], d);
+        if (lane == src) a[c] = part[c];
+      }
+    }
+    if (k < K) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) dxi[(size_t)c * K + k] = a[c];
+    }
+  }
+}
+
+template <int CH>
+__device__ void scatter_row(const float* __restrict__ pi, const Row& r, float* acc, float* dxi,
+                            int K) {
   for (int t = threadIdx.x; t < CH * K; t += THREADS) acc[t] = 0.0f;
   __syncthreads();
-  const size_t plane = (size_t)CH * N;
-  const float* dyi = dY + (size_t)i * (taps ? 3 : 1) * plane;
-  for (int n = threadIdx.x; n < N; n += THREADS) {
-    const float p = pos[(size_t)i * N + n];
+  for (int n = threadIdx.x; n < r.N; n += THREADS) {
+    const float p = pi[n];
     const float k0 = floorf(p);
     float w[4];
     int idx[4];
@@ -67,15 +159,15 @@ __global__ void __launch_bounds__(THREADS)
       const float k = k0 + (float)(d - 1);
       ok[d] = k >= 0.0f && k <= (float)(K - 1);
       idx[d] = ok[d] ? (int)k : 0;
-      w[d] = kernel_weight(k - p, order);
+      w[d] = kernel_weight(k - p, r.order);
     }
 #pragma unroll
     for (int c = 0; c < CH; ++c) {
-      const float g = dyi[(size_t)c * N + n];
+      const float g = r.g0[(size_t)c * r.N + n];
       float* row = acc + c * K;
       // the tap planes land on the two central taps: one atomic per tap
-      const float g1 = taps ? dyi[plane + (size_t)c * N + n] : 0.0f;
-      const float g2 = taps ? dyi[2 * plane + (size_t)c * N + n] : 0.0f;
+      const float g1 = r.g1 != nullptr ? r.g1[(size_t)c * r.N + n] : 0.0f;
+      const float g2 = r.g2 != nullptr ? r.g2[(size_t)c * r.N + n] : 0.0f;
       if (ok[0]) atomicAdd(row + idx[0], w[0] * g);
       if (ok[1]) atomicAdd(row + idx[1], w[1] * g + g1);
       if (ok[2]) atomicAdd(row + idx[2], w[2] * g + g2);
@@ -83,8 +175,38 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   __syncthreads();
-  float* dxi = dX + (size_t)i * CH * K;
   for (int t = threadIdx.x; t < CH * K; t += THREADS) dxi[t] = acc[t];
+}
+
+template <int CH>
+__global__ void __launch_bounds__(THREADS)
+    resample_rows_adjoint_kernel(const float* __restrict__ dY,
+                                 const float* __restrict__ pos,
+                                 float* __restrict__ dX, int K, int N,
+                                 int order, int taps) {
+  extern __shared__ float smem[];  // [N] positions, then [CH, K] for a scatter
+  const int i = blockIdx.x;
+  const float* pi = pos + (size_t)i * N;
+  bool up = true, down = true;
+  for (int n = threadIdx.x; n + 1 < N; n += THREADS) {
+    const float p = pi[n], q = pi[n + 1];
+    up = up && p <= q;
+    down = down && p >= q;
+  }
+  const bool rising = __syncthreads_and(up);
+  const bool falling = __syncthreads_and(down) && !rising;
+  const size_t plane = (size_t)CH * N;
+  const float* dyi = dY + (size_t)i * (taps ? 3 : 1) * plane;
+  float* dxi = dX + (size_t)i * CH * K;
+  Row r{dyi, taps ? dyi + plane : nullptr, taps ? dyi + 2 * plane : nullptr, smem, N, order,
+        falling};
+  if (rising || falling) {
+    for (int j = threadIdx.x; j < N; j += THREADS) smem[j] = pi[falling ? N - 1 - j : j];
+    __syncthreads();
+    gather_row<CH>(r, dxi, K);
+  } else {
+    scatter_row<CH>(pi, r, smem + ((N + 3) & ~3), dxi, K);
+  }
 }
 
 }  // namespace
@@ -96,7 +218,8 @@ extern "C" int resample_rows_adjoint_launch(const float* dY, const float* pos,
                                             int N, int order, int taps,
                                             void* stream) {
   if (CH != 8) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)CH * K * sizeof(float);
+  if (NB <= 0 || K <= 0) return 0;
+  const size_t smem = ((size_t)((N + 3) & ~3) + (size_t)CH * K) * sizeof(float);
   auto kern = resample_rows_adjoint_kernel<8>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -5,22 +5,20 @@ file mapping image filename -> {intrinsic: {bounds, height, width, focal},
 extrinsic: {rotation 3x3, translation 3x1}}. The whole dataset is loaded into
 numpy arrays once; the trainer moves each stage's images to the card.
 
-Images are 8-bit PNGs read with data/png.py. A downscale repeats what the JAX
-package gets from PIL's ``resize(BILINEAR)``: an RGBA (or grey + alpha) image
-is premultiplied in 8 bits, resized with the antialiased triangle filter in a
-horizontal then a vertical pass, each rounded to 8 bits, and un-premultiplied
-in 8 bits (truncating, as PIL). The passes run in float64 here and in PIL's
-fixed point there, so a pixel may differ by one 8-bit step.
+Images are 8-bit PNGs read with data/png.py. A downscale repeats, byte for
+byte, what the JAX package gets from PIL's ``resize(BILINEAR)``: an RGBA (or
+grey + alpha) image is premultiplied in 8 bits, resized with the antialiased
+triangle filter in PIL's fixed point (a horizontal then a vertical pass, each
+clipped to 8 bits), and un-premultiplied in 8 bits (truncating, as PIL).
 """
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 from thr3ed_atom_tpu_torch.data.png import read_png
 from thr3ed_atom_tpu_torch.utils.camera import (
@@ -42,29 +40,73 @@ from thr3ed_atom_tpu_torch.utils.constants import (
 from thr3ed_atom_tpu_torch.utils.logging import log
 
 
-def _round8(x: torch.Tensor) -> torch.Tensor:
-    return torch.floor(x + 0.5).clamp_(0.0, 255.0)
+PRECISION_BITS = 32 - 8 - 2  # PIL's fixed point for 8-bit resampling
+
+
+def _bilinear_coeffs(in_size: int, out_size: int):
+    """PIL's precompute_coeffs and normalize_coeffs_8bpc (Resample.c) for the
+    bilinear filter over the whole axis: (first source index [out], window
+    size [out], fixed-point coefficients [out, ksize] int64). The triangle's
+    support is widened by the downscale factor; each output's window is cut
+    to [0, in_size), its weights are normalized in double and rounded half
+    away from zero to PRECISION_BITS fraction bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    # C's (int) cast truncates towards zero, as astype does
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)
+    t = np.abs((x[None] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale))
+    w = np.where((x[None] < xmax[:, None]) & (t < 1.0), 1.0 - t, 0.0)
+    ww = np.zeros(out_size)
+    for j in range(ksize):  # PIL's sum, in window order
+        ww = ww + w[:, j]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    one = float(1 << PRECISION_BITS)
+    kk = np.where(w < 0, np.trunc(-0.5 + w * one), np.trunc(0.5 + w * one))
+    return xmin, xmax, kk.astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, axis: int, xmin: np.ndarray, kk: np.ndarray) -> np.ndarray:
+    """One pass of PIL's ImagingResample{Horizontal,Vertical}_8bpc along
+    ``axis`` of an int64 image: the accumulator starts at half a unit, adds
+    every source byte times its coefficient, and is clipped to 8 bits
+    (clip8). Integer sums are exact, so their order does not matter."""
+    src = np.moveaxis(img, axis, 0)
+    acc = np.full((len(xmin),) + src.shape[1:], 1 << (PRECISION_BITS - 1), dtype=np.int64)
+    extra = (1,) * (src.ndim - 1)
+    for j in range(kk.shape[1]):  # coefficients past a window's end are 0
+        idx = np.minimum(xmin + j, src.shape[0] - 1)
+        acc += src[idx] * kk[:, j].reshape((-1,) + extra)
+    return np.moveaxis(np.clip(acc >> PRECISION_BITS, 0, 255), 0, axis)
 
 
 def resize_bilinear_uint8(image: np.ndarray, width: int, height: int) -> np.ndarray:
     """uint8 [H, W, C] resized to [height, width, C] as PIL's
-    ``resize(BILINEAR)``: the triangle filter widened by the downscale factor
-    (antialiased), the width pass first, each pass rounded to 8 bits. An
-    alpha channel (C = 2 or 4) is premultiplied before and removed after."""
+    ``resize(BILINEAR)`` (ImagingResampleInner): the horizontal pass over
+    only the source rows the vertical pass reads, then the vertical pass, in
+    PIL's fixed point. An alpha channel (C = 2 or 4) is premultiplied before
+    and removed after, as ``Image.resize`` does for RGBA and LA."""
     img = image.astype(np.int64)
     alpha = img.shape[-1] in (2, 4)
     if alpha:  # PIL's MULDIV255: round(colour * alpha / 255)
         t = img[..., :-1] * img[..., -1:] + 128
         img = np.concatenate([((t >> 8) + t) >> 8, img[..., -1:]], axis=-1)
-    x = torch.from_numpy(img).to(torch.float64).permute(2, 0, 1)[None]
-    h, w = x.shape[2:]
+    h, w = img.shape[:2]
+    ymin, ysize, kk_v = _bilinear_coeffs(h, height)
     if w != width:
-        x = _round8(F.interpolate(x, size=(h, width), mode="bilinear",
-                                  align_corners=False, antialias=True))
+        # only the rows the vertical pass reads: the first window's start to
+        # the last window's end
+        first, last = int(ymin[0]), int(ymin[-1] + ysize[-1])
+        xmin, _, kk_h = _bilinear_coeffs(w, width)
+        img = _resample_axis(img[first:last], 1, xmin, kk_h)
+        ymin = ymin - first
     if h != height:
-        x = _round8(F.interpolate(x, size=(height, width), mode="bilinear",
-                                  align_corners=False, antialias=True))
-    out = x[0].permute(1, 2, 0).numpy().astype(np.int64)
+        img = _resample_axis(img, 0, ymin, kk_v)
+    out = img
     if alpha:  # PIL's unpremultiply: truncated, kept where alpha is 0 or 255
         rgb, a = out[..., :-1], out[..., -1:]
         un = np.clip(255 * rgb // np.maximum(a, 1), 0, 255)

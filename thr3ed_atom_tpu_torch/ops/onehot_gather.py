@@ -107,9 +107,11 @@ onehot_gather_forward.launches = 0
 
 def onehot_scatter_add(indices, weights, g, B: int) -> torch.Tensor:
     """K14: d_table [B, C] f32 = W^T @ g for indices / weights [N, K] and
-    g [N, C]. On a CUDA tensor one launch of csrc/onehot_gather.cu (f32
-    atomics, through a shared-memory copy of d_table when it fits; they add
-    in no fixed order); on a CPU tensor the plain version."""
+    g [N, C]. On a CUDA tensor one launch of csrc/onehot_gather.cu (a warp
+    per sample row merges its indices once, its lanes add over channels into
+    a shared-memory channel slice of d_table, flushed with f32 atomics; past
+    B = 1600 straight into d_table; they add in no fixed order); on a CPU
+    tensor the plain version."""
     if g.device.type == "cpu":
         return onehot_scatter_add_plain(indices, weights, g, B)
     _check("onehot_scatter_add", indices, weights, B)

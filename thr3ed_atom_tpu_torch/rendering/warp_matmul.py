@@ -86,12 +86,13 @@ def resample_rows_adjoint_plain(dY: torch.Tensor, pos: torch.Tensor, order: int,
     K(k - pos[i, n]) dY[i, :, n]`` over the same four taps (zero outside
     [0, K)), plus with ``taps`` the planes dY[:, 1] and dY[:, 2] added at
     floor(pos) and floor(pos) + 1. dY [NB, CH, N] (``taps``: [NB, 3, CH, N])
-    f32, pos [NB, 1, N] f32 -> dX [NB, CH, K]."""
+    f32, pos [NB, 1, N] f32 -> dX [NB, CH, K] in dY's dtype (a float64 dY
+    gives the sums in float64, with the f32 weights)."""
     g0 = dY[:, 0] if taps else dY
     NB, CH, N = g0.shape
     p = pos[:, 0, :]  # [NB, N]
     k0 = torch.floor(p)
-    dX = torch.zeros((NB, CH, K), dtype=F32, device=dY.device)
+    dX = torch.zeros((NB, CH, K), dtype=dY.dtype, device=dY.device)
 
     def scatter(k, val):
         ok = ((k >= 0) & (k <= K - 1))[:, None, :]
@@ -158,8 +159,9 @@ def _resample_rows_forward(X: torch.Tensor, pos: torch.Tensor, order: int,
 def resample_rows_adjoint(dY: torch.Tensor, pos: torch.Tensor, order: int,
                           K: int, taps: bool = False) -> torch.Tensor:
     """The adjoint resample (see ``resample_rows_adjoint_plain``): one launch
-    of csrc/resample_rows_adjoint.cu on a CUDA tensor, the plain version on a
-    CPU one."""
+    of csrc/resample_rows_adjoint.cu on a CUDA tensor (a monotone row is
+    gathered per texel, any other row scattered with shared-memory atomics),
+    the plain version on a CPU one."""
     if dY.device.type == "cpu":
         return resample_rows_adjoint_plain(dY, pos, order, K, taps)
     _check_rows("resample_rows_adjoint", dY, pos, order)
