@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from thr3ed_atom_tpu_torch/csrc with nvcc (one
 nvcc per source, all at once) and holds each against its plain PyTorch
 version on the card at the main paths' shapes:
-  1-4. the build, relu_trap (K1a), the warp resample (K2) and the fused
-       composite (K1; also on an opaque copy of the scene, where its early
-       exit must end tiles);
+  1-4. the build, relu_trap (K1a), the warp resample (K2; its bilinear pass
+       and F.grid_sample as median and range of K2_READINGS device-clock
+       readings each) and the fused composite (K1; also on an opaque copy
+       of the scene, where its early exit must end tiles; with the count of
+       tiles that gathered a footprint directly);
   5.   the serving path through the entry points a user calls: a 128^3
        SH-degree-2 model (random blob scene from a seed, bench.py's
        configuration) saved with save_model, loaded with
@@ -19,7 +21,9 @@ version on the card at the main paths' shapes:
        scatter); K2 and K4 and their library calls are also timed as
        the host queues them, beside each wrapper's launch path;
   7.   K1's training branch (materialized SH basis and norm) and the replay
-       backward (K3) on one pose with a seeded state cotangent;
+       backward (K3) on one pose with a seeded state cotangent; K3's march
+       and u-fold timed apart on the device clock (torch.profiler), and the
+       bytes of its v-fold output beside a per-texel cotangent buffer's;
   8.   the training path, bench_train.py's configuration: 10
        gnomonic_train_step_multi steps of 4 views (400 x 400, P = 2, diffuse
        regularization, Adam lr 0.03, phase jitter) on a 128^3 grid started at
@@ -98,6 +102,7 @@ ONEHOT_LARGE_B = 4096  # phase 20: K14 past shared memory (its global-atomic bra
 # 50-60 ms at the H100's 1.6-2.0 GHz: longer than the host takes to queue 50
 # calls of a kernel's wrapper (tens of microseconds each)
 QUEUE_CYCLES = 100_000_000
+K2_READINGS = 7  # phase 3: device-clock readings of K2's bilinear pass and F.grid_sample
 
 
 def load_port():
@@ -249,6 +254,27 @@ def device_profile(torch, fn, n, unit, top_n=6):
                + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.4f} ms/{unit}"
                            for e in top))
     return wall, device_ms, summary
+
+
+def kernel_times(torch, fn, n, names):
+    """Device ms per call of the kernels whose names hold each of ``names``,
+    over ``n`` calls of ``fn`` under torch.profiler (after one warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if name in e.key:
+                    out[name] += e.self_device_time_total / 1e3 / n
+    return out
 
 
 def bound(nbytes, ops):
@@ -1156,12 +1182,18 @@ def run(torch, workdir: Path) -> int:
     lib = torch.nn.functional.grid_sample(X4, gxy[:, None], mode="bilinear",
                                           padding_mode="zeros", align_corners=True)
     k1o = wm.resample_rows(X, p1, 1)
-    bil_ms = time_ms(torch, lambda: wm.resample_rows(X, p1, 1), 50)
-    lib_ms = time_ms(torch, lambda: torch.nn.functional.grid_sample(
-        X4, gxy[:, None], mode="bilinear", padding_mode="zeros", align_corners=True), 50)
-    print(f"# K2 order 1 without taps: kernel ms={bil_ms:.4f}, F.grid_sample ms={lib_ms:.4f} "
-          f"(max-abs {max_abs(k1o, lib[:, :, 0]):.3g}: grid_sample renormalizes positions)",
-          flush=True)
+    # K2_READINGS device-clock readings of each, in turns (kernel, library)
+    bil_runs, lib_runs = [], []
+    for _ in range(K2_READINGS):
+        bil_runs.append(time_ms(torch, lambda: wm.resample_rows(X, p1, 1), 50))
+        lib_runs.append(time_ms(torch, lambda: torch.nn.functional.grid_sample(
+            X4, gxy[:, None], mode="bilinear", padding_mode="zeros", align_corners=True), 50))
+    bil_ms, lib_ms = float(np.median(bil_runs)), float(np.median(lib_runs))
+    print(f"# K2 order 1 without taps, {K2_READINGS} device-clock readings each: kernel "
+          f"median {bil_ms:.4f} ms (range {min(bil_runs):.4f}-{max(bil_runs):.4f}), "
+          f"F.grid_sample median {lib_ms:.4f} ms (range {min(lib_runs):.4f}-"
+          f"{max(lib_runs):.4f}) (max-abs {max_abs(k1o, lib[:, :, 0]):.3g}: grid_sample "
+          f"renormalizes positions)", flush=True)
     # the same calls queued as they come from the host (the serving path's
     # pace), the wrapper's launch path beside them
     k2_paced = dict(
@@ -1192,7 +1224,8 @@ def run(torch, workdir: Path) -> int:
 
     def k1_compare(slices, geo, occ, eps, label):
         args = (slices, None, None, geo.geom, st._replace(exit_eps=eps), Pn, Qn, PB, Pb, occ)
-        got = gn.composite_positions_fused(*args, xr=geo.xr, yr=geo.yr)
+        direct = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = gn.composite_positions_fused(*args, xr=geo.xr, yr=geo.yr, direct_tiles=direct)
         torch.cuda.synchronize()
         want, work = gn.composite_positions_fused_plain(
             *args, xr=geo.xr, yr=geo.yr, exit_tile=gn.CUDA_EXIT_TILE, return_work=True)
@@ -1201,7 +1234,8 @@ def run(torch, workdir: Path) -> int:
         check(max(gap[:5]) <= 1e-4 and gap[5] <= 1e-3,
               f"composite vs plain ({label}, exit_eps={eps}): per-row max-abs {gap}")
         print(f"# K1 composite {label} exit_eps={eps}: max-abs per row (T,rgb,acc,depth) "
-              f"{gap}; marched (position, texel) pairs {int(work.sum())} of {NP * Pn * Qn}",
+              f"{gap}; marched (position, texel) pairs {int(work.sum())} of {NP * Pn * Qn}; "
+              f"direct-gather tiles {int(direct.item())} of {(Pn // 8) * (Qn // 32)}",
               flush=True)
         return max(gap), work
 
@@ -1352,6 +1386,8 @@ def run(torch, workdir: Path) -> int:
                    plain_f32_max_abs_vs_float64=plain32_err, host_paced=k4_paced),
     )
     results["resample_rows"]["extra"] = dict(order1_ms=bil_ms, order1_library_ms=lib_ms,
+                                             order1_readings_ms=bil_runs,
+                                             order1_library_readings_ms=lib_runs,
                                              host_paced=k2_paced)
     del dY3, dY1, got, want, plain32, p3s
 
@@ -1413,6 +1449,13 @@ def run(torch, workdir: Path) -> int:
     check(not bool(got3[:, :, used_t:].any()), "composite backward wrote pad channels")
     k3_ms = time_ms(torch, lambda: gt.composite_backward_fused(*args3), 10)
     k3_plain_ms = time_ms(torch, lambda: gt.composite_backward_fused_plain(*args3), 1)
+    k3_parts = kernel_times(torch, lambda: gt.composite_backward_fused(*args3), 10,
+                            ("backward_march_kernel", "ufold_kernel"))
+    # the march's v-fold output (bf16 dt1 rows, f32 edge records), beside the
+    # per-texel bf16 cotangent buffer (dvals) that the design before it wrote
+    # and read back
+    _, _, n_dt1, n_edge = gt.fold_records(occ_t[1], stt, Pb_t, gn._qb_blocks(stt, Qn_t)[1])
+    records_bytes = n_dt1 * 2 + n_edge * 4
     _, n_slots = gt.dvals_slots(occ_t[1])
     dvals_bytes = n_slots * used_t * Pb_t * 128 * 2
     dsl_bytes = got3.numel() * 2
@@ -1427,15 +1470,21 @@ def run(torch, workdir: Path) -> int:
     k3_ops = (n_work_t * (used_t * 8 + used_t * 4 + 3 * nc_t * 2 + 120 + used_t * 4)
               + live_rows * used_t * nv * 4)
     print(f"# K3 composite_backward_fused: max-abs {k3_err:.3g} of {k3_scale:.3g}, cosine "
-          f"{k3_cos:.9f}; ms={k3_ms:.4f} plain_ms={k3_plain_ms:.4f}; cotangent buffer "
-          f"{n_slots} slots = {dvals_bytes} bytes, dslices {dsl_bytes} bytes", flush=True)
+          f"{k3_cos:.9f}; ms={k3_ms:.4f} plain_ms={k3_plain_ms:.4f}; device clock "
+          f"(torch.profiler, 10 calls): march {k3_parts['backward_march_kernel']:.4f} ms, "
+          f"u-fold {k3_parts['ufold_kernel']:.4f} ms; v-fold output {records_bytes} bytes "
+          f"(dt1 rows {n_dt1 * 2}, edge records {n_edge * 4}; a per-texel cotangent "
+          f"buffer: {n_slots} slots = {dvals_bytes} bytes), "
+          f"dslices {dsl_bytes} bytes", flush=True)
     results["composite_fused"]["extra"] = dict(
         training_branch_ms=k1op_ms, training_branch_plain_ms=k1op_plain_ms,
         training_branch_bound_ms=bound(k1op_bytes, k1op_ops)[0],
         training_branch_max_abs_err=max(gap))
     results["composite_backward_fused"] = dict(
         err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound(k3_bytes, k3_ops),
-        extra=dict(cosine_vs_plain=k3_cos, dvals_bytes=dvals_bytes, dslices_bytes=dsl_bytes))
+        extra=dict(cosine_vs_plain=k3_cos, march_ms=k3_parts["backward_march_kernel"],
+                   ufold_ms=k3_parts["ufold_kernel"], records_bytes=records_bytes,
+                   dvals_bytes=dvals_bytes, dslices_bytes=dsl_bytes))
     del args3, args7, got3, want3, state_k, state_p, work_t, gstate, gaux, slices_t, geo_t, occ_t
 
     # ---- phase 8: training end to end. Targets: 8 views of one march
@@ -1503,8 +1552,12 @@ def run(torch, workdir: Path) -> int:
         occ8 = gn.gnomonic_occupancy_lite(sl8, geo8.geom, st8, *tstat8.frame,
                                           *gn._qb_blocks(st8, tstat8.frame[1]))
         _, slots8 = gt.dvals_slots(occ8[1])
-    print(f"# training grid: cotangent buffer {slots8} of {occ8[1].numel()} slots = "
-          f"{slots8 * (3 * st8.ncoeff + 1) * tstat8.frame[3] * 128 * 2} bytes", flush=True)
+        _, _, dt1_8, edge8 = gt.fold_records(occ8[1], st8, tstat8.frame[3],
+                                             gn._qb_blocks(st8, tstat8.frame[1])[1])
+    print(f"# training grid: {slots8} of {occ8[1].numel()} (u-block, q-block, position) "
+          f"slots needed; K3's v-fold output {dt1_8 * 2 + edge8 * 4} bytes (dt1 rows "
+          f"{dt1_8 * 2}, edge records {edge8 * 4}; a per-texel cotangent buffer: "
+          f"{slots8 * (3 * st8.ncoeff + 1) * tstat8.frame[3] * 128 * 2} bytes)", flush=True)
     del sl8, geo8, occ8
     train_counters = {"composite_fused": gn.composite_positions_fused,
                       "composite_backward_fused": gt.composite_backward_fused,

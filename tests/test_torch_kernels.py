@@ -398,6 +398,174 @@ def test_composite_backward_kernel_matches_plain(cuda, P, diffuse, ncoeff, relu)
     assert not got[:, :, 3 * st.ncoeff + 1:].any()
 
 
+def _deep_grid(axis, device, n_axis=256, n_other=16, seed=4, ncoeff=16):
+    """A grid of n_axis vertices along the march axis and n_other across it
+    (the ball of ``_grid`` in the [-1, 1]^3 box, SH degree 3): a march of
+    (n_axis - 1) P + 1 positions over a small vertex stack."""
+    rng = np.random.default_rng(seed)
+    dims = [n_other] * 3
+    dims[axis] = n_axis
+    densities = rng.uniform(-2.0, 4.0, tuple(dims) + (1,)).astype(np.float32)
+    axes = [np.linspace(-1.0, 1.0, n, dtype=np.float32) for n in dims]
+    coords = np.stack(np.meshgrid(*axes, indexing="ij"), -1)
+    inside = np.linalg.norm(coords, axis=-1, keepdims=True) < 0.5
+    densities = np.where(inside, densities, -1.0).astype(np.float32)
+    features = (rng.normal(size=tuple(dims) + (3 * ncoeff,)) * 0.4).astype(np.float32)
+    config = dict(voxel_size=tuple(2.0 / n for n in dims), grid_location=(0.0, 0.0, 0.0),
+                  density_preactivation="identity", density_postactivation="relu",
+                  feature_preactivation="identity", feature_postactivation="identity",
+                  expected_density_scale=1.0, radiance_transfer_function=None)
+    return voxel_grid_from_numpy(densities, features, config, device=device)
+
+
+# (view, P) of the staged-footprint cases
+FOOTPRINT_CASES = [("edge", 1), ("edge", 2), ("flipped", 1), ("flipped", 2), ("far", 1),
+                   ("far", 2), ("deep", 8)]
+
+
+def _footprint_case(device, view, P):
+    """A pose's operands for the staged footprints of K1 and K3: "edge" (the
+    grid's edge inside the frame: tent taps outside the grid), "flipped" (the
+    frame mirrored in u and v, so U and V fall along p and q: ku, kv < 0),
+    "far" (a 64^3 grid zoomed out until some tiles' footprints exceed the
+    stage and take the direct gather, others not) and "deep" (256 vertices
+    along the march axis at P = 8 and SH degree 3 on a 64 x 64 image: over
+    2000 positions, whose per-position tables leave the stage less than its
+    preferred size). Diffuse on, early exit at 1e-4, training operands."""
+    focal = {"far": 60.0, "deep": 70.0}.get(view, FOCAL)
+    height = width = 64 if view == "deep" else H
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    if view == "deep":
+        tgrid = _deep_grid(axis, device)
+    else:
+        tgrid = _grid(64 if view == "far" else 32, device=device)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=True, pos_per_cell=P,
+                             exit_eps=1e-4, qb=128)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, height, width, focal, SS, st)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    slices = gn.repack_position_slices(tgrid, st)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
+                               torch.from_numpy(org).to(device), st, height, width,
+                               torch.tensor(focal, device=device), SS,
+                               phase=(0.25, -0.125), skip_basis=False)
+    geom = geo.geom
+    if view == "flipped":
+        geom = geom.clone()
+        geom[:, 2] = geom[:, 2] + geom[:, 3] * float(Pn - 1)
+        geom[:, 4] = geom[:, 4] + geom[:, 5] * float(Qn - 1)
+        geom[:, 3] = -geom[:, 3]
+        geom[:, 5] = -geom[:, 5]
+    occ = gn.gnomonic_occupancy_lite(slices, geom, st, Pn, Qn, PB, Pb, QB, Qb)
+    return (slices, geo.ybasis, geo.norm, geom, st, Pn, Qn, PB, Pb, occ), geo
+
+
+def test_fold_records_tile_their_slots():
+    """On the CPU: K3's v-fold output is sized by the flags: one dense dt1
+    slot [Pb, 3 ncoeff + 1, nv] per (u-block, position) with a needed
+    q-block, one edge slot [(Pb / 8) (Qb / 32), 3 ncoeff + 1, 8, 4] per
+    needed (u-block, q-block, position); the slots follow each other in flag
+    order, without gaps or overlaps."""
+    slices, _, _, _, st, Pn, Qn, PB, Pb, occ = _train_case("cpu", 2, True)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    pos_needed = occ[1].clone()
+    pos_needed[0, 0, ::3] = 0  # some dead blocks
+    d_off, s_off, n_dt1, n_edge = gt.fold_records(pos_needed, st, Pb, Qb)
+    used, nv = 3 * st.ncoeff + 1, slices.shape[3]
+    any_u = (pos_needed > 0).any(dim=1)
+    for off, flags, size, total in ((d_off, any_u, Pb * used * nv, n_dt1),
+                                    (s_off, pos_needed > 0,
+                                     (Pb // 8) * (Qb // 32) * used * 8 * 4, n_edge)):
+        assert off.shape == flags.shape and off.dtype == torch.int64
+        live = off[flags].tolist()
+        assert bool((off[~flags] == -1).all()) and live == sorted(live)
+        assert live == [i * size for i in range(len(live))] and total == len(live) * size
+
+
+@pytest.mark.parametrize("view,P", FOOTPRINT_CASES)
+def test_footprint_cases_hold_their_geometry(view, P):
+    """On the CPU: each view of the staged-footprint GPU cases has what it is
+    there for: needed positions whose u-tents reach past the grid's edge
+    (all but deep), ku, kv < 0 (flipped), tiles spanning more v lines than
+    either stage holds (far: 31 |kv| + 2 > 64), over 2000 positions (deep;
+    K1's tables and stage of the parent design fit about 1300 at SH degree
+    2, K3's march about 1900 at degree 3). Every tile of the other views
+    fits the smallest stage (at most 48 v lines and 1536 records of two
+    slices x u lines x v lines x channel groups), so none takes the direct
+    gather there."""
+    (slices, _, _, geom, st, Pn, _, _, _, occ), _ = _footprint_case("cpu", view, P)
+    nu = slices.shape[1]
+    needed = occ[2].sum(0) > 0
+    U = geom[needed, 2:3] + geom[needed, 3:4] * torch.arange(Pn, dtype=torch.float32)
+    assert bool(needed.any())
+    if view != "deep":
+        assert bool((((U > -1.0) & (U < 0.0)) | ((U > nu - 1.0) & (U < nu))).any())
+    if view == "flipped":
+        assert bool((geom[:, 3] < 0).all() and (geom[:, 5] < 0).all())
+    ku, kv = float(geom[needed, 3].abs().max()), float(geom[needed, 5].abs().max())
+    nu_c, nv_c = int(7 * ku) + 3, int(31 * kv) + 3  # tap lines of a tile, at most
+    if view == "far":
+        assert 31 * kv + 2 > 64.0
+    else:
+        groups = -(-(3 * st.ncoeff + 1) // 8)
+        assert nv_c <= 48 and 2 * nu_c * nv_c * groups <= 1536, (nu_c, nv_c)
+    if view == "deep":
+        assert geom.shape[0] > 2000 and st.ncoeff == 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view,P", FOOTPRINT_CASES)
+def test_fused_kernels_on_staged_footprints(cuda, view, P):
+    """K1 (serving and training branches) and K3 on the views of
+    ``_footprint_case``, at the existing tolerances: K1 colour/acc/diffuse
+    1e-4, depth 1e-3 at the CUDA exit grain; K3 max-abs <= 1e-2 of the
+    largest element, cosine > 0.99999, pad channels zero. Each launch counts
+    its direct-gather tiles on its own: in the far view every launch must
+    send tiles down the direct gather; in the others (whose footprints fit
+    the stage, test_footprint_cases_hold_their_geometry) none may, so every
+    tile ran the staged path (the cp.async ring, the shared lerp and
+    u-resample), on a stage cut to fit the deep view's tables there."""
+    args, geo = _footprint_case(cuda, view, P)
+    slices, yb, nm, geom, st, Pn, Qn, PB, Pb, occ = args
+    direct = {k: torch.zeros(1, dtype=torch.int32, device=cuda)
+              for k in ("K1 serving", "K1 training", "K3")}
+    serving = (slices, None, None) + args[3:]
+    got = gn.composite_positions_fused(*serving, xr=geo.xr, yr=geo.yr,
+                                       direct_tiles=direct["K1 serving"])
+    torch.cuda.synchronize()
+    want = gn.composite_positions_fused_plain(*serving, xr=geo.xr, yr=geo.yr,
+                                              exit_tile=gn.CUDA_EXIT_TILE)
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max() < 1e-4, gap
+    train = args[:4] + (st._replace(exit_eps=0.0),) + args[5:]
+    got = gn.composite_positions_fused(*train, direct_tiles=direct["K1 training"])
+    torch.cuda.synchronize()
+    state = gn.composite_positions_fused_plain(*train)
+    gap = (got - state).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max() < 1e-4, gap
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    S_total = (gstate[1:] * state[1:]).sum(0)
+    gaux = torch.cat([gstate, S_total[None], state[0:1]])
+    bwd = (slices, yb, nm, geom, gaux, occ, train[4], Pn, Qn, PB, Pb)
+    got = gt.composite_backward_fused(*bwd, direct_tiles=direct["K3"])
+    torch.cuda.synchronize()
+    want = gt.composite_backward_fused_plain(*bwd)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, :, 3 * st.ncoeff + 1:].any()
+    counts = {k: int(v.item()) for k, v in direct.items()}
+    if view == "far":
+        assert min(counts.values()) > 0, counts
+    else:
+        assert max(counts.values()) == 0, counts
+
+
 @pytest.mark.gpu
 def test_train_step_kernels_match_plain(cuda):
     """One gnomonic_train_step_multi (k = 2) through the kernels against the

@@ -29,21 +29,25 @@
 // the difference is bounded by exit_eps per texel).
 //
 // Bound on the H100: by its inputs it is memory-bound (the vertex stack,
-// 134 MB at 128^3 with 32 bf16 channels, read once, is ~40 us at 3.35 TB/s),
-// but this simple version re-gathers every texel's 2 x 2 (x 2 vertices) taps
-// of 16-byte channel records from L1/L2, so the gathers and their latency
-// set its time. Design: channel-last vertex records ([nvert, nu, nv, C], one
-// uint4 per 8 channels) so a tap is a few 16-byte loads and neighbouring
-// texels along q read neighbouring records; occupancy flags and the per-
-// position geometry sit in shared memory; a texel tile of TP x TQ threads
-// lies inside one flag block, so every branch on flags is uniform. Sharing the
-// u-resample of a tile through shared memory is left to a later version.
-// The per-position gather, tents and SH fold, and the march itself, live in
-// gnomonic_march.cuh, shared with the replay backward. Built with -fmad=false: each f32
-// operation rounds as in the plain PyTorch version.
+// 134 MB at 128^3 with 32 bf16 channels, read once, is ~40 us at 3.35 TB/s).
+// A texel gathering its own 2 x 2 (x 2 vertices) taps reloads each record
+// ~16-64 times per tile and repeats each u-resample ~8 times, with the loads
+// of one position dependent on each other. So a TP x TQ tile stages each
+// needed position's footprint once (gnomonic_stage.cuh): cp.async copies into
+// a two-stage ring, one position ahead of the composite; the lerp and the
+// u-resample once per record and per (row, v line, channel) in shared memory;
+// each texel then reads two t1 taps per channel. A footprint over the stage
+// budget takes the direct gather inside the same march (counted in
+// direct_tiles when that pointer is given); the stage takes what the
+// position tables leave of the SM's shared memory (Stage::fit), so a long
+// march keeps running with a smaller stage, or none. Occupancy flags and the per-
+// position geometry sit in shared memory; a tile lies inside one flag block,
+// so every branch on flags is uniform and every barrier is reached by all
+// threads. Built with -fmad=false: each f32 operation rounds as in the plain
+// PyTorch version.
 #include <cuda_runtime.h>
 
-#include "gnomonic_march.cuh"
+#include "gnomonic_stage.cuh"
 
 namespace {
 
@@ -58,45 +62,56 @@ struct Params {
   const float* ybasis;    // [ncoeff, Pn, Qn] (OPERANDS)
   const float* norm;      // [Pn, Qn] (OPERANDS)
   float* out;             // [SROWS, Pn, Qn]
+  int* direct_tiles;      // tiles that took the direct gather (or NULL)
   int NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB;
   int u_ax, v_ax, axis;
+  StageSize stage;  // set at launch (Stage::fit)
   float g, exit_eps;
 };
 
 template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
-  extern __shared__ float smem[];
-  const int q = blockIdx.x * TQ + threadIdx.x;
-  const int p = blockIdx.y * TP + threadIdx.y;
-  const int pb = (blockIdx.y * TP) / prm.Pb;
-  const int qb = (blockIdx.x * TQ) / prm.Qb;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int p0 = blockIdx.y * TP, q0 = blockIdx.x * TQ;
+  const int p = p0 + threadIdx.y, q = q0 + threadIdx.x;
+  const int pb = p0 / prm.Pb;
+  const int qb = q0 / prm.Qb;
   const int tid = threadIdx.y * TQ + threadIdx.x;
   const size_t flag_base = ((size_t)pb * prm.QB + qb) * prm.NP;
-  const MarchTables tb = load_tables(smem, prm.geom, prm.cell_live, prm.pos_needed,
-                                     nullptr, flag_base, prm.NP, tid, TP * TQ);
+  // the serving branch's frames exit early and leave a few tiles marching
+  // long chains of positions: a large stage holds more of them at one block
+  // an SM; the training branch marches every tile of the view: a small
+  // stage, two blocks an SM
+  using S = Stage<NCOEFF, !OPERANDS>;
+  const S sm(smem, prm.stage);
+  const MarchTables tb = load_tables(smem + S::bytes(prm.stage), prm.geom, prm.cell_live,
+                                     prm.pos_needed, nullptr, flag_base, prm.NP, tid,
+                                     TP * TQ);
 
-  const float pf = (float)p, qf = (float)q;
+  const TexelAt x{p0, q0, (int)threadIdx.y, (int)threadIdx.x, tid, (float)p, (float)q};
   const size_t plane = (size_t)prm.Pn * prm.Qn;
   const size_t pix = (size_t)p * prm.Qn + q;
   // texel direction -> norm and SH basis (reference: built at j == 0)
   float yb[NCOEFF];
   const float nm = texel_basis<NCOEFF, OPERANDS>(
-      prm.ybasis, prm.norm, prm.fs, pix, plane, pf, qf, prm.u_ax, prm.v_ax,
+      prm.ybasis, prm.norm, prm.fs, pix, plane, x.pf, x.qf, prm.u_ax, prm.v_ax,
       prm.g, yb);
-  const VertexSource<NCOEFF> src{
-      VertexStack{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P}, pf, qf, yb};
-  march_forward<DIFFUSE, RELU>(src, tb, prm.NP, prm.exit_eps, nm, prm.out + pix, plane);
+  const VertexStack vs{prm.vert, prm.nvert, prm.nu, prm.nv, prm.C, prm.P};
+  const bool direct = march_forward_staged<NCOEFF, DIFFUSE, RELU>(
+      vs, sm, tb, prm.NP, prm.exit_eps, nm, yb, x, prm.out + pix, plane);
+  if (direct && tid == 0 && prm.direct_tiles != nullptr) atomicAdd(prm.direct_tiles, 1);
 }
 
 template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
-int launch(const Params& prm, cudaStream_t stream) {
-  const size_t smem = march_tables_bytes(prm.NP, false);
+int launch(Params prm, cudaStream_t stream) {
+  using S = Stage<NCOEFF, !OPERANDS>;
+  const size_t tables = march_tables_bytes(prm.NP, false);
+  prm.stage = S::fit((long long)smem_optin() - (long long)tables);
+  const size_t smem = S::bytes(prm.stage) + tables;
   auto kern = composite_fused_kernel<NCOEFF, DIFFUSE, RELU, OPERANDS>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static size_t smem_allowed[16] = {};
+  const cudaError_t e = allow_smem(kern, smem, smem_allowed);
+  if (e != cudaSuccess) return (int)e;
   const dim3 block(TQ, TP);
   const dim3 grid(prm.Qn / TQ, prm.Pn / TP);
   kern<<<grid, block, smem, stream>>>(prm);
@@ -127,18 +142,19 @@ int dispatch_ncoeff(const Params& prm, int ncoeff, int with_diffuse, int relu,
 }  // namespace
 
 // fs (4 frame scalars) drives the serving branch; with fs == NULL the basis
-// and norm come from ybasis / norm (the training branch).
+// and norm come from ybasis / norm (the training branch). direct_tiles, when
+// not NULL, gains one for every tile that gathered a position directly.
 extern "C" int composite_fused_launch(
     const void* vert, const float* geom, const int* cell_live,
     const int* pos_needed, const float* fs, const float* ybasis,
-    const float* norm, float* out, int ncoeff, int with_diffuse, int relu,
+    const float* norm, float* out, int* direct_tiles, int ncoeff, int with_diffuse, int relu,
     int NP, int P, int nvert, int nu, int nv, int C, int Pn, int Qn, int Pb,
     int Qb, int PB, int QB, int u_ax, int v_ax, int axis, float g,
     float exit_eps, void* stream) {
   (void)PB;
   Params prm{reinterpret_cast<const uint4*>(vert), geom, cell_live, pos_needed,
-             fs, ybasis, norm, out, NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb,
-             QB, u_ax, v_ax, axis, g, exit_eps};
+             fs, ybasis, norm, out, direct_tiles, NP, P, nvert, nu, nv, C, Pn, Qn, Pb, Qb,
+             QB, u_ax, v_ax, axis, StageSize{0, 0}, g, exit_eps};
   cudaStream_t s = (cudaStream_t)stream;
   if (fs != nullptr) return dispatch_ncoeff<false>(prm, ncoeff, with_diffuse, relu, s);
   if (ybasis == nullptr || norm == nullptr) return (int)cudaErrorInvalidValue;

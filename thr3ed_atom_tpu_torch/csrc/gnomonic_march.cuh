@@ -2,12 +2,13 @@
 // and their replay backwards: the fused pair (composite_fused.cu, K1;
 // composite_backward_fused.cu, K3) and the stripe pair (composite_stripe.cu,
 // K5; composite_stripe_backward.cu, K7). A backward replays its forward bit for
-// bit, so both march with the same templates here, over a "source" that builds
-// a position's values at the thread's texel: VertexSource (below) lerps the
-// two vertex slices, applies the two bf16 tents, the bf16 u-resample, the f32
-// v-resample and the SH fold, each rounded where the reference rounds;
-// StripeSource (gnomonic_stripe.cuh) reads the u-resampled stack t1 and the
-// v-tents. Built with -fmad=false by every library that includes it.
+// bit. The cell arithmetic (composite_cell, backward_cell, flush_channel) is
+// shared by all four; position_values gathers a position's values at a texel
+// from the vertex stack (the fused pair's direct gather; their staged source
+// in gnomonic_stage.cuh rounds the same way), and the stripe pair marches
+// with march_forward / march_backward over StripeSource (gnomonic_stripe.cuh),
+// which reads the u-resampled stack t1 and the v-tents. Built with
+// -fmad=false by every library that includes it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -215,19 +216,6 @@ __device__ __forceinline__ void position_values(const VertexStack& s,
   }
 }
 
-// The vertex-stack source of composite_fused.cu / composite_backward_fused.cu.
-template <int NCOEFF>
-struct VertexSource {
-  VertexStack vs;
-  float pf, qf;
-  const float* yb;
-  __device__ __forceinline__ void values(int j, const float* G, float& sig,
-                                         float* rgb, float* dif,
-                                         float& live) const {
-    position_values<NCOEFF>(vs, G, j, pf, qf, yb, sig, rgb, dif, live);
-  }
-};
-
 // The march's per-block tables in shared memory: geometry rows [NP,
 // GEOM_COLS] and the tile's occupancy flags [NP] (and dvals slots [NP] for a
 // backward), loaded once by every thread of the block.
@@ -262,6 +250,62 @@ __host__ __device__ inline size_t march_tables_bytes(int NP, bool with_slot) {
   return (size_t)NP * (GEOM_COLS * sizeof(float) + (with_slot ? 3 : 2) * sizeof(int));
 }
 
+// A position's values at one texel: sigma, liveness, the SH-folded colour
+// and the band-0 (diffuse) colour.
+struct PosValues {
+  float sig, live, rgb[3], dif[3];
+};
+
+// The forward composite state of one texel.
+struct CompositeState {
+  float T, acc, dep, col[3], dif[3];
+};
+
+// The relu-trapezoid composite of cell (a, b), b being position G's values:
+// accumulates into st (the march's arithmetic, each f32 operation in order).
+template <bool DIFFUSE, bool RELU>
+__device__ __forceinline__ void composite_cell(const float* G, float nm, const PosValues& a,
+                                               const PosValues& b, CompositeState& st) {
+  const float s_j = G[0], cell_step = G[1];
+  float integ, tbar, dIda, dIdb;
+  relu_trap<RELU>(a.sig, b.sig, integ, tbar, dIda, dIdb);
+  integ = integ * (a.live * b.live);
+  const float delta = cell_step * nm;
+  const float alpha = 1.0f - expf(-integ * delta);
+  const float w = alpha * st.T;
+  const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
+  const float tb1 = 1.0f - tbar;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    st.col[c] = st.col[c] + sigmoid(tb1 * a.rgb[c] + tbar * b.rgb[c]) * w;
+  st.acc = st.acc + w;
+  st.dep = st.dep + w * s_mid;
+  if constexpr (DIFFUSE) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      st.dif[c] = st.dif[c] + sigmoid(tb1 * a.dif[c] + tbar * b.dif[c]) * w;
+  }
+  st.T = st.T * (1.0f - alpha);
+}
+
+// Writes the state rows [T, colour x3, acc, depth (, diffuse x3)] at
+// out[row * plane].
+template <bool DIFFUSE>
+__device__ __forceinline__ void store_state(const CompositeState& st, float* out,
+                                            size_t plane) {
+  out[0] = st.T;
+  out[plane] = st.col[0];
+  out[2 * plane] = st.col[1];
+  out[3 * plane] = st.col[2];
+  out[4 * plane] = st.acc;
+  out[5 * plane] = st.dep;
+  if constexpr (DIFFUSE) {
+    out[6 * plane] = st.dif[0];
+    out[7 * plane] = st.dif[1];
+    out[8 * plane] = st.dif[2];
+  }
+}
+
 // The forward march of one texel over positions j = 0 .. NP-1 (front to
 // back): the relu-trapezoid composite of cell (j-1, j) for every needed
 // position, gated by the tile's flags (uniform over the tile, so the
@@ -271,74 +315,127 @@ template <bool DIFFUSE, bool RELU, class Source>
 __device__ __forceinline__ void march_forward(const Source& src, const MarchTables& tb,
                                               int NP, float exit_eps, float nm,
                                               float* out, size_t plane) {
-  float T = 1.0f, acc = 0.0f, dep = 0.0f;
-  float col[3] = {0.0f, 0.0f, 0.0f}, dif[3] = {0.0f, 0.0f, 0.0f};
-  float prev_sig = 0.0f, prev_live = 0.0f;
-  float prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dif[3] = {0.0f, 0.0f, 0.0f};
+  CompositeState st{1.0f, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+  PosValues prev{};
 
   for (int j = 0; j < NP; ++j) {
     if (!tb.pos_needed[j]) continue;  // uniform over the tile
-    if (exit_eps > 0.0f && !__syncthreads_or(T > exit_eps)) break;
+    if (exit_eps > 0.0f && !__syncthreads_or(st.T > exit_eps)) break;
     const float* G = tb.geom + j * GEOM_COLS;
-    const float s_j = G[0], cell_step = G[1];
-    float sig, rgb[3], dif_j[3], live;
-    src.values(j, G, sig, rgb, dif_j, live);
+    PosValues cur;
+    src.values(j, G, cur.sig, cur.rgb, cur.dif, cur.live);
+    if (j > 0 && tb.cell_live[j]) composite_cell<DIFFUSE, RELU>(G, nm, prev, cur, st);
+    prev = cur;
+  }
+  store_state<DIFFUSE>(st, out, plane);
+}
 
-    if (j > 0 && tb.cell_live[j]) {
-      float integ, tbar, dIda, dIdb;
-      relu_trap<RELU>(prev_sig, sig, integ, tbar, dIda, dIdb);
-      integ = integ * (prev_live * live);
-      const float delta = cell_step * nm;
-      const float alpha = 1.0f - expf(-integ * delta);
-      const float w = alpha * T;
-      const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
-      const float tb1 = 1.0f - tbar;
+// The state cotangent of one texel, read from its gaux rows [SROWS + 2]
+// (stride plane): gT, colour, acc, depth (, diffuse), S_total, T_final.
+struct StateCotangent {
+  float T, acc, dep, col[3], dif[3], S_total, T_fin;
+};
+
+template <bool DIFFUSE>
+__device__ __forceinline__ StateCotangent load_cotangent(const float* ga, size_t plane) {
+  constexpr int SROWS = DIFFUSE ? 9 : 6;
+  StateCotangent g;
+  g.T = ga[0];
 #pragma unroll
-      for (int c = 0; c < 3; ++c)
-        col[c] = col[c] + sigmoid(tb1 * prev_rgb[c] + tbar * rgb[c]) * w;
-      acc = acc + w;
-      dep = dep + w * s_mid;
-      if constexpr (DIFFUSE) {
+  for (int c = 0; c < 3; ++c) {
+    g.col[c] = ga[(1 + c) * plane];
+    g.dif[c] = DIFFUSE ? ga[(6 + c) * plane] : 0.0f;
+  }
+  g.acc = ga[4 * plane];
+  g.dep = ga[5 * plane];
+  g.S_total = ga[SROWS * plane];
+  g.T_fin = ga[(SROWS + 1) * plane];
+  return g;
+}
+
+// Cotangents of a position's raw values: sigma, colour, diffuse.
+struct PosCotangent {
+  float sig, rgb[3], dif[3];
+};
+
+// The replay VJP of cell (a, b) (b being position G's values) in the
+// reference's division-free suffix form
+//   dinteg = delta * ((1 - alpha) * T * inner - suffix),
+//   suffix = (S_total - S_prefix) + gT * T_final,
+// routed to the cell's two endpoints with dI/da, dI/db of the relu
+// trapezoid; colour cotangents lerp back with (1 - tbar, tbar), the emission
+// centroid tbar held constant (the reference's convention). Returns the
+// a-side and b-side cotangents and advances T and the running prefix S.
+template <bool DIFFUSE, bool RELU>
+__device__ __forceinline__ void backward_cell(const float* G, float nm,
+                                              const StateCotangent& g, const PosValues& a,
+                                              const PosValues& b, float& T, float& S,
+                                              PosCotangent& da, PosCotangent& db) {
+  const float s_j = G[0], cell_step = G[1];
+  float integ_raw, tbar, dIda, dIdb;
+  relu_trap<RELU>(a.sig, b.sig, integ_raw, tbar, dIda, dIdb);
+  const float live_pair = a.live * b.live;
+  const float integ = integ_raw * live_pair;
+  const float delta = cell_step * nm;
+  const float e = expf(-integ * delta);
+  const float alpha = 1.0f - e;
+  const float w = alpha * T;
+  const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
+  const float tb1 = 1.0f - tbar;
+  float mids[3], dmids[3];
+  float inner = g.acc + g.dep * s_mid;
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          dif[c] = dif[c] + sigmoid(tb1 * prev_dif[c] + tbar * dif_j[c]) * w;
-      }
-      T = T * (1.0f - alpha);
-    }
-    prev_sig = sig;
-    prev_live = live;
+  for (int c = 0; c < 3; ++c) {
+    mids[c] = sigmoid(tb1 * a.rgb[c] + tbar * b.rgb[c]);
+    inner = inner + g.col[c] * mids[c];
+  }
+  if constexpr (DIFFUSE) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      prev_rgb[c] = rgb[c];
-      prev_dif[c] = dif_j[c];
+      dmids[c] = sigmoid(tb1 * a.dif[c] + tbar * b.dif[c]);
+      inner = inner + g.dif[c] * dmids[c];
     }
   }
-
-  out[0] = T;
-  out[plane] = col[0];
-  out[2 * plane] = col[1];
-  out[3 * plane] = col[2];
-  out[4 * plane] = acc;
-  out[5 * plane] = dep;
-  if constexpr (DIFFUSE) {
-    out[6 * plane] = dif[0];
-    out[7 * plane] = dif[1];
-    out[8 * plane] = dif[2];
+  const float S_prefix = S + inner * w;
+  const float suffix = (g.S_total - S_prefix) + g.T * g.T_fin;
+  const float dinteg = delta * (e * T * inner - suffix) * live_pair;
+  da.sig = dinteg * dIda;
+  db.sig = dinteg * dIdb;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float dm = g.col[c] * w * mids[c] * (1.0f - mids[c]);
+    da.rgb[c] = tb1 * dm;
+    db.rgb[c] = tbar * dm;
+    if constexpr (DIFFUSE) {
+      const float ddm = g.dif[c] * w * dmids[c] * (1.0f - dmids[c]);
+      da.dif[c] = tb1 * ddm;
+      db.dif[c] = tbar * ddm;
+    }
   }
+  T = T * (1.0f - alpha);
+  S = S_prefix;
+}
+
+// Channel ch of a position's cotangent (its pending b-side plus the next
+// cell's a-side, summed into d) folded through the SH basis, before the bf16
+// rounding: colour channels colour * NCOEFF + k, then sigma.
+template <int NCOEFF, bool DIFFUSE>
+__device__ __forceinline__ float flush_channel(int ch, const float* yb, const PosCotangent& d) {
+  if (ch < 3 * NCOEFF) {
+    const int c = ch / NCOEFF, k = ch % NCOEFF;
+    float v = yb[k] * d.rgb[c];
+    if (DIFFUSE && k == 0) v = v + yb[0] * d.dif[c];
+    return v;
+  }
+  return d.sig;
 }
 
 // The replay VJP march of one texel, steps j = 0 .. NP: step j replays
 // position j exactly as march_forward computed it, rebuilds T and the running
-// prefix S = sum of inner * w, and forms the per-cell dL/d(integral) in the
-// reference's division-free suffix form
-//   dinteg = delta * ((1 - alpha) * T * inner - suffix),
-//   suffix = (S_total - S_prefix) + gT * T_final,
-// routed to the cell's two endpoint positions with dI/da, dI/db of the relu
-// trapezoid; colour cotangents lerp back with (1 - tbar, tbar), the emission
-// centroid tbar held constant (the reference's convention). Position j-1's
+// prefix S and takes cell (j-1, j)'s VJP (backward_cell). Position j-1's
 // cotangent is its pending b-side plus cell j's a-side; its per-channel dvals
-// (folded through the SH basis) round to bf16, as the reference rounds them
-// before the v-fold, and go to the compact buffer: slot tb.slot[j-1] of
+// (flush_channel) round to bf16, as the reference rounds them before the
+// v-fold, and go to the compact buffer: slot tb.slot[j-1] of
 // [n_slots, USED, Pb, Qb], element in_blk of each [Pb, Qb] channel plane.
 // Masks are branches, so a stale value of a dead position never enters a sum.
 // ``ga`` points at this texel's gaux [SROWS + 2] rows (stride ``plane``).
@@ -349,128 +446,44 @@ __device__ __forceinline__ void march_backward(const Source& src, const MarchTab
                                                __nv_bfloat16* dvals, size_t blk,
                                                size_t in_blk) {
   constexpr int USED = 3 * NCOEFF + 1;
-  constexpr int SROWS = DIFFUSE ? 9 : 6;
-  const float g_T = ga[0];
-  float g_col[3], g_dif[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    g_col[c] = ga[(1 + c) * plane];
-    g_dif[c] = DIFFUSE ? ga[(6 + c) * plane] : 0.0f;
-  }
-  const float g_acc = ga[4 * plane], g_dep = ga[5 * plane];
-  const float S_total = ga[SROWS * plane], T_fin = ga[(SROWS + 1) * plane];
-
+  const StateCotangent g = load_cotangent<DIFFUSE>(ga, plane);
   float T = 1.0f, S = 0.0f;
-  float prev_sig = 0.0f, prev_live = 0.0f;
-  float prev_rgb[3] = {0.0f, 0.0f, 0.0f}, prev_dif[3] = {0.0f, 0.0f, 0.0f};
-  // pending b-side cotangents of the last cell: sigma, raw colour, raw diffuse
-  float pend_sig = 0.0f, pend_rgb[3] = {0.0f, 0.0f, 0.0f};
-  float pend_dif[3] = {0.0f, 0.0f, 0.0f};
+  PosValues prev{};
+  PosCotangent pend{};  // the b-side cotangents of the last cell
 
   // NP + 1 steps: step j composites cell (j-1, j) and flushes position j-1
   for (int j = 0; j <= NP; ++j) {
     const bool replay = j < NP && tb.pos_needed[j];
     const bool flush = j > 0 && tb.pos_needed[j - 1];
     if (!replay && !flush) {  // uniform over the tile
-      pend_sig = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) pend_rgb[c] = pend_dif[c] = 0.0f;
+      pend = PosCotangent{};
       continue;
     }
-    float sig = 0.0f, rgb[3] = {0.0f, 0.0f, 0.0f}, dif_j[3] = {0.0f, 0.0f, 0.0f};
-    float live = 0.0f;
+    PosValues cur{};
     const float* G = tb.geom + (j < NP ? j : NP - 1) * GEOM_COLS;
-    if (replay) src.values(j, G, sig, rgb, dif_j, live);
+    if (replay) src.values(j, G, cur.sig, cur.rgb, cur.dif, cur.live);
 
     // cell (j-1, j): its a-side cotangents for position j-1 and its b-side
     // ones, pending for position j
-    float d_a = 0.0f, d_b = 0.0f;
-    float a_rgb[3] = {0.0f, 0.0f, 0.0f}, a_dif[3] = {0.0f, 0.0f, 0.0f};
-    float b_rgb[3] = {0.0f, 0.0f, 0.0f}, b_dif[3] = {0.0f, 0.0f, 0.0f};
-    if (replay && j > 0 && tb.cell_live[j]) {
-      const float s_j = G[0], cell_step = G[1];
-      float integ_raw, tbar, dIda, dIdb;
-      relu_trap<RELU>(prev_sig, sig, integ_raw, tbar, dIda, dIdb);
-      const float live_pair = prev_live * live;
-      const float integ = integ_raw * live_pair;
-      const float delta = cell_step * nm;
-      const float e = expf(-integ * delta);
-      const float alpha = 1.0f - e;
-      const float w = alpha * T;
-      const float s_mid = (s_j - cell_step + tbar * cell_step) * nm;
-      const float tb1 = 1.0f - tbar;
-      float mids[3], dmids[3];
-      float inner = g_acc + g_dep * s_mid;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        mids[c] = sigmoid(tb1 * prev_rgb[c] + tbar * rgb[c]);
-        inner = inner + g_col[c] * mids[c];
-      }
-      if constexpr (DIFFUSE) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          dmids[c] = sigmoid(tb1 * prev_dif[c] + tbar * dif_j[c]);
-          inner = inner + g_dif[c] * dmids[c];
-        }
-      }
-      const float S_prefix = S + inner * w;
-      const float suffix = (S_total - S_prefix) + g_T * T_fin;
-      const float dinteg = delta * (e * T * inner - suffix) * live_pair;
-      d_a = dinteg * dIda;
-      d_b = dinteg * dIdb;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float dm = g_col[c] * w * mids[c] * (1.0f - mids[c]);
-        a_rgb[c] = tb1 * dm;
-        b_rgb[c] = tbar * dm;
-        if constexpr (DIFFUSE) {
-          const float ddm = g_dif[c] * w * dmids[c] * (1.0f - dmids[c]);
-          a_dif[c] = tb1 * ddm;
-          b_dif[c] = tbar * ddm;
-        }
-      }
-      T = T * (1.0f - alpha);
-      S = S_prefix;
-    }
+    PosCotangent da{}, db{};
+    if (replay && j > 0 && tb.cell_live[j])
+      backward_cell<DIFFUSE, RELU>(G, nm, g, prev, cur, T, S, da, db);
 
     if (flush) {
-      // position j-1's cotangent through the SH basis, per channel, to bf16
-      const float dsig = pend_sig + d_a;
-      float drgb[3], ddif[3];
+      PosCotangent d;
+      d.sig = pend.sig + da.sig;
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        drgb[c] = pend_rgb[c] + a_rgb[c];
-        ddif[c] = pend_dif[c] + a_dif[c];
+        d.rgb[c] = pend.rgb[c] + da.rgb[c];
+        d.dif[c] = pend.dif[c] + da.dif[c];
       }
       __nv_bfloat16* out = dvals + (size_t)tb.slot[j - 1] * USED * blk + in_blk;
 #pragma unroll
-      for (int ch = 0; ch < USED; ++ch) {
-        float v;
-        if (ch < 3 * NCOEFF) {
-          const int c = ch / NCOEFF, k = ch % NCOEFF;
-          v = yb[k] * drgb[c];
-          if (DIFFUSE && k == 0) v = v + yb[0] * ddif[c];
-        } else {
-          v = dsig;
-        }
-        out[ch * blk] = __float2bfloat16_rn(v);
-      }
+      for (int ch = 0; ch < USED; ++ch)
+        out[ch * blk] = __float2bfloat16_rn(flush_channel<NCOEFF, DIFFUSE>(ch, yb, d));
     }
-    pend_sig = d_b;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      pend_rgb[c] = b_rgb[c];
-      pend_dif[c] = b_dif[c];
-    }
-    if (replay) {
-      prev_sig = sig;
-      prev_live = live;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        prev_rgb[c] = rgb[c];
-        prev_dif[c] = dif_j[c];
-      }
-    }
+    pend = db;
+    if (replay) prev = cur;
   }
 }
 

@@ -26,9 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 # one library per source; each lists the headers it includes (for the hash)
 SOURCES: Dict[str, List[str]] = {
     "relu_trap": ["relu_trap.cu", "relu_trap.cuh"],
-    "composite_fused": ["composite_fused.cu", "gnomonic_march.cuh", "relu_trap.cuh"],
-    "composite_backward_fused": ["composite_backward_fused.cu", "gnomonic_march.cuh",
-                                 "relu_trap.cuh"],
+    "composite_fused": ["composite_fused.cu", "gnomonic_stage.cuh", "gnomonic_march.cuh",
+                        "relu_trap.cuh"],
+    "composite_backward_fused": ["composite_backward_fused.cu", "gnomonic_stage.cuh",
+                                 "gnomonic_march.cuh", "relu_trap.cuh"],
     "composite_stripe": ["composite_stripe.cu", "gnomonic_stripe.cuh",
                          "gnomonic_march.cuh", "relu_trap.cuh"],
     "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stripe.cuh",

@@ -65,7 +65,8 @@ from thr3ed_atom_tpu_torch.utils.constants import (
 F32 = torch.float32
 
 # the CUDA composite's texel tile (p rows x q columns): one thread per texel,
-# and the grain of its early exit (csrc/composite_fused.cu TP, TQ)
+# the grain of its early exit and of its staged vertex footprints
+# (csrc/gnomonic_march.cuh TP, TQ)
 CUDA_EXIT_TILE = (8, 32)
 
 
@@ -683,11 +684,21 @@ def _vertex_stack(slices, statics: GnomonicStatics, Pn: int, Qn: int, PB: int,
     return vert
 
 
+def _counter_ptr(counter, dev):
+    """The device pointer of a one-element int32 counter on ``dev`` (None: no
+    counter)."""
+    if counter is None:
+        return None
+    if counter.dtype != torch.int32 or counter.numel() != 1 or counter.device != dev:
+        raise ValueError("direct_tiles: a one-element int32 tensor on the slices' device")
+    return counter.data_ptr()
+
+
 def _composite_lib():
     lib = kernels.load("composite_fused")
     fn = lib.composite_fused_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 18
         + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     )
@@ -696,7 +707,7 @@ def _composite_lib():
 
 
 def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
-                              PB, Pb, occupancy, xr=None, yr=None):
+                              PB, Pb, occupancy, xr=None, yr=None, direct_tiles=None):
     """The fused composite: vertex slices in, composited state [SROWS, Pn, Qn]
     f32 out. On a CUDA tensor one launch of csrc/composite_fused.cu; on a CPU
     tensor ``composite_positions_fused_plain``. The SH basis and norm come
@@ -706,7 +717,10 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
     ``slices`` [nvert, nu, C, nv] bf16 must have channel-last storage (as
     ``repack_position_slices`` returns it); occupancy = (cell_live,
     pos_needed, pos_any) from ``gnomonic_occupancy_lite``. The kernel exits
-    early per ``CUDA_EXIT_TILE`` texel tile."""
+    early per ``CUDA_EXIT_TILE`` texel tile, and stages each tile's vertex
+    footprint in shared memory; a tile whose footprint exceeds the stage
+    (a far-zoomed frame) gathers it directly and, when ``direct_tiles`` (a
+    one-element int32 CUDA tensor) is given, adds one to it."""
     if slices.device.type == "cpu":
         return composite_positions_fused_plain(
             slices, ybasis, norm, geom, statics, Pn, Qn, PB, Pb, occupancy,
@@ -750,7 +764,7 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
     fn = _composite_lib()
     err = fn(
         vert.data_ptr(), geom.data_ptr(), flags[0].data_ptr(),
-        flags[1].data_ptr(), *ptrs, out.data_ptr(),
+        flags[1].data_ptr(), *ptrs, out.data_ptr(), _counter_ptr(direct_tiles, dev),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
         NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, PB, QB,
         u_ax, v_ax, statics.axis,

@@ -41,10 +41,13 @@ import torch
 from thr3ed_atom_tpu_torch import kernels
 from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
 from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap_plain
+from thr3ed_atom_tpu_torch.rendering.axes import _uv_axes
 from thr3ed_atom_tpu_torch.rendering.gnomonic import (
+    CUDA_EXIT_TILE,
     GnomonicStatics,
     _bf16r,
     _check_stripe_operands,
+    _counter_ptr,
     _num_positions,
     _position_values,
     _qb_blocks,
@@ -224,9 +227,34 @@ def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
 def _backward_fn():
     lib = kernels.load("composite_backward_fused")
     fn = lib.composite_backward_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def fold_records(pos_needed: torch.Tensor, statics: GnomonicStatics, Pb: int,
+                 Qb: int) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+    """The replay backward's v-fold output, sized by the occupancy flags
+    ``pos_needed`` [PB, QB, NP]: dense bf16 dt1 rows [Pb, 3 ncoeff + 1, nv]
+    per (u-block, position) with a needed q-block, and an f32 edge record
+    [3 ncoeff + 1, TP, 4] per (``CUDA_EXIT_TILE`` tile, needed position).
+    Returns (d_off [PB, NP] int64 and s_off [PB, QB, NP] int64, the element
+    offsets of each slot, -1 where none; the dt1 and edge element counts,
+    read on the host)."""
+    TP, TQ = CUDA_EXIT_TILE
+    nv = statics.dims[_uv_axes(statics.axis)[1]]
+    used = 3 * statics.ncoeff + 1
+    needed = pos_needed > 0
+
+    def offsets(flags, size):
+        sizes = flags.to(torch.int64).reshape(-1) * size
+        off = torch.where(flags.reshape(-1), torch.cumsum(sizes, 0) - sizes, -1)
+        return off.reshape(flags.shape).contiguous(), sizes.sum()
+
+    d_off, n_dt1 = offsets(needed.any(dim=1), Pb * used * nv)
+    s_off, n_edge = offsets(needed, (Pb // TP) * (Qb // TQ) * used * TP * 4)
+    n_dt1, n_edge = torch.stack([n_dt1, n_edge]).tolist()
+    return d_off, s_off, n_dt1, n_edge
 
 
 def dvals_slots(pos_needed: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -242,14 +270,16 @@ def dvals_slots(pos_needed: torch.Tensor) -> Tuple[torch.Tensor, int]:
 
 def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
                              statics: GnomonicStatics, Pn: int, Qn: int,
-                             PB: int, Pb: int) -> torch.Tensor:
+                             PB: int, Pb: int, direct_tiles=None) -> torch.Tensor:
     """The replay VJP of the fused composite (see
     ``composite_backward_fused_plain``): per-position dslices
     [NP, nu, C, nv] bf16. On a CUDA tensor one launch of
-    csrc/composite_backward_fused.cu (a march over the texels, then a fold
-    over (u, position)); on a CPU tensor the plain version. Its cotangent
-    buffer holds ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb]
-    bf16."""
+    csrc/composite_backward_fused.cu (a march over texel tiles that folds
+    each position's cotangent through its v-tents, then a tensor-core fold
+    through the u-tents); on a CPU tensor the plain version. The march's
+    v-fold output takes ``fold_records`` scratch (bf16 dt1 rows, f32 edge
+    records); ``direct_tiles`` (a one-element int32 CUDA tensor) counts the tiles that
+    gathered a position's footprint directly."""
     if slices.device.type == "cpu":
         return composite_backward_fused_plain(slices, ybasis, norm, geom, gaux,
                                               occupancy, statics, Pn, Qn, PB, Pb)
@@ -269,15 +299,16 @@ def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
              for fl in (cell_live, pos_needed)]
     if any(fl.shape != (PB, QB, NP) for fl in flags):
         raise ValueError("composite_backward_fused: flags shape")
-    slot, n_slots = dvals_slots(flags[1])
-    used = 3 * statics.ncoeff + 1
-    dvals = torch.empty((max(n_slots, 1), used, Pb, Qb), dtype=torch.bfloat16, device=dev)
-    dsl = torch.empty((NP, nu, C, nv), dtype=torch.bfloat16, device=dev)
     ops = [t.to(F32).contiguous() for t in (geom, ybasis, norm, gaux)]
+    d_off, s_off, n_dt1, n_edge = fold_records(flags[1], statics, Pb, Qb)
+    dt1 = torch.empty((max(n_dt1, 1),), dtype=torch.bfloat16, device=dev)
+    edge = torch.empty((max(n_edge, 1),), dtype=F32, device=dev)
+    dsl = torch.empty((NP, nu, C, nv), dtype=torch.bfloat16, device=dev)
     err = _backward_fn()(
         vert.data_ptr(), ops[0].data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
-        slot.data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(), ops[3].data_ptr(),
-        dvals.data_ptr(), dsl.data_ptr(),
+        d_off.data_ptr(), s_off.data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+        ops[3].data_ptr(), dt1.data_ptr(), edge.data_ptr(), dsl.data_ptr(),
+        _counter_ptr(direct_tiles, dev),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
         NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB,
         torch.cuda.current_stream(dev).cuda_stream,
