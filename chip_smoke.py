@@ -7,9 +7,12 @@ nvcc per source, all at once) and holds each against its plain PyTorch
 version on the card at the main paths' shapes:
   1-4. the build, relu_trap (K1a), the warp resample (K2; its bilinear pass
        and F.grid_sample as median and range of K2_READINGS device-clock
-       readings each) and the fused composite (K1; also on an opaque copy
-       of the scene, where its early exit must end tiles; with the count of
-       tiles that gathered a footprint directly);
+       readings each; the row slab staged in shared memory against the L1
+       gathers; its launch path split into binding, stream handle, checks,
+       allocation and launch, before and after kernels.bind) and the fused
+       composite (K1; also on an opaque copy of the scene, where its early
+       exit must end tiles; with the count of tiles that gathered a
+       footprint directly);
   5.   the serving path through the entry points a user calls: a 128^3
        SH-degree-2 model (random blob scene from a seed, bench.py's
        configuration) saved with save_model, loaded with
@@ -19,7 +22,8 @@ version on the card at the main paths' shapes:
        plain versions;
   6.   the warp adjoint (K4), also on rows shuffled out of order (its
        scatter); K2 and K4 and their library calls are also timed as
-       the host queues them, beside each wrapper's launch path;
+       the host queues them, beside each wrapper's launch path (and the
+       launch path as it was before kernels.bind, around the same kernel);
   7.   K1's training branch (materialized SH basis and norm) and the replay
        backward (K3) on one pose with a seeded state cotangent; K3's march
        and u-fold timed apart on the device clock (torch.profiler), and the
@@ -31,7 +35,10 @@ version on the card at the main paths' shapes:
        and the first step's gradient must match the plain versions' step;
   9-10. the stripe composite (K5) and its replay backward (K7) at 128^3 and
        at the CLI's first stage (64^3, P = 4, 200 x 200), where K1, K3 and
-       both warp passes (K2, K4) are held too;
+       both warp passes (K2, K4) are held too; K7 also against the
+       three-launch design its band kernel replaced, both split by launch,
+       with that design's cotangent-buffer bytes and the band kernel's
+       launch plan;
   11.  the serving path with gnomonic_qb = 0;
   12.  the training CLI end to end, main([...]) twice (the default qb, and
        --gnomonic_qb 0) on 20 views it renders and writes first: each
@@ -78,6 +85,8 @@ Any failed phase raises and the script exits non-zero without that line; it
 also exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
 """
+import contextlib
+import ctypes
 import gc
 import json
 import shutil
@@ -226,6 +235,112 @@ def host_paced(torch, fn, iters, repeats=3):
     launch_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     return dict(ms=ms, gc_ms=gc_ms, launch_ms=launch_ms)
+
+
+def legacy_rows_call(torch, kernels, wm, adjoint):
+    """K2's (``adjoint``: K4's) wrapper as its launch path ran before
+    ``kernels.bind`` (library looked up and function typed on every call, a
+    ``torch.cuda.Stream`` object per call, checks through device objects),
+    around the same kernel: the "before" of the launch-path comparison."""
+    lib = "resample_rows_adjoint" if adjoint else "resample_rows"
+    args = wm._ROWS_ARGS
+
+    def call(t, pos, order, K_or_taps, taps=False):
+        if t.device.type != "cuda" or pos.device != t.device:
+            raise ValueError("unsupported devices")
+        if t.dtype != torch.float32 or pos.dtype != torch.float32:
+            raise TypeError("float32 inputs required")
+        if not (t.is_contiguous() and pos.is_contiguous()):
+            raise ValueError("contiguous inputs required")
+        if order not in (1, 3, 5):
+            raise ValueError("unsupported warp order")
+        NB, CH, N = t.shape[0], t.shape[-2], t.shape[-1]
+        if adjoint:
+            K = K_or_taps
+            if t.shape != ((NB, 3, CH, N) if taps else (NB, CH, N)) or pos.shape != (NB, 1, N):
+                raise ValueError("shapes")
+            shape, rest = (NB, CH, K), (NB, CH, K, N, order, int(taps))
+        else:
+            taps, K, N = K_or_taps, t.shape[2], pos.shape[2]
+            if t.dim() != 3 or pos.shape != (NB, 1, N):
+                raise ValueError("shapes")
+            shape = (NB, 3, CH, N) if taps else (NB, CH, N)
+            rest = (NB, CH, K, N, order, int(taps))
+        if CH != 8:
+            raise ValueError("CH = 8 required")
+        out = torch.empty(shape, dtype=torch.float32, device=t.device)
+        fn = getattr(kernels.load(lib), lib + "_launch")
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+        err = fn(t.data_ptr(), pos.data_ptr(), out.data_ptr(), *rest,
+                 torch.cuda.current_stream(t.device).cuda_stream)
+        kernels.check(err, lib)
+        return out
+
+    return call
+
+
+def launch_parts(torch, kernels, wm, t, pos, order, extra, adjoint, n=2000, n_launch=50):
+    """Host microseconds a call of each part of K2's (``adjoint``: K4's)
+    launch path, before (``legacy_rows_call``'s steps) and after (the
+    wrapper's): the binding, the stream handle, the checks, the output
+    allocation, and the ctypes launch itself (``n_launch`` calls queued
+    behind a device-side sleep); on the host clock."""
+    lib = "resample_rows_adjoint" if adjoint else "resample_rows"
+    args = wm._ROWS_ARGS
+    NB, CH, N = t.shape[0], t.shape[-2], pos.shape[-1]
+    shape = (NB, CH, extra) if adjoint else ((NB, 3, CH, N) if extra else (NB, CH, N))
+    rest = ((NB, CH, extra, N, order, 0) if adjoint
+            else (NB, CH, t.shape[2], N, order, int(extra)))
+    name = "resample_rows_adjoint" if adjoint else "resample_rows"
+
+    def bind_before():
+        fn = getattr(kernels.load(lib), lib + "_launch")
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+
+    def check_before():
+        if t.device.type != "cuda" or pos.device != t.device:
+            raise ValueError
+        if t.dtype != torch.float32 or pos.dtype != torch.float32:
+            raise TypeError
+        if not (t.is_contiguous() and pos.is_contiguous()) or order not in (1, 3, 5):
+            raise ValueError
+        if pos.shape != (t.shape[0], 1, pos.shape[2]) or t.shape[-2] != 8:
+            raise ValueError
+
+    def check_after():
+        wm._check_rows(name, t, pos, order)
+        if pos.shape != (NB, 1, N):
+            raise ValueError
+
+    def host_us(fn, count):
+        t0 = time.perf_counter()
+        for _ in range(count):
+            fn()
+        return (time.perf_counter() - t0) * 1e6 / count
+
+    fn = kernels.bind(lib, lib + "_launch", args)
+    out = torch.empty(shape, dtype=torch.float32, device=t.device)
+    s = kernels.stream(t)
+    parts = dict(
+        bind_before=host_us(bind_before, n),
+        bind_after=host_us(lambda: kernels.bind(lib, lib + "_launch", args), n),
+        stream_before=host_us(lambda: torch.cuda.current_stream(t.device).cuda_stream, n),
+        stream_after=host_us(lambda: kernels.stream(t), n),
+        checks_before=host_us(check_before, n),
+        checks_after=host_us(check_after, n),
+        allocation=host_us(lambda: torch.empty(shape, dtype=torch.float32, device=t.device), n))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    parts["launch"] = host_us(lambda: fn(t.data_ptr(), pos.data_ptr(), out.data_ptr(), *rest, s),
+                              n_launch)
+    torch.cuda.synchronize()
+    return parts
+
+
+def parts_str(parts):
+    return ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
 
 
 def paced_str(h):
@@ -404,11 +519,33 @@ def stripe_counts(torch, args, work):
     return nbytes, int(work.sum()) * (used * 4 + 3 * nc * 2)
 
 
+@contextlib.contextmanager
+def nan_allocations(torch):
+    """Inside the block torch.empty hands out floating-point tensors filled
+    with NaN, so that an output element a kernel leaves unwritten shows (the
+    caching allocator would hand back memory that an earlier call zeroed)."""
+    empty = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = nan_empty
+    try:
+        yield
+    finally:
+        torch.empty = empty
+
+
 def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
     """K7 (or K8, q-split flags) against its plain version on a seeded state
     cotangent: max-abs within 1e-2 of the largest element, cosine > 0.99999
-    (K3's bound), pad channels zero. Returns (max-abs, cosine, ms, plain ms,
-    bound)."""
+    (K3's bound), pad channels and dead blocks zero (dt1 allocated
+    NaN-filled). Returns (max-abs, cosine, ms, plain ms,
+    bound, extra). For K7 also the three-launch design it replaced (K8's
+    launches with one q-block) on the same operands: its gap to the band
+    kernel, both timed, both split by launch (torch.profiler), the bytes of
+    its cotangent buffer, and the band kernel's launch plan."""
     t1, ops, st, frame, occ = args[0], args[1:7], args[7], args[8:12], args[12]
     qsplit = occ[0].dim() == 3
     k = "K8" if qsplit else "K7"
@@ -417,7 +554,8 @@ def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
     gstate = torch.randn(state.shape, generator=gen, device=state.device)
     gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
     bargs = (t1, *ops, gaux, occ, st, *frame)
-    got = gt.composite_backward(*bargs)
+    with nan_allocations(torch):
+        got = gt.composite_backward(*bargs)
     torch.cuda.synchronize()
     want = backward_plain(*bargs)
     err, scale = max_abs(got.float(), want.float()), float(want.float().abs().max())
@@ -426,13 +564,15 @@ def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
     check(scale > 0.0 and err <= 1e-2 * scale and cos > 0.99999,
           f"{k} vs plain ({label}): max-abs {err} (scale {scale}), cosine {cos}")
     check(not bool(got[:, used:].any()), f"{k} ({label}) wrote pad channels")
+    Pn, Qn, PB, Pb = frame
+    dead = (occ[1] == 0).reshape(PB, -1, occ[1].shape[-1]).all(1).T.repeat_interleave(Pb, 1)
+    check(not bool(got.permute(0, 2, 1, 3)[dead].any()), f"{k} ({label}) wrote dead blocks")
     ms = time_ms(torch, lambda: gt.composite_backward(*bargs), 5)
     plain_ms = time_ms(torch, lambda: backward_plain(*bargs), 1)
     # bytes: the replay's reads (as K5), the cotangent rows of texels in
     # needed blocks, dt1 written; ops: the replay, ~120 per pair for the
     # cell's backward, the SH fold back, and the v-fold (2 taps x mul+add per
     # used channel and column) of every needed texel row
-    Pn, Qn, PB, Pb = frame
     rb, rops = stripe_counts(torch, args, work)
     Qb = Qn // occ[1].shape[1] if qsplit else Qn
     needed_texels = int(occ[1].any(dim=-1).sum()) * Pb * Qb
@@ -441,7 +581,45 @@ def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
             + int(occ[1].sum()) * Pb * used * Qb * 4)
     print(f"# {k} composite_stripe_backward {label}: max-abs {err:.3g} of {scale:.3g}, cosine "
           f"{cos:.9f}; ms={ms:.4f} plain_ms={plain_ms:.4f}; dt1 {tuple(got.shape)}", flush=True)
-    return err, cos, ms, plain_ms, bound(nbytes, nops)
+    extra = {}
+    if not qsplit:
+        checked = gn._check_stripe_operands(k, t1, *ops, occ, st, *frame)
+        g32 = gaux.contiguous()
+
+        def three_launch():
+            return gt.stripe_backward_three_launch(checked, g32, st, Pn, Qn, Pb, 1, Qn)
+
+        with nan_allocations(torch):
+            old = three_launch()
+        torch.cuda.synchronize()
+        old_err = max_abs(got.float(), old.float())
+        old_ms = time_ms(torch, three_launch, 5)
+        new_parts = kernel_times(torch, lambda: gt.composite_backward(*bargs), 5,
+                                 ("column_taps_kernel", "stripe_band_kernel"))
+        old_parts = kernel_times(torch, three_launch, 5, ("column_taps_kernel",
+                                                          "stripe_march_kernel",
+                                                          "stripe_fold_kernel"))
+        _, n_slots = gt.dvals_slots(checked[8])
+        dvals_bytes = n_slots * used * Pb * Qn * 2
+        aligned = t1.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t1.stride()[:3])
+        plan = gt.stripe_band_plan(Qn, Pb, t1.shape[0], used, t1.shape[3], aligned)
+        print(f"# {k} {label}: band kernel, clusters of {plan.S} CTAs of {plan.R} x "
+              f"{plan.Qc} texels ({plan.threads} threads), {plan.smem} bytes of shared memory, "
+              f"t1 staged {plan.staged}; device clock (torch.profiler, 5 calls): column taps "
+              f"{new_parts['column_taps_kernel']:.4f} ms, band "
+              f"{new_parts['stripe_band_kernel']:.4f} ms. The three-launch design on the "
+              f"same operands: ms={old_ms:.4f}, column taps "
+              f"{old_parts['column_taps_kernel']:.4f} ms, march "
+              f"{old_parts['stripe_march_kernel']:.4f} ms, fold "
+              f"{old_parts['stripe_fold_kernel']:.4f} ms, its cotangent buffer {n_slots} "
+              f"slots = {dvals_bytes} bytes; max-abs to the band kernel {old_err:.3g}"
+              f"{' (bit-equal)' if torch.equal(old, got) else ''}", flush=True)
+        extra = dict(band_plan=plan._asdict(), column_taps_ms=new_parts["column_taps_kernel"],
+                     band_ms=new_parts["stripe_band_kernel"], three_launch_ms=old_ms,
+                     three_launch_parts_ms=old_parts, three_launch_dvals_bytes=dvals_bytes,
+                     three_launch_max_abs=old_err)
+        del old, checked, g32
+    return err, cos, ms, plain_ms, bound(nbytes, nops), extra
 
 
 def resample_operands(wm, call):
@@ -1194,15 +1372,40 @@ def run(torch, workdir: Path) -> int:
           f"F.grid_sample median {lib_ms:.4f} ms (range {min(lib_runs):.4f}-"
           f"{max(lib_runs):.4f}) (max-abs {max_abs(k1o, lib[:, :, 0]):.3g}: grid_sample "
           f"renormalizes positions)", flush=True)
+    # the kernel stages a row's [8, K] slab in shared memory where it fits
+    # and X is 16-byte aligned; the same values 4 bytes off that alignment
+    # take its L1 gathers: 3 device-clock readings each, in turns; both exact
+    X_l1 = torch.empty(X.numel() + 1, device=dev)[1:].view_as(X).copy_(X)
+    stage_runs = {}
+    for label, p_o, order, taps in (("order1", p1, 1, False), ("order3_taps", p3, 3, True)):
+        check(torch.equal(wm.resample_rows(X, p_o, order, taps),
+                          wm.resample_rows(X_l1, p_o, order, taps)),
+              f"K2 {label}: staged and L1 passes differ")
+        runs = dict(staged=[], l1=[])
+        for _ in range(3):
+            for key, x_in in (("staged", X), ("l1", X_l1)):
+                runs[key].append(time_ms(torch, lambda: wm.resample_rows(x_in, p_o, order,
+                                                                         taps), 50))
+        stage_runs[label] = runs
+        print(f"# K2 {label}: row slab staged in shared memory "
+              f"{' '.join(f'{m:.4f}' for m in runs['staged'])} ms, gathered through L1 "
+              f"(X 4 bytes off alignment) {' '.join(f'{m:.4f}' for m in runs['l1'])} ms",
+              flush=True)
+    del X_l1
     # the same calls queued as they come from the host (the serving path's
-    # pace), the wrapper's launch path beside them
+    # pace), the wrapper's launch path beside them; "before": the launch
+    # path as it was before kernels.bind, around the same kernel
+    legacy_k2 = legacy_rows_call(torch, kernels, wm, adjoint=False)
     k2_paced = dict(
         order3_taps=host_paced(torch, lambda: wm.resample_rows(X, p3, 3, True), 50),
         order1=host_paced(torch, lambda: wm.resample_rows(X, p1, 1), 50),
+        order1_before=host_paced(torch, lambda: legacy_k2(X, p1, 1, False), 50),
         order1_library=host_paced(torch, lambda: torch.nn.functional.grid_sample(
             X4, gxy[:, None], mode="bilinear", padding_mode="zeros", align_corners=True), 50))
     for label, h in k2_paced.items():
         print(f"# K2 host-paced ms, {label}: {paced_str(h)}", flush=True)
+    k2_parts = launch_parts(torch, kernels, wm, X, p1, 1, False, adjoint=False)
+    print(f"# K2 launch path, host us a call: {parts_str(k2_parts)}", flush=True)
     # bytes: the source samples the band reads, the positions, the output
     n_src = resample_sources(torch, p3, 3, K)
     results["resample_rows"] = dict(
@@ -1368,13 +1571,17 @@ def run(torch, workdir: Path) -> int:
           f"ms={adj_bil_ms:.4f}, grid_sample input gradient ms={adj_lib_ms:.4f} (max-abs "
           f"{max_abs(k4o, lib_adj[:, :, 0]):.3g}: grid_sample renormalizes positions), bound "
           f"{adj_bil_bound[0]:.4f} ms", flush=True)
+    legacy_k4 = legacy_rows_call(torch, kernels, wm, adjoint=True)
     k4_paced = dict(
         order3_taps=host_paced(torch, lambda: wm.resample_rows_adjoint(dY3, p3, 3, K, True), 50),
         order1=host_paced(torch, lambda: wm.resample_rows_adjoint(dY1, p1, 1, K), 50),
+        order1_before=host_paced(torch, lambda: legacy_k4(dY1, p1, 1, K), 50),
         order1_library=host_paced(torch, lambda: torch.ops.aten.grid_sampler_2d_backward(
             g4, X4, gxy[:, None], 0, 0, True, [True, False]), 50))
     for label, h in k4_paced.items():
         print(f"# K4 host-paced ms, {label}: {paced_str(h)}", flush=True)
+    k4_parts = launch_parts(torch, kernels, wm, dY1, p1, 1, K, adjoint=True)
+    print(f"# K4 launch path, host us a call: {parts_str(k4_parts)}", flush=True)
     # bytes: the cotangent read, the positions, dX written. ops: the four
     # weights (~40) and per channel 4 weighted taps (mul, add) + 2 tap adds
     results["resample_rows_adjoint"] = dict(
@@ -1383,12 +1590,14 @@ def run(torch, workdir: Path) -> int:
                     NB * N * (40 + CH * (4 * 2 + 2))),
         extra=dict(order1_ms=adj_bil_ms, order1_library_ms=adj_lib_ms,
                    order1_bound_ms=adj_bil_bound[0], shuffled_rows_ms=adj_scatter_ms,
-                   plain_f32_max_abs_vs_float64=plain32_err, host_paced=k4_paced),
+                   plain_f32_max_abs_vs_float64=plain32_err, host_paced=k4_paced,
+                   launch_path_us=k4_parts),
     )
     results["resample_rows"]["extra"] = dict(order1_ms=bil_ms, order1_library_ms=lib_ms,
                                              order1_readings_ms=bil_runs,
                                              order1_library_readings_ms=lib_runs,
-                                             host_paced=k2_paced)
+                                             host_paced=k2_paced, launch_path_us=k2_parts,
+                                             stage_readings_ms=stage_runs)
     del dY3, dY1, got, want, plain32, p3s
 
     # ---- phase 7: the composite's training branch (K1, ybasis / norm
@@ -1646,7 +1855,7 @@ def run(torch, workdir: Path) -> int:
     k5t_ms = time_ms(torch, lambda: gn.composite_positions(*args9t), 10)
 
     # ---- phase 10: the stripe replay backward (K7) vs plain, same operands
-    k7_err, k7_cos, k7_ms, k7_plain_ms, k7_bound = stripe_backward_compare(
+    k7_err, k7_cos, k7_ms, k7_plain_ms, k7_bound, k7_extra = stripe_backward_compare(
         torch, gn, gt, args9t, work9t, gen, "training 128^3")
     del args9t, work9t
 
@@ -1666,6 +1875,7 @@ def run(torch, workdir: Path) -> int:
             k5_err = max(k5_err, max(gap))
             e7 = stripe_backward_compare(torch, gn, gt, a64, w64, gen, "training 64^3")
             k7_err, k7_cos = max(k7_err, e7[0]), min(k7_cos, e7[1])
+            k7_extra["stage1_64"] = dict(ms=e7[2], **e7[5])
             del a64, w64
             continue
         st64 = ts64.statics
@@ -1737,7 +1947,7 @@ def run(torch, workdir: Path) -> int:
         extra=dict(training_operands_ms=k5t_ms))
     results["composite_stripe_backward"] = dict(
         err=k7_err, ms=k7_ms, plain_ms=k7_plain_ms, bound=k7_bound,
-        extra=dict(cosine_vs_plain=k7_cos))
+        extra=dict(cosine_vs_plain=k7_cos, **k7_extra))
 
     # ---- phase 11: the serving path with gnomonic_qb = 0 on phase 5's saved model
     model, _ = vm.create_volumetric_model_from_saved_model(workdir / "blob128")
@@ -1857,7 +2067,7 @@ def run(torch, workdir: Path) -> int:
     gap, work13t = stripe_compare(torch, gn, args13t, "q-split training operands 128^3")
     k6_err = max(k6_err, max(gap))
     k6t_ms = time_ms(torch, lambda: gn.composite_positions(*args13t), 10)
-    k8_err, k8_cos, k8_ms, k8_plain_ms, k8_bound = stripe_backward_compare(
+    k8_err, k8_cos, k8_ms, k8_plain_ms, k8_bound, _ = stripe_backward_compare(
         torch, gn, gt, args13t, work13t, gen, "q-split training 128^3")
     del args13t, work13t
 

@@ -7,6 +7,7 @@ not installed (the GPU machine):
 Tests marked ``gpu`` decide in the ``cuda`` fixture whether a card is present
 and skip without one; on the CPU only the hygiene tests run. Inputs are made
 with numpy from a seed; each test states its tolerance."""
+import contextlib
 import subprocess
 import sys
 from pathlib import Path
@@ -201,6 +202,52 @@ def test_resample_rows_kernel_matches_plain(cuda, order, taps):
     torch.cuda.synchronize()
     want = wm.resample_rows_plain(X_t, p_t, order, taps)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+# (K, N) of the warp pass's edge cases: N not a multiple of 4 or 128, rows
+# past the 48 KB shared-memory stage (K = 4096), a row whose outputs span
+# several sweeps of a block
+RESAMPLE_EDGES = [(512, 509), (256, 130), (4096, 300), (300, 1031)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 3, 5])
+@pytest.mark.parametrize("taps", [False, True])
+@pytest.mark.parametrize("K,N", RESAMPLE_EDGES)
+def test_resample_rows_kernel_edge_cases(cuda, order, taps, K, N):
+    """K2 at ragged widths, with positions at both edges of [0, K - 1] (and
+    just inside them) and at exact integers: equal to the plain version,
+    atol 1e-6, rtol 0. K = 512 and 256 stage the row slab in shared memory,
+    K = 4096 (past the 48 KB stage) and K = 300 (not a multiple of 4) gather
+    through L1."""
+    X, pos = _resample_inputs(11, NB=16, K=K, N=N, order=order)
+    lo, hi = wm._clip_range(order, K)
+    pos[:, :, :6] = np.array([lo, hi, lo + 1e-6, hi - 1e-4, np.floor(hi), lo + 0.5],
+                             dtype=np.float32)
+    pos[:, :, -3:] = np.array([hi, lo, hi], dtype=np.float32)
+    X_t, p_t = torch.from_numpy(X).to(cuda), torch.from_numpy(pos).to(cuda)
+    want = wm.resample_rows_plain(X_t, p_t, order, taps)
+    got = wm.resample_rows(X_t, p_t, order, taps)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@contextlib.contextmanager
+def _nan_allocations():
+    """Inside the block torch.empty hands out floating-point tensors filled
+    with NaN, so that an output element a kernel leaves unwritten shows (the
+    caching allocator would hand back memory that an earlier call zeroed)."""
+    empty = torch.empty
+
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = nan_empty
+    try:
+        yield
+    finally:
+        torch.empty = empty
 
 
 def _composite_case(device, P, diffuse, exit_eps, density_scale, ncoeff=9, relu=True):
@@ -666,9 +713,9 @@ def test_stripe_backward_kernel_matches_plain(cuda, P, diffuse, ncoeff, relu):
     row's taps in ascending q, the plain version in a matmul's order, and a
     last-bit difference can move a bf16 rounding of dt1 by one unit. Bound:
     max-abs <= 1e-2 of the largest element, cosine > 0.99999; pad channels
-    and dead blocks are zero. Autograd of composite_positions_diff launches
-    K5 once and K7 once. Also at SH degrees 0, 1 and 3 and with the abs /
-    identity field."""
+    and dead blocks are zero (dt1 allocated NaN-filled). Autograd of
+    composite_positions_diff launches K5 once and K7 once. Also at SH degrees
+    0, 1 and 3 and with the abs / identity field."""
     args = _stripe_case(cuda, P, diffuse, ncoeff=ncoeff, relu=relu)
     t1, st, (Pn, Qn, PB, Pb), occ = args[0], args[7], args[8:12], args[12]
     state = gn.composite_positions_plain(*args)
@@ -677,7 +724,8 @@ def test_stripe_backward_kernel_matches_plain(cuda, P, diffuse, ncoeff, relu):
     S_total = (gstate[1:] * state[1:]).sum(0)
     gaux = torch.cat([gstate, S_total[None], state[0:1]])
     ops = args[1:7]
-    got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    with _nan_allocations():
+        got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
     torch.cuda.synchronize()
     want = gt.composite_backward_plain(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
     assert got.shape == want.shape == t1.shape and got.dtype == torch.bfloat16
@@ -695,6 +743,178 @@ def test_stripe_backward_kernel_matches_plain(cuda, P, diffuse, ncoeff, relu):
     assert (gn.composite_positions.launches - counts[0],
             gt.composite_backward.launches - counts[1]) == (1, 1)
     assert _cosine(t1g.grad.float(), want.float()) > 0.99999
+
+
+# K7's band-kernel cases: (grid, P, height, width, focal) of one pose. narrow:
+# Qn = 128, two texel rows a CTA; tall: Qn = 2048, clusters of 4 CTAs;
+# deep: 256 vertices along the march axis at P = 8 (over 2000 positions,
+# SH degree 3); coarse: a 256 x 256 cross-section on 128 texels (|kv| > 1:
+# some rows v get no column); fine: a 16^3 grid on a 1280-texel frame
+# (|kv| << 1: many columns reach one v; clusters of 3 CTAs with idle columns);
+# past: Qn = 4224, past the band kernel's reach (clusters of 8 CTAs of 512
+# columns), which takes the three launches
+BAND_CASES = {"narrow": ("ball32", 2, 96, 96, 105.0),
+              "tall": ("ball32", 2, 1600, 160, 1750.0),
+              "deep": ("deep", 8, 64, 64, 70.0),
+              "coarse": ("wide", 2, 64, 64, 70.0),
+              "fine": ("ball16", 2, 1024, 1024, 1120.0),
+              "past": ("ball32", 2, 3300, 160, 3600.0)}
+
+
+def _band_case(device, view):
+    """The stripe operands of BAND_CASES[view] (diffuse on, qb = 0), as
+    ``_stripe_case`` builds them."""
+    grid_kind, P, height, width, focal = BAND_CASES[view]
+    gn._strict_f32()
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    if grid_kind == "deep":
+        tgrid = _deep_grid(axis, device)
+    elif grid_kind == "wide":
+        tgrid = _deep_grid(axis, device, n_axis=16, n_other=256, ncoeff=9)
+    else:
+        tgrid = _grid(int(grid_kind[4:]), device=device)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=True, pos_per_cell=P,
+                             exit_eps=0.0, qb=0)
+    Pn, Qn, PB, Pb = gn.gnomonic_frame(None, height, width, focal, SS, st)
+    slices = gn.repack_position_slices(tgrid, st, vertex_only=False)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
+                               torch.from_numpy(org).to(device), st, height, width,
+                               torch.tensor(focal, device=device), SS,
+                               phase=(0.25, -0.125), lite=False, skip_basis=False)
+    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    return slices, geo, st, (Pn, Qn, PB, Pb), occ
+
+
+@pytest.mark.parametrize("view", list(BAND_CASES))
+def test_band_cases_hold_their_geometry(view):
+    """On the CPU: each K7 band case has what it is there for: Qn = 128 with
+    two rows a CTA (narrow), Qn = 2048 and clusters of 4 (tall), over 2000
+    positions (deep), |kv| > 1 on its needed positions (coarse), |kv| < 0.1
+    and a cluster with idle columns (fine), Qn = 4224 and no band plan
+    (past); every case has needed blocks and dead ones."""
+    slices, geo, st, (Pn, Qn, PB, Pb), occ = _band_case("cpu", view)
+    NP, nv = slices.shape[0], slices.shape[3]
+    plan = gt.stripe_band_plan(Qn, Pb, NP, 3 * st.ncoeff + 1, nv)
+    needed = occ[1].sum(0) > 0
+    kv = float(geo.geom[needed, 5].abs().max())
+    assert bool(needed.any()) and not bool(occ[1].all())
+    if view == "past":
+        assert Qn == 4224 and plan is None, (Qn, plan)
+        return
+    expect = {"narrow": Qn == 128 and plan.R == 2, "tall": Qn == 2048 and plan.S == 4,
+              "deep": NP > 2000 and st.ncoeff == 16, "coarse": kv > 1.0,
+              "fine": kv < 0.1 and plan.S * plan.Qc > Qn}
+    assert expect[view], (Qn, NP, kv, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", list(BAND_CASES))
+def test_stripe_backward_band_cases(cuda, view):
+    """K7's band kernel on the BAND_CASES views against its plain version
+    (the bounds of test_stripe_backward_kernel_matches_plain: max-abs <= 1e-2
+    of the largest element, cosine > 0.99999, pad channels and dead blocks
+    zero, both outputs allocated NaN-filled) and against the three-launch
+    design it replaced, which folds in the same order (bit-equal); the past
+    case runs the three launches itself."""
+    slices, geo, st, (Pn, Qn, PB, Pb), occ = _band_case(cuda, view)
+    t1 = gn.resample_u(slices, geo.Ru)
+    ops = (geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom)
+    args = (t1, *ops, st, Pn, Qn, PB, Pb, occ)
+    state = gn.composite_positions_plain(*args)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    checked = gn._check_stripe_operands("K7", t1, *ops, occ, st, Pn, Qn, PB, Pb)
+    with _nan_allocations():
+        got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+        old = gt.stripe_backward_three_launch(checked, gaux.contiguous(), st, Pn, Qn, Pb,
+                                              1, Qn)
+    torch.cuda.synchronize()
+    want = gt.composite_backward_plain(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, 3 * st.ncoeff + 1:].any()
+    dead = (occ[1] == 0).T.repeat_interleave(Pb, 1)  # [NP, Pn]
+    assert not got.permute(0, 2, 1, 3)[dead].any()
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("Qn", list(range(128, 2049, 128)))
+def test_stripe_band_plan_fits(Qn):
+    """On the CPU: K7's launch plan at every frame width of the CLI's
+    frames (Qn 128-2048) and marches of up to 2041 positions (P = 8 on a
+    256^3 grid) at SH degrees 0-3 and nv 16-256: at most 227 KB of shared
+    memory and 512 threads (the kernel's launch bound, under the 1024 of a
+    block); clusters of at most 8 CTAs (none up to Qn = 256) whose columns,
+    multiples of 32, cover the frame with no CTA idle; rows a CTA dividing
+    the flag blocks; t1 staged wherever its ring fits."""
+    for NP in (65, 255, 1021, 2041):
+        for used in (4, 13, 28, 49):
+            for nv in (16, 64, 128, 256):
+                plan = gt.stripe_band_plan(Qn, 128, NP, used, nv)
+                assert plan.smem <= 227 * 1024 and plan.threads <= 512 <= 1024
+                assert plan.threads == plan.R * plan.Qc and plan.Qc % 32 == 0
+                assert 1 <= plan.S <= 8 and (plan.S - 1) * plan.Qc < Qn <= plan.S * plan.Qc
+                assert 128 % plan.R == 0 and (Qn > 256 or plan.S == 1)
+                ring = 6 * used * plan.R * nv
+                rest = plan.smem - (ring if plan.staged else 0)
+                assert plan.staged == (rest + ring <= 227 * 1024)
+    unaligned = gt.stripe_band_plan(Qn, 128, 255, 28, 128, t1_aligned=False)
+    assert not unaligned.staged
+
+
+@pytest.mark.parametrize("Qn,NP,fits", [(4096, 2041, True), (4224, 255, False),
+                                        (8192, 65, False), (512, 8000, False)])
+def test_stripe_band_plan_reach(Qn, NP, fits):
+    """On the CPU: K7's band plan reaches Qn = 4096 (a cluster of 8 CTAs of
+    512 columns) and no further, and no plan fits where the position tables
+    fill the shared memory; there the plan is None and the wrapper takes the
+    three launches."""
+    plan = gt.stripe_band_plan(Qn, 128, NP, 28, 128)
+    assert (plan is not None) == fits
+    if fits:
+        assert (plan.S, plan.Qc) == (8, 512) and plan.smem <= 227 * 1024
+
+
+def test_bind_binds_each_function_once(monkeypatch):
+    """On the CPU, with a stand-in library: kernels.bind looks a function up
+    and sets its ctypes signature on the first call only, then returns the
+    same cached object."""
+    import ctypes
+    from thr3ed_atom_tpu_torch import kernels
+
+    class Fn:
+        def __init__(self):
+            self.sets = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                object.__setattr__(self, "sets", self.sets + 1)
+            object.__setattr__(self, name, value)
+
+    class Lib:
+        def __init__(self):
+            self.f, self.g = Fn(), Fn()
+
+    loads = []
+
+    def fake_load(name):
+        loads.append(name)
+        return Lib()
+
+    monkeypatch.setattr(kernels, "load", fake_load)
+    monkeypatch.setattr(kernels, "_bound", {})
+    args = [ctypes.c_void_p, ctypes.c_int]
+    first = kernels.bind("fake", "f", args)
+    assert all(kernels.bind("fake", "f", args) is first for _ in range(3))
+    other = kernels.bind("fake", "g", args)
+    assert loads == ["fake", "fake"] and first.sets == 1 and other.sets == 1
+    assert first.argtypes == args and first.restype is ctypes.c_int and other is not first
 
 
 @pytest.mark.gpu

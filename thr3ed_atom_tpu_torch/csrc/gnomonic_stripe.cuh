@@ -1,6 +1,6 @@
 // gnomonic_stripe: what the stripe composite (composite_stripe.cu, K5) and its
-// replay backward (composite_stripe_backward.cu, K7) share: the column taps of
-// the v-tent matrix and the source that builds a position's values at a texel
+// replay backwards (composite_stripe_backward.cu, K7 and K8) share: the column
+// taps of the v-tent matrix and the two-tap values of a position at a texel
 // from the u-resampled stack t1.
 //
 // The TPU kernels take the v-tents as a dense bf16 matrix RvT [NP, nv, Qn] and
@@ -71,34 +71,43 @@ struct StripeOperands {
   int Pn, Qn, nv;
 };
 
+// A position's values at one texel from its t1 row (channel c at
+// row[c * sc + v], in device or shared memory) and its column taps tp:
+// vals[c] = 0 + w0 t1[c, v0] + w1 t1[c, v0 + 1] per used channel (the dense
+// product's f32 sum, exactly), then the SH fold.
+template <int NCOEFF>
+__device__ __forceinline__ void two_tap_values(const __nv_bfloat16* row, long long sc,
+                                               float4 tp, int nv, const float* yb,
+                                               float& sig, float* rgb, float* dif) {
+  constexpr int USED = 3 * NCOEFF + 1;
+  const int v0 = __float_as_int(tp.x);
+  const int v1 = min(v0 + 1, nv - 1);  // weight 0 past the last row
+  sig = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rgb[c] = dif[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < USED; ++c) {
+    const __nv_bfloat16* r = row + c * sc;
+    fold_channel<NCOEFF>(c, 0.0f + tp.y * __bfloat162float(r[v0]) +
+                                tp.z * __bfloat162float(r[v1]),
+                         yb, sig, rgb, dif);
+  }
+}
+
 template <int NCOEFF>
 struct StripeSource {
   StripeOperands op;
   int p, q;
   const float* yb;
-  // position j's values: vals[c] = 0 + w0 t1[c, v0] + w1 t1[c, v0 + 1] per used
-  // channel (the dense product's f32 sum, exactly), then the SH fold; the
-  // texel is live where live_u[j, p] * live_v[j, q] is
+  // position j's values (two_tap_values); the texel is live where
+  // live_u[j, p] * live_v[j, q] is
   __device__ __forceinline__ void values(int j, const float* G, float& sig,
                                          float* rgb, float* dif,
                                          float& live) const {
     (void)G;
-    constexpr int USED = 3 * NCOEFF + 1;
-    const float4 tp = op.taps[(size_t)j * op.Qn + q];
-    const int v0 = __float_as_int(tp.x);
-    const int v1 = min(v0 + 1, op.nv - 1);  // weight 0 past the last row
     live = op.live_u[(size_t)j * op.Pn + p] * op.live_v[(size_t)j * op.Qn + q];
-    const __nv_bfloat16* row = op.t1 + j * op.sj + p * op.sp;
-    sig = 0.0f;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) rgb[c] = dif[c] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < USED; ++c) {
-      const __nv_bfloat16* r = row + c * op.sc;
-      fold_channel<NCOEFF>(c, 0.0f + tp.y * __bfloat162float(r[v0]) +
-                                  tp.z * __bfloat162float(r[v1]),
-                           yb, sig, rgb, dif);
-    }
+    two_tap_values<NCOEFF>(op.t1 + j * op.sj + p * op.sp, op.sc,
+                           op.taps[(size_t)j * op.Qn + q], op.nv, yb, sig, rgb, dif);
   }
 };
 

@@ -6,7 +6,10 @@ headers, so a build takes seconds). Libraries go to ``build/kernels/`` at the
 repository root, named by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads as built. Nothing is built when this module
 is imported: ``load(name)`` builds one library on first use and
-``build_all()`` starts one nvcc per source, all at once.
+``build_all()`` starts one nvcc per source, all at once. ``bind`` returns a
+library function with its ctypes signature set, bound once and cached, and
+``stream`` the raw handle of PyTorch's current stream: the wrappers' launch
+path does no more host work per call than the call itself needs.
 
 There is no fallback: a missing nvcc or a failed build raises.
 """
@@ -18,7 +21,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -32,8 +37,8 @@ SOURCES: Dict[str, List[str]] = {
                                  "gnomonic_march.cuh", "relu_trap.cuh"],
     "composite_stripe": ["composite_stripe.cu", "gnomonic_stripe.cuh",
                          "gnomonic_march.cuh", "relu_trap.cuh"],
-    "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stripe.cuh",
-                                  "gnomonic_march.cuh", "relu_trap.cuh"],
+    "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stage.cuh",
+                                  "gnomonic_stripe.cuh", "gnomonic_march.cuh", "relu_trap.cuh"],
     "resample_rows": ["resample_rows.cu"],
     "slab_march": ["slab_march.cu", "slab_march.cuh"],
     "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh"],
@@ -54,6 +59,7 @@ NVCC_FLAGS = [
 ]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -125,6 +131,26 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def bind(name: str, fn_name: str, argtypes: Sequence, restype=ctypes.c_int):
+    """Function ``fn_name`` of library ``name`` with its ``argtypes`` and
+    ``restype`` set: bound on the first call (building the library if
+    needed), then returned from a cache. Each pointer and the stream is a
+    ``ctypes.c_void_p``, or ctypes passes it as a 32-bit int and cuts it."""
+    fn = _bound.get((name, fn_name))
+    if fn is None:
+        fn = getattr(load(name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _bound[(name, fn_name)] = fn
+    return fn
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s CUDA device,
+    without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

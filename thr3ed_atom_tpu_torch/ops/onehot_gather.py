@@ -64,10 +64,8 @@ def onehot_scatter_add_plain(indices, weights, g, B: int) -> torch.Tensor:
 
 
 def _lib(fn_name: str, n_ptr: int):
-    fn = getattr(kernels.load("onehot_gather"), fn_name)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind("onehot_gather", fn_name,
+                        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _cuda_rows(what, indices, weights, dev):
@@ -96,7 +94,7 @@ def onehot_gather_forward(table, indices, weights) -> torch.Tensor:
     out = torch.empty((N, C), dtype=F32, device=dev)
     err = _lib("onehot_gather_launch", 4)(tab.data_ptr(), idx.data_ptr(), w.data_ptr(),
                                           out.data_ptr(), N, K, B, C,
-                                          torch.cuda.current_stream(dev).cuda_stream)
+                                          kernels.stream(out))
     kernels.check(err, "onehot_gather")
     onehot_gather_forward.launches += 1
     return out
@@ -124,7 +122,7 @@ def onehot_scatter_add(indices, weights, g, B: int) -> torch.Tensor:
     out = torch.zeros((B, C), dtype=F32, device=dev)
     err = _lib("onehot_scatter_add_launch", 4)(idx.data_ptr(), w.data_ptr(), gf.data_ptr(),
                                                out.data_ptr(), N, K, B, C,
-                                               torch.cuda.current_stream(dev).cuda_stream)
+                                               kernels.stream(out))
     kernels.check(err, "onehot_scatter_add")
     onehot_scatter_add.launches += 1
     return out

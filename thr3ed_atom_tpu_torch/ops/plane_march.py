@@ -290,7 +290,7 @@ def plane_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: b
     err = _lib("plane_march", "plane_march_launch", 5, 10)(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), out.data_ptr(),
         T, G, rays.shape[1], XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse),
-        int(group_offset), float(exit_eps), torch.cuda.current_stream(dev).cuda_stream)
+        int(group_offset), float(exit_eps), kernels.stream(out))
     kernels.check(err, "plane_march")
     plane_march_render.launches += 1
     return out
@@ -327,7 +327,7 @@ def plane_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), fwd.data_ptr(),
         g.data_ptr(), dgrid.data_ptr(), T, G, R, XG, U, V, ncoeff, int(relu_sigma),
         int(with_diffuse), int(group_offset), float(exit_eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        kernels.stream(dgrid))
     kernels.check(err, "plane_march_backward")
     plane_march_grad.launches += 1
     return dgrid

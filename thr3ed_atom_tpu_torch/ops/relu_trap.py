@@ -84,14 +84,10 @@ def relu_trap(a: torch.Tensor, b: torch.Tensor, relu_sigma: bool) -> Quad:
     if a.shape != b.shape or not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("relu_trap: contiguous inputs of one shape required")
     out = torch.empty((4,) + tuple(a.shape), dtype=torch.float32, device=a.device)
-    lib = kernels.load("relu_trap")
-    fn = lib.relu_trap_eval
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    fn = kernels.bind("relu_trap", "relu_trap_eval",
+                      [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
-             int(bool(relu_sigma)), stream)
+             int(bool(relu_sigma)), kernels.stream(a))
     kernels.check(err, "relu_trap_eval")
     relu_trap.launches += 1
     return out[0], out[1], out[2], out[3]

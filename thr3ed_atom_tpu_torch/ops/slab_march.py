@@ -289,11 +289,8 @@ def slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: 
 
 
 def _lib(name: str, fn_name: str, n_ptr: int, n_int: int):
-    fn = getattr(kernels.load(name), fn_name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind(name, fn_name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                        + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _cuda_operands(what, tables, counts, rays, grid, ncoeff, lan=LAN, patch=(PU, PV)):
@@ -327,7 +324,7 @@ def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bo
     err = _lib("slab_march", "slab_march_launch", 5, 10)(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), out.data_ptr(),
         T, G, rays.shape[1], XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), 0,
-        float(exit_eps), torch.cuda.current_stream(dev).cuda_stream)
+        float(exit_eps), kernels.stream(out))
     kernels.check(err, "slab_march")
     slab_march_render.launches += 1
     return out
@@ -362,7 +359,7 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     err = _lib("slab_march_backward", "slab_march_backward_launch", 7, 10)(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), fwd.data_ptr(),
         g.data_ptr(), dgrid.data_ptr(), T, G, R, XG, U, V, ncoeff, int(relu_sigma),
-        int(with_diffuse), 0, float(exit_eps), torch.cuda.current_stream(dev).cuda_stream)
+        int(with_diffuse), 0, float(exit_eps), kernels.stream(dgrid))
     kernels.check(err, "slab_march_backward")
     slab_march_grad.launches += 1
     return dgrid

@@ -695,15 +695,9 @@ def _counter_ptr(counter, dev):
 
 
 def _composite_lib():
-    lib = kernels.load("composite_fused")
-    fn = lib.composite_fused_launch
-    fn.argtypes = (
-        [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 18
-        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    )
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind("composite_fused", "composite_fused_launch",
+                        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 18
+                        + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
 
 
 def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
@@ -768,8 +762,7 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
         NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, PB, QB,
         u_ax, v_ax, statics.axis,
-        -1.0 if statics.flip else 1.0, float(statics.exit_eps),
-        torch.cuda.current_stream(dev).cuda_stream,
+        -1.0 if statics.flip else 1.0, float(statics.exit_eps), kernels.stream(out),
     )
     kernels.check(err, "composite_fused")
     composite_positions_fused.launches += 1
@@ -862,11 +855,9 @@ def _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
 
 
 def _stripe_lib():
-    fn = kernels.load("composite_stripe").composite_stripe_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind("composite_stripe", "composite_stripe_launch",
+                        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 10
+                        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _launch_stripe(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
@@ -887,8 +878,7 @@ def _launch_stripe(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
         lu.data_ptr(), lv.data_ptr(), geom.data_ptr(), cl.data_ptr(), pn.data_ptr(),
         yb.data_ptr(), nm.data_ptr(), out.data_ptr(),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
-        NP, nv, Pn, Qn, Pb, QB, Qb, float(statics.exit_eps),
-        torch.cuda.current_stream(dev).cuda_stream,
+        NP, nv, Pn, Qn, Pb, QB, Qb, float(statics.exit_eps), kernels.stream(out),
     )
     kernels.check(err, "composite_stripe")
     return out

@@ -225,11 +225,8 @@ def composite_backward_fused_plain(slices, ybasis, norm, geom, gaux, occupancy,
 
 
 def _backward_fn():
-    lib = kernels.load("composite_backward_fused")
-    fn = lib.composite_backward_fused_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind("composite_backward_fused", "composite_backward_fused_launch",
+                        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 
 
 def fold_records(pos_needed: torch.Tensor, statics: GnomonicStatics, Pb: int,
@@ -310,8 +307,7 @@ def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
         ops[3].data_ptr(), dt1.data_ptr(), edge.data_ptr(), dsl.data_ptr(),
         _counter_ptr(direct_tiles, dev),
         statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
-        NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB,
-        torch.cuda.current_stream(dev).cuda_stream,
+        NP, statics.pos_per_cell, nvert, nu, nv, C, Pn, Qn, Pb, Qb, QB, kernels.stream(dsl),
     )
     kernels.check(err, "composite_backward_fused")
     composite_backward_fused.launches += 1
@@ -434,43 +430,130 @@ def composite_backward_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom, gau
 
 
 def _stripe_backward_fn():
-    fn = kernels.load("composite_stripe_backward").composite_stripe_backward_launch
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 15
-                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return kernels.bind("composite_stripe_backward", "composite_stripe_backward_launch",
+                        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 15
+                        + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+
+
+def _stripe_band_fn():
+    return kernels.bind("composite_stripe_backward", "composite_stripe_band_launch",
+                        [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 11
+                        + [ctypes.c_int] * 13 + [ctypes.c_longlong, ctypes.c_void_p])
+
+
+class BandPlan(NamedTuple):
+    """K7's launch: clusters of ``S`` CTAs of ``R`` texel rows by ``Qc``
+    columns (``threads`` = R Qc, one a texel) span a row band's q extent;
+    ``staged``: t1's band rows go through a shared-memory ring; ``smem``:
+    the CTA's shared-memory bytes."""
+    S: int
+    R: int
+    Qc: int
+    threads: int
+    staged: bool
+    smem: int
+
+
+BAND_ROW_THREADS = 256  # texels of a CTA over several rows (Qn <= 256)
+BAND_MAX_THREADS = 512  # the kernel's launch bound: texels of a CTA over one row
+BAND_MAX_CLUSTER = 8  # the portable cluster size
+SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (227 KB)
+
+
+def stripe_band_plan(Qn: int, Pb: int, NP: int, used: int, nv: int,
+                     t1_aligned: bool = True) -> Optional[BandPlan]:
+    """The launch plan of K7's band kernel (csrc/composite_stripe_backward.cu,
+    whose ``band_layout`` lays out the same bytes): a frame of Qn <= 256
+    columns takes R = 256 / Qn rows a CTA; a wider one CTAs of one row and up
+    to 512 columns (one CTA up to Qn = 512; past that a cluster of S =
+    ceil(Qn / 512) CTAs of Qc columns, a multiple of 32, the last CTA's
+    surplus columns idle), or up to 256 columns where 512 do not fit the
+    shared memory. None where no plan fits: past Qn = 4096 (a cluster of 8
+    CTAs of 512 columns) or where the position tables fill the shared
+    memory. Shared memory: the taps ring (5 x Qc float4), the
+    liveness ring (3 x [Qc + R, padded to 4] f32), the t1 ring (3 x [used,
+    R, nv] bf16, only where t1's rows are 16-byte aligned and it fits), the
+    per-position tables (32 NP bytes), the column ranges (4 x 2 nv int,
+    padded to 16 bytes) and the flushed cotangents (2 x [R, Qc, CS] bf16, CS
+    the used channels rounded up to an odd number of 8-channel groups)."""
+    cs = 8 * (-(-used // 8) | 1)  # a texel's cotangent stride: odd 8-channel groups
+    for width in (BAND_MAX_THREADS, BAND_ROW_THREADS):
+        if Qn <= BAND_ROW_THREADS:
+            S, R, Qc = 1, max(1, BAND_ROW_THREADS // Qn), Qn
+            while Pb % R:
+                R //= 2
+        else:
+            S = -(-Qn // width)
+            R, Qc = 1, 32 * -(-Qn // (32 * S))
+            S = -(-Qn // Qc)
+        rest = (80 * Qc + 12 * -(-(Qc + R) // 4) * 4 + 32 * NP + -(-32 * nv // 16) * 16
+                + 4 * R * Qc * cs)
+        if S <= BAND_MAX_CLUSTER and rest <= SMEM_OPTIN:
+            ring = 6 * used * R * nv
+            staged = t1_aligned and nv % 8 == 0 and rest + ring <= SMEM_OPTIN
+            return BandPlan(S, R, Qc, R * Qc, staged, rest + (ring if staged else 0))
+    return None
 
 
 def _launch_stripe_backward(what, t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
                             occupancy, statics: GnomonicStatics, Pn, Qn, PB, Pb):
-    """One call of csrc/composite_stripe_backward.cu (K7 for QB = 1, K8 for
-    QB > 1): dt1 [NP, C, Pn, nv] bf16."""
+    """One call of csrc/composite_stripe_backward.cu: K7's band kernel for
+    QB = 1, K8's three launches for QB > 1 and for a QB = 1 frame that no
+    band plan serves (Qn > 4096). Returns dt1 [NP, C, Pn, nv] bf16."""
     if t1.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t1.device}")
-    t1, rvt, yb, lu, lv, nm, geom, cl, pn = _check_stripe_operands(
-        what, t1, rvt, ybasis, live_u, live_v, norm, geom, occupancy,
-        statics, Pn, Qn, PB, Pb)
+    ops = _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
+                                 occupancy, statics, Pn, Qn, PB, Pb)
     if gaux.shape != (_sprows(statics.with_diffuse) + 2, Pn, Qn):
         raise ValueError(f"{what}: gaux shape")
-    NP, C, _, nv = t1.shape
+    gaux = gaux.to(F32).contiguous()
     QB, Qb = _qb_blocks(statics, Qn)
+    t1, rvt, yb, lu, lv, nm, geom, cl, pn = ops
+    NP, C, _, nv = t1.shape
+    aligned = t1.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t1.stride()[:3])
+    plan = None if QB > 1 else stripe_band_plan(Qn, Pb, NP, 3 * statics.ncoeff + 1, nv,
+                                                aligned)
+    if plan is None:  # K8, or a frame past the band kernel's reach
+        return stripe_backward_three_launch(ops, gaux, statics, Pn, Qn, Pb, QB, Qb)
+    if lv.data_ptr() % 16:  # the kernel copies live_v rows in 16-byte pieces
+        lv = lv.clone()
+    taps = torch.empty((NP, Qn, 4), dtype=F32, device=t1.device)
+    dt1 = torch.empty((NP, C, Pn, nv), dtype=torch.bfloat16, device=t1.device)
+    err = _stripe_band_fn()(
+        t1.data_ptr(), *t1.stride()[:3], rvt.data_ptr(), taps.data_ptr(), lu.data_ptr(),
+        lv.data_ptr(), geom.data_ptr(), cl.data_ptr(), pn.data_ptr(), yb.data_ptr(),
+        nm.data_ptr(), gaux.data_ptr(), dt1.data_ptr(), statics.ncoeff,
+        int(statics.with_diffuse), int(statics.relu_sigma), NP, C, nv, Pn, Qn, Pb,
+        plan.S, plan.R, plan.Qc, int(plan.staged), plan.smem, kernels.stream(dt1))
+    kernels.check(err, "composite_stripe_band")
+    return dt1
+
+
+def stripe_backward_three_launch(ops, gaux, statics: GnomonicStatics, Pn, Qn, Pb, QB, Qb):
+    """K8's three launches of csrc/composite_stripe_backward.cu on the
+    checked operands ``ops`` of ``_check_stripe_operands`` and the f32
+    ``gaux``: the column taps with each row's column range, the march into a
+    compact cotangent buffer of ``dvals_slots`` slots of [3 ncoeff + 1, Pb,
+    Qb] bf16, the fold. With QB = 1 it is the design K7 ran before its band
+    kernel (chip_smoke.py holds the two against each other), and K7's path
+    on a frame that no band plan serves. Returns dt1."""
+    t1, rvt, yb, lu, lv, nm, geom, cl, pn = ops
+    NP, C, _, nv = t1.shape
     dev = t1.device
     slot, n_slots = dvals_slots(pn)
-    used = 3 * statics.ncoeff + 1
-    dvals = torch.empty((max(n_slots, 1), used, Pb, Qb), dtype=torch.bfloat16, device=dev)
+    dvals = torch.empty((max(n_slots, 1), 3 * statics.ncoeff + 1, Pb, Qb),
+                        dtype=torch.bfloat16, device=dev)
     taps = torch.empty((NP, Qn, 4), dtype=F32, device=dev)
     q_lo = torch.full((NP, nv), 2 ** 31 - 1, dtype=torch.int32, device=dev)
     q_hi = torch.full((NP, nv), -1, dtype=torch.int32, device=dev)
     dt1 = torch.empty((NP, C, Pn, nv), dtype=torch.bfloat16, device=dev)
-    gaux = gaux.to(F32).contiguous()
     err = _stripe_backward_fn()(
         t1.data_ptr(), *t1.stride()[:3], rvt.data_ptr(), taps.data_ptr(),
         q_lo.data_ptr(), q_hi.data_ptr(), lu.data_ptr(), lv.data_ptr(),
         geom.data_ptr(), cl.data_ptr(), pn.data_ptr(), slot.data_ptr(), yb.data_ptr(),
-        nm.data_ptr(), gaux.data_ptr(), dvals.data_ptr(), dt1.data_ptr(),
-        statics.ncoeff, int(statics.with_diffuse), int(statics.relu_sigma),
-        NP, C, nv, Pn, Qn, Pb, QB, Qb, torch.cuda.current_stream(dev).cuda_stream,
-    )
+        nm.data_ptr(), gaux.data_ptr(), dvals.data_ptr(), dt1.data_ptr(), statics.ncoeff,
+        int(statics.with_diffuse), int(statics.relu_sigma), NP, C, nv, Pn, Qn, Pb, QB, Qb,
+        kernels.stream(dt1))
     kernels.check(err, "composite_stripe_backward")
     return dt1
 
@@ -481,10 +564,12 @@ def composite_backward(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occupa
     """The replay VJP of the stripe composite (see
     ``composite_backward_plain``): dt1 [NP, C, Pn, nv] bf16. With QB > 1
     q-blocks this is ``composite_backward_qb`` (K8); else, on a CUDA tensor,
-    one call of csrc/composite_stripe_backward.cu (K7: column taps, a march
-    over the texels into a compact cotangent buffer of
-    ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb] bf16, a fold
-    over (texel rows, position)), on a CPU tensor the plain version."""
+    one call of csrc/composite_stripe_backward.cu (K7: the column taps, then
+    one band kernel, ``stripe_band_plan``: clusters of CTAs spanning a row
+    band's q extent replay it and fold each position's cotangent through
+    its v-tents in shared memory; past the plan's reach, Qn > 4096, the
+    three launches of ``stripe_backward_three_launch``), on a CPU tensor
+    the plain version."""
     if _qb_blocks(statics, Qn)[0] > 1:
         return composite_backward_qb(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
                                      occupancy, statics, Pn, Qn, PB, Pb)
@@ -506,8 +591,10 @@ def composite_backward_qb(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occ
     """The q-split replay VJP (K8): as ``composite_backward`` with [PB, QB, NP]
     flags, the fold summing per q-block partials (see
     ``composite_backward_qb_plain``). On a CUDA tensor one call of
-    csrc/composite_stripe_backward.cu with the q-block grain; on a CPU tensor
-    the plain version."""
+    csrc/composite_stripe_backward.cu with the q-block grain (column taps, a
+    march over the texels into a compact cotangent buffer of
+    ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb] bf16, a fold
+    over (texel rows, position)); on a CPU tensor the plain version."""
     if t1.device.type == "cpu":
         return composite_backward_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
                                            gaux, occupancy, statics, Pn, Qn, PB, Pb)

@@ -108,29 +108,20 @@ def resample_rows_adjoint_plain(dY: torch.Tensor, pos: torch.Tensor, order: int,
     return dX
 
 
-def _resample_fn():
-    lib = kernels.load("resample_rows")
-    fn = lib.resample_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _adjoint_fn():
-    lib = kernels.load("resample_rows_adjoint")
-    fn = lib.resample_rows_adjoint_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# (X or dY, pos, out, NB, CH, K, N, order, taps, stream)
+_ROWS_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _check_rows(name, t, pos, order):
-    if t.device.type != "cuda" or pos.device != t.device:
-        raise ValueError(f"{name}: unsupported devices {t.device}, {pos.device}")
-    if t.dtype != F32 or pos.dtype != F32:
-        raise TypeError(f"{name}: float32 inputs required")
-    if not (t.is_contiguous() and pos.is_contiguous()):
-        raise ValueError(f"{name}: contiguous inputs required")
+    """The kernels' contract, one cheap test each: contiguous float32 CUDA
+    tensors on one device, CH = 8 channels (``t``'s second-last axis),
+    order 1, 3 or 5."""
+    if not (t.is_cuda and t.dtype is F32 and pos.dtype is F32 and t.is_contiguous()
+            and pos.is_contiguous() and pos.get_device() == t.get_device()):
+        raise ValueError(f"{name}: contiguous float32 CUDA tensors on one device required, "
+                         f"got {t.dtype} {t.device}, {pos.dtype} {pos.device}")
+    if t.shape[-2] != 8:
+        raise ValueError(f"{name}: the kernel takes CH = 8 channels, got {t.shape[-2]}")
     if order not in (1, 3, 5):
         raise ValueError(f"unsupported warp order {order}")
 
@@ -140,17 +131,14 @@ def _resample_rows_forward(X: torch.Tensor, pos: torch.Tensor, order: int,
     if X.device.type == "cpu":
         return resample_rows_plain(X, pos, order, taps)
     _check_rows("resample_rows", X, pos, order)
-    if X.dim() != 3 or pos.shape != (X.shape[0], 1, pos.shape[2]):
-        raise ValueError(f"resample_rows: X {tuple(X.shape)}, pos {tuple(pos.shape)}")
     NB, CH, K = X.shape
-    if CH != 8:
-        raise ValueError(f"resample_rows: the kernel takes CH = 8 channels, got {CH}")
-    N = pos.shape[2]
-    shape = (NB, 3, CH, N) if taps else (NB, CH, N)
-    out = torch.empty(shape, dtype=F32, device=X.device)
-    err = _resample_fn()(X.data_ptr(), pos.data_ptr(), out.data_ptr(), NB, CH,
-                         K, N, order, int(taps),
-                         torch.cuda.current_stream(X.device).cuda_stream)
+    N = pos.shape[-1]
+    if pos.shape != (NB, 1, N):
+        raise ValueError(f"resample_rows: X {tuple(X.shape)}, pos {tuple(pos.shape)}")
+    out = torch.empty((NB, 3, CH, N) if taps else (NB, CH, N), dtype=F32, device=X.device)
+    err = kernels.bind("resample_rows", "resample_rows_launch", _ROWS_ARGS)(
+        X.data_ptr(), pos.data_ptr(), out.data_ptr(), NB, CH, K, N, order, int(taps),
+        kernels.stream(X))
     kernels.check(err, "resample_rows")
     resample_rows.launches += 1
     return out
@@ -169,12 +157,10 @@ def resample_rows_adjoint(dY: torch.Tensor, pos: torch.Tensor, order: int,
     CH, N = dY.shape[-2], dY.shape[-1]
     if dY.shape != ((NB, 3, CH, N) if taps else (NB, CH, N)) or pos.shape != (NB, 1, N):
         raise ValueError(f"resample_rows_adjoint: dY {tuple(dY.shape)}, pos {tuple(pos.shape)}")
-    if CH != 8:
-        raise ValueError(f"resample_rows_adjoint: the kernel takes CH = 8 channels, got {CH}")
     dX = torch.empty((NB, CH, K), dtype=F32, device=dY.device)
-    err = _adjoint_fn()(dY.data_ptr(), pos.data_ptr(), dX.data_ptr(), NB, CH, K,
-                        N, order, int(taps),
-                        torch.cuda.current_stream(dY.device).cuda_stream)
+    err = kernels.bind("resample_rows_adjoint", "resample_rows_adjoint_launch", _ROWS_ARGS)(
+        dY.data_ptr(), pos.data_ptr(), dX.data_ptr(), NB, CH, K, N, order, int(taps),
+        kernels.stream(dY))
     kernels.check(err, "resample_rows_adjoint")
     resample_rows_adjoint.launches += 1
     return dX
