@@ -33,12 +33,11 @@ version on the card at the main paths' shapes:
        regularization, Adam lr 0.03, phase jitter) on a 128^3 grid started at
        uniform(-1, 1), towards views rendered in phase 5; the loss must fall
        and the first step's gradient must match the plain versions' step;
-  9-10. the stripe composite (K5) and its replay backward (K7) at 128^3 and
-       at the CLI's first stage (64^3, P = 4, 200 x 200), where K1, K3 and
-       both warp passes (K2, K4) are held too; K7 also against the
-       three-launch design its band kernel replaced, both split by launch,
-       with that design's cotangent-buffer bytes and the band kernel's
-       launch plan;
+  9-10. the stripe composite (K5; its CTA shape and shared memory) and its
+       replay backward (K7) at 128^3 and at the CLI's first stage (64^3, P = 4, 200 x 200), where K1, K3 and both warp
+       passes (K2, K4) are held too; K7 also against the three-launch
+       design its band kernel replaced, both split by launch, with that
+       design's cotangent-buffer bytes and the band kernel's launch plan;
   11.  the serving path with gnomonic_qb = 0;
   12.  the training CLI end to end, main([...]) twice (the default qb, and
        --gnomonic_qb 0) on 20 views it renders and writes first: each
@@ -50,7 +49,11 @@ version on the card at the main paths' shapes:
   14.  the slab-march render (K9) and its replay backward (K10) on one
        bricked pose of the blob model (400 x 400, tile 16, K = 2, the
        serving occupancy threshold), and on an opaque copy, where the early
-       exit must end tiles;
+       exit must end tiles; K10 also on the bricked trainer's batch of 64
+       tiles of that pose, the call, the kernel alone (into a cotangent
+       zeroed before) and the cotangent's zeroing timed apart (CUDA
+       events), with its tap products, global atomics and steps summed in
+       shared memory or added directly;
   15.  bricked serving through the entry points: the blob model saved with
        render_procedure="render_sh_voxel_grid_bricked", loaded, 8 poses
        through render_poses, held against the plain render;
@@ -84,10 +87,22 @@ results before the last line, and as the last line
 Any failed phase raises and the script exits non-zero without that line; it
 also exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX.
+
+    python3 chip_smoke.py --readings PORT_ROOT
+
+reads K5 (phase 9's serving pose and training operands), K6 (phase 13's
+serving pose) and K10 (phase 14's pose and its 64-tile batch: the call, the
+kernel alone on CUDA events and under torch.profiler, and the zeroing) on
+the operands those phases build, with the
+port package of the checkout at PORT_ROOT (built there): a parent commit's
+readings in the same call as this one's, on one card. It prints them as
+one JSON line and the card's name and power limit; no kernel is held
+against its plain version in this mode.
 """
 import contextlib
 import ctypes
 import gc
+import inspect
 import json
 import shutil
 import subprocess
@@ -112,6 +127,8 @@ ONEHOT_LARGE_B = 4096  # phase 20: K14 past shared memory (its global-atomic bra
 # calls of a kernel's wrapper (tens of microseconds each)
 QUEUE_CYCLES = 100_000_000
 K2_READINGS = 7  # phase 3: device-clock readings of K2's bilinear pass and F.grid_sample
+# phase 14: the bricked trainer's tiles a step at the CLI's ray batch (16384 // 256)
+K10_BATCH_TILES = 64
 
 
 def load_port():
@@ -1242,18 +1259,195 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--readings"):
+        print("usage: python3 chip_smoke.py [--readings PORT_ROOT]", file=sys.stderr)
+        return 2
+    root = Path(args[1]).resolve() if args else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    if not (REPO / "thr3ed_atom_tpu_torch" / "csrc").is_dir():
+    if not (root / "thr3ed_atom_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(root))
+    if args:
+        return readings(torch)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         return run(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def card_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+class Scene(NamedTuple):
+    """The main path's scene: the 128^3 blob model (arrays and grid), the
+    serving render config, intrinsics, the orbit poses and the first render
+    pose's rotation, origin and march variant."""
+    d: np.ndarray
+    f: np.ndarray
+    grid_config: dict
+    config: object
+    intr: object
+    poses: list
+    grid: object
+    rot0: np.ndarray
+    org0: np.ndarray
+    axis: int
+    flip: bool
+
+
+def main_scene(port, dev) -> Scene:
+    d, f, grid_config = blob_scene(GRID_SIZE)
+    Config, camera = port["Config"], port["camera"]
+    config = Config(num_samples_per_ray=256,
+                    camera_bounds=camera.CameraBounds(2.0, 6.0),
+                    perturb_sampled_points=False, white_bkgd=True, gnomonic_qb=128)
+    intr = camera.CameraIntrinsics(IMAGE_SIZE, IMAGE_SIZE, IMAGE_SIZE * 1.1)
+    poses = camera.get_thre360_animation_poses(4.0, -60.0, NUM_POSES + 1)
+    grid = port["voxel_grid_from_numpy"](d, f, grid_config, device=dev)
+    rot0 = np.asarray(poses[1].rotation, np.float32).reshape(3, 3)
+    org0 = np.asarray(poses[1].translation, np.float32).reshape(3)
+    axis, flip = port["gn"].dominant_axis_for_pose(rot0)
+    return Scene(d, f, grid_config, config, intr, poses, grid, rot0, org0, axis, flip)
+
+
+def k5_operands(torch, port, sc, dev, kind):
+    """The stripe composite's operands on the blob pose and the count of t1
+    elements that differ from the f32 reference (``stripe_case``):
+    ``serving`` the serving statics with qb = 0 at exit 1e-4 (phase 9),
+    ``training`` the qb = 0 train statics (diffuse, phase-shifted frame;
+    phases 9-10), ``qsplit`` the serving statics with qb = 128 at exit 1e-4
+    (K6, phase 13)."""
+    gn, gt, wm = port["gn"], port["gt"], port["wm"]
+    focal_t = torch.tensor(sc.intr.focal, dtype=torch.float32, device=dev)
+    rot0_t, org0_t = torch.as_tensor(sc.rot0, device=dev), torch.as_tensor(sc.org0, device=dev)
+    if kind == "training":
+        swap0 = wm.warp_swap_for_pose(sc.rot0, sc.axis, sc.flip, IMAGE_SIZE, IMAGE_SIZE,
+                                      sc.intr.focal)
+        tstat0 = gt.make_gnomonic_train_statics(
+            sc.grid, sc.axis, sc.flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+            white_bkgd=True, apply_diffuse_render_regularization=True, warp_swap=swap0, qb=0)
+        check(not tstat0.fused, "qb=0 train statics are not the v2 pipeline")
+        return stripe_case(torch, gn, sc.grid, tstat0.statics, rot0_t, org0_t, IMAGE_SIZE,
+                           focal_t, tstat0.supersample, phase=(0.25, -0.125))
+    st = gn._variant_statics(sc.grid, sc.axis, sc.flip, sc.config)
+    ss = gn.effective_supersample(sc.config.gnomonic_supersample, st, IMAGE_SIZE, IMAGE_SIZE)
+    qb = 0 if kind == "serving" else st.qb
+    return stripe_case(torch, gn, sc.grid, st._replace(qb=qb, exit_eps=1e-4), rot0_t, org0_t,
+                       IMAGE_SIZE, focal_t, ss)
+
+
+def k10_operands(torch, port, sc, dev, vgrid=None):
+    """Phase 14's slab-march operands (tables, counts, ray records, the
+    repacked grid) of the blob pose on the serving variant, of ``vgrid``
+    (default: the scene's grid), its kwargs and whether the tables
+    overflowed."""
+    br = port["br"]
+    vgrid = sc.grid if vgrid is None else vgrid
+    bst = br.variant_statics(vgrid, sc.axis, sc.flip, sc.config)
+    rep, occ_b = br.prepare_bricked_grid(vgrid, bst)
+    rf, tab, cnt, ovf = br.tile_operands(bst, IMAGE_SIZE, IMAGE_SIZE, sc.intr.focal, occ_b,
+                                         torch.as_tensor(sc.rot0, device=dev),
+                                         torch.as_tensor(sc.org0, device=dev))
+    kw = dict(ncoeff=bst.ncoeff, relu_sigma=bst.relu_sigma, exit_eps=bst.exit_eps,
+              with_diffuse=bst.with_diffuse)
+    return (tab, cnt, rf, rep), kw, ovf
+
+
+def k10_cotangent(torch, out):
+    """The output cotangent K10 is driven with: normal draws of ``out``'s
+    shape from seed 0."""
+    return torch.randn(out.shape, generator=torch.Generator(device=out.device).manual_seed(0),
+                       device=out.device)
+
+
+def trainer_batch(torch, ops, *per_tile):
+    """The bricked trainer's batch of a pose: K10_BATCH_TILES of its tiles,
+    drawn without replacement from a seed (the trainer draws its tiles over
+    the image at random), as (ops, *per_tile) with the tables, counts, ray
+    records and each of ``per_tile`` ([T, ...] tensors) cut to them."""
+    T = ops[0].shape[0]
+    sel = torch.as_tensor(np.sort(np.random.default_rng(0).choice(T, K10_BATCH_TILES,
+                                                                  replace=False)),
+                          device=ops[0].device)
+    return (tuple(x[sel] for x in ops[:3]) + tuple(ops[3:]),) + tuple(x[sel] for x in per_tile)
+
+
+def k10_readings(torch, sm, ops, out, gout, kw, label, counted=True, profiled=False):
+    """K10 on ``ops``: device ms (CUDA events) of a call, of the kernel alone
+    (launched into a cotangent zeroed before, ``dgrid=``; None where the
+    port's wrapper has no ``dgrid``) and of the f32 cotangent's zeroing
+    alone (torch.zeros of the grid's shape); ``profiled``, the kernel's
+    device ms under torch.profiler too (a wrapper with or without
+    ``dgrid``); ``counted``, its counts: tap products (the global atomics
+    of a tap-by-tap add), global atomics issued, steps summed in shared
+    memory and added directly."""
+    grid = ops[3]
+    ms = time_ms(torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw), 5)
+    kernel_ms = None
+    if "dgrid" in inspect.signature(sm.slab_march_grad).parameters:
+        dgrid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
+        kernel_ms = time_ms(torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw,
+                                                              dgrid=dgrid), 5)
+        del dgrid
+    zeros_ms = time_ms(torch, lambda: torch.zeros(grid.shape, dtype=torch.float32,
+                                                  device=grid.device), 5)
+    r = dict(ms=ms, kernel_ms=kernel_ms, zeros_ms=zeros_ms, tiles=int(ops[0].shape[0]))
+    alone = "not measured" if kernel_ms is None else f"{kernel_ms:.4f}"
+    line = (f"# K10 slab_march_backward {label} ({r['tiles']} tiles): ms={ms:.4f}; the "
+            f"kernel alone {alone}, the zeroing alone {zeros_ms:.4f} (CUDA events)")
+    if profiled:
+        name = "slab_march_backward_kernel"
+        r["profiled_kernel_ms"] = kernel_times(
+            torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw), 5, [name])[name]
+        line += f"; the kernel under torch.profiler {r['profiled_kernel_ms']:.4f}"
+    if counted:
+        stats = torch.zeros(4, dtype=torch.int64, device=out.device)
+        sm.slab_march_grad(*ops, out, gout, **kw, stats=stats)
+        torch.cuda.synchronize()
+        products, atomics, summed, direct = stats.tolist()
+        r.update(tap_products=products, global_atomics=atomics, steps_summed=summed,
+                 steps_direct=direct)
+        line += (f"; tap products {products} (a tap-by-tap add's global atomics), global "
+                 f"atomics {atomics}, steps summed in shared memory {summed}, added "
+                 f"directly {direct}")
+    print(line, flush=True)
+    return r
+
+
+def readings(torch) -> int:
+    """The ``--readings`` mode: K5, K6 and K10 of the imported port on the
+    operands phases 9, 13 and 14 build (see the module docstring)."""
+    port = load_port()
+    gn, sm = port["gn"], port["sm"]
+    dev = torch.device("cuda")
+    print(card_line(), flush=True)
+    port["kernels"].build_all()
+    sc = main_scene(port, dev)
+    out = {}
+    for kind, key, iters in (("serving", "k5_serving_ms", 20), ("training", "k5_training_ms", 10),
+                             ("qsplit", "k6_serving_ms", 20)):
+        args, _ = k5_operands(torch, port, sc, dev, kind)
+        out[key] = time_ms(torch, lambda: gn.composite_positions(*args), iters)
+        del args
+    ops, kw, _ = k10_operands(torch, port, sc, dev)
+    fwd = sm.slab_march_render(*ops, **kw)
+    gout = k10_cotangent(torch, fwd)
+    for label, args in (("pose", (ops, fwd, gout)),
+                        ("batch", trainer_batch(torch, ops, fwd, gout))):
+        r = k10_readings(torch, sm, *args, kw, label, counted=False, profiled=True)
+        out.update({f"k10_{label}_{k}": v for k, v in r.items()})
+    print(json.dumps({"readings": out, "port": str(Path(gn.__file__).resolve().parents[2])}))
+    return 0
 
 
 def run(torch, workdir: Path) -> int:
@@ -1264,10 +1458,7 @@ def run(torch, workdir: Path) -> int:
     t_start = time.perf_counter()
 
     # ---- phase 1: the card, the build
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     print(smi)
     print(f"# torch device: {kind}; torch {torch.__version__}, cuda {torch.version.cuda}",
@@ -1281,17 +1472,9 @@ def run(torch, workdir: Path) -> int:
     print(f"# build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # the main path's shapes
-    d, f, grid_config = blob_scene(GRID_SIZE)
     Config, camera = port["Config"], port["camera"]
-    config = Config(num_samples_per_ray=256,
-                    camera_bounds=camera.CameraBounds(2.0, 6.0),
-                    perturb_sampled_points=False, white_bkgd=True, gnomonic_qb=128)
-    intr = camera.CameraIntrinsics(IMAGE_SIZE, IMAGE_SIZE, IMAGE_SIZE * 1.1)
-    poses = camera.get_thre360_animation_poses(4.0, -60.0, NUM_POSES + 1)
-    grid = port["voxel_grid_from_numpy"](d, f, grid_config, device=dev)
-    rot0 = np.asarray(poses[1].rotation, np.float32).reshape(3, 3)
-    org0 = np.asarray(poses[1].translation, np.float32).reshape(3)
-    axis, flip = gn.dominant_axis_for_pose(rot0)
+    scene = main_scene(port, dev)
+    d, f, grid_config, config, intr, poses, grid, rot0, org0, axis, flip = scene
     results = {}
 
     # ---- phase 4 inputs first (phase 2 uses the march's shapes)
@@ -1822,34 +2005,29 @@ def run(torch, workdir: Path) -> int:
     # first stage (64^3, P = 4, 200 x 200), where K1 is held too
     focal_t = torch.tensor(intr.focal, dtype=torch.float32, device=dev)
     rot0_t, org0_t = torch.as_tensor(rot0, device=dev), torch.as_tensor(org0, device=dev)
-    st_v2 = st._replace(qb=0)
-    args9, t1_exact = stripe_case(torch, gn, grid, st_v2, rot0_t, org0_t, IMAGE_SIZE,
-                                  focal_t, ss)
+    a9, t1_exact = k5_operands(torch, port, scene, dev, "serving")
     check(t1_exact == 0, f"u-resample t1 differs from the f32 reference in {t1_exact} elements")
     k5_err, k5_work = 0.0, None
     for eps in (0.0, 1e-4):
-        a = args9[:7] + (st_v2._replace(exit_eps=eps),) + args9[8:]
+        a = a9[:7] + (a9[7]._replace(exit_eps=eps),) + a9[8:]
         gap, work = stripe_compare(torch, gn, a, f"serving 128^3 exit_eps={eps}")
         k5_err = max(k5_err, max(gap))
         if eps > 0.0:
             k5_work = work
-    a9 = args9[:7] + (st_v2._replace(exit_eps=1e-4),) + args9[8:]
     k5_ms = time_ms(torch, lambda: gn.composite_positions(*a9), 20)
     k5_plain_ms = time_ms(torch, lambda: gn.composite_positions_plain(
         *a9, exit_tile=gn.CUDA_EXIT_TILE), 2)
     k5_bytes, k5_ops = stripe_counts(torch, a9, k5_work)
+    TP, TQ = gn.CUDA_EXIT_TILE
     print(f"# K5 composite_stripe (serving, 128^3): ms={k5_ms:.4f} plain_ms={k5_plain_ms:.4f}; "
+          f"CTA {TP} x {TQ} texels (one exit tile), {32 * a9[0].shape[0]} bytes of shared "
+          f"memory (the position tables), t1 and taps read from device memory; "
           f"{int(k5_work.sum())} marched pairs; bound counts {k5_bytes} bytes, {k5_ops} "
-          f"operations; t1 {tuple(args9[0].shape)} bit-equal to the f32 reference", flush=True)
-    del args9, a9, k5_work
+          f"operations; t1 {tuple(a9[0].shape)} bit-equal to the f32 reference", flush=True)
+    del a9, k5_work
 
     # the training operands at 128^3 (qb = 0 train statics, diffuse on)
-    tstat0 = gt.make_gnomonic_train_statics(
-        grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
-        apply_diffuse_render_regularization=True, warp_swap=swap0, qb=0)
-    check(not tstat0.fused, "qb=0 train statics are not the v2 pipeline")
-    args9t, _ = stripe_case(torch, gn, grid, tstat0.statics, rot0_t, org0_t, IMAGE_SIZE,
-                            focal_t, tstat0.supersample, phase=(0.25, -0.125))
+    args9t, _ = k5_operands(torch, port, scene, dev, "training")
     gap, work9t = stripe_compare(torch, gn, args9t, "training operands 128^3")
     k5_err = max(k5_err, max(gap))
     k5t_ms = time_ms(torch, lambda: gn.composite_positions(*args9t), 10)
@@ -2038,17 +2216,16 @@ def run(torch, workdir: Path) -> int:
     # 1e-4 and 0) and on training operands, its replay backward (K8), then
     # one gnomonic_train_step_multi with fused=False, qb = 128 (phase 8's
     # views, phases and start grid) against the plain versions' step
-    args13, t1_exact = stripe_case(torch, gn, grid, st, rot0_t, org0_t, IMAGE_SIZE, focal_t, ss)
-    check(t1_exact == 0 and args13[12][0].dim() == 3,
-          f"q-split operands: t1 mismatches {t1_exact}, flags {tuple(args13[12][0].shape)}")
+    a13, t1_exact = k5_operands(torch, port, scene, dev, "qsplit")
+    check(t1_exact == 0 and a13[12][0].dim() == 3,
+          f"q-split operands: t1 mismatches {t1_exact}, flags {tuple(a13[12][0].shape)}")
     k6_err, k6_work = 0.0, None
     for eps in (0.0, 1e-4):
-        a = args13[:7] + (st._replace(exit_eps=eps),) + args13[8:]
+        a = a13[:7] + (a13[7]._replace(exit_eps=eps),) + a13[8:]
         gap, work = stripe_compare(torch, gn, a, f"q-split serving 128^3 exit_eps={eps}")
         k6_err = max(k6_err, max(gap))
         if eps > 0.0:
             k6_work = work
-    a13 = args13[:7] + (st._replace(exit_eps=1e-4),) + args13[8:]
     k6_ms = time_ms(torch, lambda: gn.composite_positions(*a13), 20)
     k6_plain_ms = time_ms(torch, lambda: gn.composite_positions_qb_plain(
         *a13, exit_tile=gn.CUDA_EXIT_TILE), 2)
@@ -2056,7 +2233,7 @@ def run(torch, workdir: Path) -> int:
     print(f"# K6 composite_stripe_qb (serving, 128^3, flags {tuple(a13[12][0].shape)}): "
           f"ms={k6_ms:.4f} plain_ms={k6_plain_ms:.4f}; {int(k6_work.sum())} marched pairs; "
           f"bound counts {k6_bytes} bytes, {k6_ops} operations", flush=True)
-    del args13, a13, k6_work
+    del a13, k6_work
     tstat_q = gt.make_gnomonic_train_statics(
         grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
         apply_diffuse_render_regularization=True, warp_swap=swap0, qb=128, fused=False)
@@ -2123,14 +2300,10 @@ def run(torch, workdir: Path) -> int:
     bst = br.variant_statics(grid, axis, flip, config)
     check(bst.tile_px == 16 and bst.axis_supersample == 2 and bst.exit_eps == 1e-4
           and bst.occ_sigma_thresh > 0.0, f"bricked statics {bst}")
-    kw9 = dict(ncoeff=bst.ncoeff, relu_sigma=bst.relu_sigma, exit_eps=bst.exit_eps,
-               with_diffuse=bst.with_diffuse)
 
     def k9_case(vgrid, label):
-        rep, occ_b = br.prepare_bricked_grid(vgrid, bst)
-        rf, tab, cnt, ovf = br.tile_operands(bst, IMAGE_SIZE, IMAGE_SIZE, intr.focal, occ_b,
-                                             rot0_t, org0_t)
-        ops = (tab, cnt, rf, rep)
+        ops, kw9, ovf = k10_operands(torch, port, scene, dev, vgrid)
+        tab, cnt, rf, _ = ops
         got = sm.slab_march_render(*ops, **kw9)
         torch.cuda.synchronize()
         want, work = sm.slab_march_render_plain(*ops, **kw9, return_work=True)
@@ -2143,18 +2316,18 @@ def run(torch, workdir: Path) -> int:
         print(f"# K9 slab_march {label}: max-abs {err:.3g}; {rf.shape[0]} tiles, "
               f"{int(cnt.sum())} entries; live samples marched {work[0]} (exit_eps 0: "
               f"{work0[0]}); overflow {bool(ovf)}", flush=True)
-        return ops, want, work, work0, err
+        return ops, kw9, want, work, work0, err
 
     opaque = port["voxel_grid_from_numpy"](np.where(d > 0, d * 100.0, d), f, grid_config,
                                            device=dev)
-    _, _, o_work, o_work0, k9_err_opaque = k9_case(opaque, "opaque")
+    _, _, _, o_work, o_work0, k9_err_opaque = k9_case(opaque, "opaque")
     check(o_work[0] < o_work0[0], "the slab march's early exit ended no tile on the opaque scene")
     del opaque
-    ops9, out9, work9, _, k9_err = k9_case(grid, "blob")
+    ops9, kw9, out9, work9, _, k9_err = k9_case(grid, "blob")
     k9_ms = time_ms(torch, lambda: sm.slab_march_render(*ops9, **kw9), 20)
     k9_plain_ms = time_ms(torch, lambda: sm.slab_march_render_plain(*ops9, **kw9), 1)
     k9_bytes, k9_ops = slab_counts(ops9, work9, bst.ncoeff, out9.numel())
-    gout9 = torch.randn(out9.shape, generator=gen, device=dev)
+    gout9 = k10_cotangent(torch, out9)
     got10 = sm.slab_march_grad(*ops9, out9, gout9, **kw9)
     torch.cuda.synchronize()
     want10 = sm.slab_march_grad_plain(*ops9, out9, gout9, **kw9)
@@ -2166,7 +2339,25 @@ def run(torch, workdir: Path) -> int:
           and k10_cast <= scale10 * 2.0 ** -8,
           f"K10 vs plain: max-abs {k10_err} (scale {scale10}), cosine {k10_cos}, "
           f"after the bf16 cast {k10_cast}")
-    k10_ms = time_ms(torch, lambda: sm.slab_march_grad(*ops9, out9, gout9, **kw9), 5)
+    k10_pose = k10_readings(torch, sm, ops9, out9, gout9, kw9, "pose")
+    k10_ms = k10_pose["ms"]
+    check(k10_pose["steps_summed"] > 0 and
+          k10_pose["global_atomics"] < k10_pose["tap_products"],
+          f"K10 summed no step in shared memory: {k10_pose}")
+    # the bricked trainer's batch of K10_BATCH_TILES tiles of the pose
+    ops10b, out10b, gout10b = trainer_batch(torch, ops9, out9, gout9)
+    got10b = sm.slab_march_grad(*ops10b, out10b, gout10b, **kw9)
+    torch.cuda.synchronize()
+    want10b = sm.slab_march_grad_plain(*ops10b, out10b, gout10b, **kw9)
+    scale10b = float(want10b.abs().max())
+    e10b, c10b = max_abs(got10b, want10b), cosine(got10b, want10b)
+    check(scale10b > 0.0 and e10b <= 1e-4 * scale10b and c10b > 0.99999,
+          f"K10 on the {K10_BATCH_TILES}-tile batch vs plain: max-abs {e10b} (scale "
+          f"{scale10b}), cosine {c10b}")
+    del got10b, want10b
+    k10_batch = k10_readings(torch, sm, ops10b, out10b, gout10b, kw9,
+                             f"the trainer's batch (max-abs {e10b:.3g} of {scale10b:.3g})")
+    del ops10b, out10b, gout10b
     k10_plain_ms = time_ms(torch, lambda: sm.slab_march_grad_plain(
         *ops9, out9, gout9, **kw9), 1)
     nused9 = 3 * bst.ncoeff + 1
@@ -2307,7 +2498,7 @@ def run(torch, workdir: Path) -> int:
     results["slab_march_backward"] = dict(
         err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms, bound=bound(k10_bytes, k10_ops),
         extra=dict(cosine_vs_plain=k10_cos, max_abs_err_after_bf16_cast=k10_cast,
-                   grad_scale=scale10))
+                   grad_scale=scale10, pose=k10_pose, trainer_batch=k10_batch))
     results.update(planes_results)
 
     rows = []

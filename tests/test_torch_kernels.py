@@ -881,6 +881,73 @@ def test_stripe_band_plan_reach(Qn, NP, fits):
         assert (plan.S, plan.Qc) == (8, 512) and plan.smem <= 227 * 1024
 
 
+# K5's cases: the K7 band views (Qn = 128 and 2048, over 2000 positions,
+# |kv| > 1, |kv| << 1, Qn = 4224), the opaque scene at exit 1e-4 (tiles end
+# early) and K6's q-block grain (qb = 128: two q-blocks)
+STRIPE_CASES = list(BAND_CASES) + ["opaque", "qsplit"]
+
+
+def _stripe_view_case(device, view):
+    """The stripe composite's operands of STRIPE_CASES[view], as
+    ``composite_positions`` takes them."""
+    if view == "opaque":
+        return _stripe_case(device, 2, False, 1e-4, 30.0)
+    if view == "qsplit":
+        return _stripe_case(device, 2, True, qb=128)
+    slices, geo, st, (Pn, Qn, PB, Pb), occ = _band_case(device, view)
+    t1 = gn.resample_u(slices, geo.Ru)
+    return (t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom, st,
+            Pn, Qn, PB, Pb, occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", STRIPE_CASES)
+def test_stripe_composite_cases(cuda, view):
+    """K5 (K6 on the q-split view) on the STRIPE_CASES views against its
+    plain version at the kernel's exit grain, with the bounds of
+    test_stripe_composite_kernel_matches_plain (colour / acc 1e-4, depth
+    1e-3)."""
+    args = _stripe_view_case(cuda, view)
+    got = gn.composite_positions(*args)
+    torch.cuda.synchronize()
+    plain = gn.composite_positions_qb_plain if view == "qsplit" else gn.composite_positions_plain
+    want = plain(*args, exit_tile=gn.CUDA_EXIT_TILE)
+    gap = (got - want).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert bool(torch.isfinite(got).all())
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max(initial=0.0) < 1e-4, gap
+
+
+def _includes(name, seen):
+    """The headers csrc/``name`` includes (``#include "..."``), transitively."""
+    import re
+
+    from thr3ed_atom_tpu_torch import kernels
+
+    for header in re.findall(r'#include\s+"([^"]+)"', (kernels.CSRC / name).read_text()):
+        if header not in seen:
+            seen.add(header)
+            _includes(header, seen)
+    return seen
+
+
+@pytest.mark.parametrize("lib", ["relu_trap", "composite_fused", "composite_backward_fused",
+                                 "composite_stripe", "composite_stripe_backward",
+                                 "resample_rows", "slab_march", "slab_march_backward",
+                                 "plane_march", "plane_march_backward", "onehot_gather",
+                                 "resample_rows_adjoint"])
+def test_kernel_sources_list_their_headers(lib):
+    """On the CPU: each library's entry in kernels.SOURCES names its source
+    first and then exactly the headers that source includes, directly or
+    through another header, so that a header's edit rebuilds every library
+    that uses it; and the twelve libraries are all there are."""
+    from thr3ed_atom_tpu_torch import kernels
+
+    assert len(kernels.SOURCES) == 12
+    src, *headers = kernels.SOURCES[lib]
+    assert src == lib + ".cu" and (kernels.CSRC / src).is_file()
+    assert len(headers) == len(set(headers)) and set(headers) == _includes(src, set())
+
+
 def test_bind_binds_each_function_once(monkeypatch):
     """On the CPU, with a stand-in library: kernels.bind looks a function up
     and sets its ctypes signature on the first call only, then returns the
@@ -1019,9 +1086,12 @@ def test_qsplit_backward_kernel_matches_plain(cuda, ncoeff, relu):
             gt.composite_backward.launches - counts[2]) == (1, 1, 0)
 
 
-def _bricked_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=True):
+def _bricked_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=True,
+                  tile_px=0, focal=None):
     """One pose's slab-march operands on a carved scene (see ``_grid``): the
-    repacked grid, ray records, tables and counts at the serving threshold."""
+    repacked grid, ray records, tables and counts at the serving threshold;
+    tiles of ``tile_px`` pixels (0: the procedure's choice, 16 here), the
+    focal length ``image * 1.1`` unless given."""
     from thr3ed_atom_tpu_torch.rendering import bricked as br
 
     tgrid = _grid(size, device=device, density_scale=density_scale, ncoeff=ncoeff, relu=relu)
@@ -1029,9 +1099,11 @@ def _bricked_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=
     rot = torch.as_tensor(np.asarray(pose.rotation, np.float32).reshape(3, 3)).to(device)
     org = torch.as_tensor(np.asarray(pose.translation, np.float32).reshape(3)).to(device)
     axis, flip = br.dominant_axis_for_pose(rot.cpu().numpy())
-    st = br.statics_for_grid(tgrid, axis, flip, with_diffuse=True, axis_supersample=2)
+    st = br.statics_for_grid(tgrid, axis, flip, with_diffuse=True, axis_supersample=2,
+                             tile_px=tile_px)
     rep, occ = br.prepare_bricked_grid(tgrid, st)
-    ro, rd = br._tile_image_rays(image, image, image * 1.1, image, image, rot, org, st.tile_px)
+    focal = image * 1.1 if focal is None else focal
+    ro, rd = br._tile_image_rays(image, image, focal, image, image, rot, org, st.tile_px)
     rf = br.compute_ray_features(ro, rd, st)
     tables, counts, _ = br.build_tables(rf, occ, st)
     return st, (tables, counts, rf, rep)
@@ -1127,6 +1199,104 @@ def test_bricked_render_and_train_step_kernels_match_plain(cuda):
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0.0
         assert _cosine(a, b) > 0.99999
+
+
+# K10's bucket cases: (tile_px, image, focal, bucket cells or None for
+# slab_backward_plan's): tiles of 16 x 16 (R = 256) and 8 x 8 (R = 64) rays
+# on a 256-pixel image (0.4 voxels a pixel, as the serving and CLI frames),
+# every step's box of cells within the buckets; a far focal (about 2.5
+# voxels a pixel) whose 8-pixel tiles reach beyond 2 R = 128 cells of a
+# patch at most steps (the direct path); and buckets of 16 cells that send
+# most steps of 16-pixel tiles down the direct path beside summed ones
+BUCKET_CASES = {"r256": (16, 256, None, None), "r64": (8, 256, None, None),
+                "far": (8, 128, 40.0, None), "few": (16, 128, None, 16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", list(BUCKET_CASES))
+def test_slab_march_backward_bucket_cases(cuda, view, monkeypatch):
+    """K10 on the BUCKET_CASES views against its plain version with the
+    bounds of test_slab_march_kernels_match_plain (max-abs <= 1e-4 of the
+    largest element before the cast, cosine > 0.99999, one bf16 unit after
+    it); its counts: every tap product added once, the global atomics far
+    fewer than the products where the steps are summed in shared memory,
+    and steps down the direct path exactly where the box exceeds the
+    buckets (the far and few views)."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    tile_px, image, focal, cells = BUCKET_CASES[view]
+    st, ops = _bricked_case(cuda, image=image, tile_px=tile_px, focal=focal)
+    assert ops[2].shape[1] == tile_px ** 2
+    if cells is not None:
+        plan = sm.slab_backward_plan
+        monkeypatch.setattr(sm, "slab_backward_plan", lambda R, nc: plan(R, nc)._replace(
+            cells=cells, smem=plan(R, nc).smem - (plan(R, nc).cells - cells) * 4 * 17))
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=True, exit_eps=1e-4, with_diffuse=True)
+    out = sm.slab_march_render_plain(*ops, **kw)
+    gout = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    dg = sm.slab_march_grad(*ops, out, gout, **kw, stats=stats)
+    torch.cuda.synchronize()
+    dg_plain = sm.slab_march_grad_plain(*ops, out, gout, **kw)
+    scale = float(dg_plain.abs().max())
+    assert scale > 0.0 and float((dg - dg_plain).abs().max()) <= 1e-4 * scale
+    assert _cosine(dg, dg_plain) > 0.99999
+    cast = (dg.to(torch.bfloat16).float() - dg_plain.to(torch.bfloat16).float()).abs().max()
+    assert float(cast) <= scale * 2.0 ** -8
+    products, atomics, summed, direct = stats.tolist()
+    assert products > 0 and summed + direct > 0
+    if view in ("r256", "r64"):
+        assert direct == 0 and atomics * 4 < products, stats.tolist()
+    else:
+        assert direct > 0 and summed > 0, stats.tolist()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_slab_march_grad_adds_into_dgrid(device, request):
+    """slab_march_grad with ``dgrid=``: it adds the cotangent into the given
+    tensor and returns that tensor (on the card the kernel alone, the
+    zeroing left to the caller): the fresh cotangent plus what the tensor
+    held, exactly on the CPU and within K10's 1e-4 of the largest element
+    on the card; a tensor of another shape, dtype or layout is refused."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    st, ops = _bricked_case(dev, size=32, image=64)
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=True, exit_eps=1e-4, with_diffuse=True)
+    out = sm.slab_march_render_plain(*ops, **kw)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gout = torch.randn(out.shape, generator=gen, device=dev)
+    fresh = sm.slab_march_grad(*ops, out, gout, **kw)
+    base = torch.randn(fresh.shape, generator=gen, device=dev)
+    held = base.clone()
+    got = sm.slab_march_grad(*ops, out, gout, **kw, dgrid=held)
+    assert got is held
+    scale = float(fresh.abs().max())
+    assert scale > 0.0
+    gap = float((got - (base + fresh)).abs().max())
+    assert gap == 0.0 if device == "cpu" else gap <= 1e-4 * scale
+    for bad in (held[:-1], held.to(torch.float64), held.transpose(1, 2)):
+        with pytest.raises(ValueError, match="dgrid"):
+            sm.slab_march_grad(*ops, out, gout, **kw, dgrid=bad)
+
+
+@pytest.mark.parametrize("R", [64, 256])
+@pytest.mark.parametrize("ncoeff", [1, 4, 9])
+def test_slab_backward_plan_fits(R, ncoeff):
+    """On the CPU: K10's launch plan for tiles of 64 and 256 rays at SH
+    degrees 0-2 (NUSED 4, 13, 28): one thread a ray (at most 1024),
+    buckets of 2 R cells (at most the (PU + 1) x (PV + 1) a patch's taps
+    reach), the used channels rounded up to 4, at most 227 KB, and at least
+    two blocks an SM by shared memory."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    plan = sm.slab_backward_plan(R, ncoeff)
+    assert plan.threads == R <= 1024
+    assert plan.ch % 4 == 0 and 3 * ncoeff + 1 <= plan.ch < 3 * ncoeff + 5
+    assert plan.cells == min(2 * R, (sm.PU + 1) * (sm.PV + 1))
+    assert plan.smem == R * plan.ch * 4 + R * 16 + plan.cells * (1 + sm.BACKWARD_BUCKET) * 4
+    assert plan.smem <= 227 * 1024 and 2 * (plan.smem + 1024) <= 228 * 1024
 
 
 def _planes_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=True):

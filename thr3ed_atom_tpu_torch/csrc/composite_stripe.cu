@@ -27,16 +27,23 @@
 // q-block (Qb is a multiple of TQ) and reads only that block's flags; with
 // QB = 1 the flag row is the u-block's, as before.
 //
-// Bound on the H100: memory. Its inputs are t1 (1.07 GB at 128^3, P = 2,
-// 512 x 512 texels: 2 bytes per (position, channel, texel row, v)), the dense
-// RvT and the basis operands; the march reads, per marched (position, texel),
-// two bf16 of t1 per used channel. Neighbouring texels along q read
-// neighbouring v of one t1 row, so a warp's gathers fall in one or two 32-byte
-// sectors. Built with -fmad=false: each f32 operation rounds as in the plain
-// PyTorch version.
+// Bound on the H100: memory by its byte count. Its inputs are t1 (1.07 GB at
+// 128^3, P = 2, 512 x 512 texels: 2 bytes per (position, channel, texel row,
+// v)), the dense RvT and the basis operands; the march reads, per marched
+// (position, texel), two bf16 of t1 per used channel. Neighbouring texels
+// along q read neighbouring v of one t1 row, so a warp's gathers fall in one
+// or two 32-byte sectors. In practice the march's dependent loads limit it
+// (a position's t1 addresses depend on its taps): a register budget of 128
+// a thread (__launch_bounds__(256, 2), two CTAs an SM) lets the compiler
+// keep a position's 2 x (3 ncoeff + 1) t1 loads in flight together, where
+// unbounded it chose far fewer registers and the march ran slower on the
+// H100. Staging the operands in a cp.async ring two positions ahead was
+// slower there too (PERF.md). Built with -fmad=false: each f32 operation
+// rounds as in the plain PyTorch version.
 #include <cuda_runtime.h>
 
 #include "gnomonic_stripe.cuh"
+#include "smem_limit.cuh"
 
 namespace {
 
@@ -55,7 +62,7 @@ struct Params {
 };
 
 template <int NCOEFF, bool DIFFUSE, bool RELU>
-__global__ void __launch_bounds__(TP * TQ) composite_stripe_kernel(Params prm) {
+__global__ void __launch_bounds__(TP * TQ, 2) composite_stripe_kernel(Params prm) {
   extern __shared__ float smem[];
   const int q = blockIdx.x * TQ + threadIdx.x;
   const int p = blockIdx.y * TP + threadIdx.y;
@@ -78,11 +85,9 @@ template <int NCOEFF, bool DIFFUSE, bool RELU>
 int launch(const Params& prm, cudaStream_t stream) {
   const size_t smem = march_tables_bytes(prm.NP, false);
   auto kern = composite_stripe_kernel<NCOEFF, DIFFUSE, RELU>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  static size_t smem_allowed[16] = {};
+  const cudaError_t e = allow_smem(kern, smem, smem_allowed);
+  if (e != cudaSuccess) return (int)e;
   const dim3 block(TQ, TP);
   const dim3 grid(prm.op.Qn / TQ, prm.op.Pn / TP);
   kern<<<grid, block, smem, stream>>>(prm);

@@ -44,6 +44,7 @@
 #pragma once
 
 #include "gnomonic_march.cuh"
+#include "smem_limit.cuh"
 
 namespace gnomonic {
 
@@ -76,21 +77,6 @@ inline int smem_optin() {
     return 48 * 1024;
   if (dev < 16) known[dev] = bytes;
   return bytes;
-}
-
-// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
-// and size (done: the limit set so far on each device), not on every launch:
-// the driver call costs host time on the launch path.
-template <class Kernel>
-inline cudaError_t allow_smem(Kernel kern, size_t bytes, size_t (&done)[16]) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 16 && bytes <= done[dev]) return cudaSuccess;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e == cudaSuccess && dev < 16) done[dev] = bytes;
-  return e;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {

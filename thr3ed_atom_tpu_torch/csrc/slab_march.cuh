@@ -78,13 +78,17 @@ struct Entry {
 };
 
 // The sample of slab b of an entry: its global slab index, liveness, the
-// four taps' bf16 weights (zero for a dropped tap) in ascending patch row and
-// the element offsets of their 32-lane slab blocks in the grid. ``goff``
-// rebases the table's group index onto the grid operand.
+// four taps' bf16 weights (zero for a dropped tap) in ascending patch row,
+// the patch cell (ku, kv) = (floor(u), floor(v)) whose corners they are
+// (tap tu * 2 + tv at patch row ku + tu, column kv + tv; -1 .. PU - 1 and
+// -1 .. PV - 1 where a tap is live), and the element offsets of their
+// 32-lane slab blocks in the grid. ``goff`` rebases the table's group index
+// onto the grid operand.
 struct Sample {
   float jg;
   bool live;
   float w[4];
+  int ku, kv;
   size_t off[4];
 };
 
@@ -98,6 +102,8 @@ __device__ __forceinline__ Sample sample(const Ray<NCOEFF>& ray, const Entry& e,
   const float u = ray.au + ray.bu * s.jg - (float)e.u0;
   const float v = ray.av + ray.bv * s.jg - (float)e.v0;
   const float ku = floorf(u), kv = floorf(v);
+  s.ku = (int)fminf(fmaxf(ku, -2.0f), (float)G::PU);
+  s.kv = (int)fminf(fmaxf(kv, -2.0f), (float)G::PV);
   float wu[2], wv[2];
   int iu[2], iv[2];
 #pragma unroll

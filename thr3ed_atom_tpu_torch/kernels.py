@@ -32,16 +32,17 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 SOURCES: Dict[str, List[str]] = {
     "relu_trap": ["relu_trap.cu", "relu_trap.cuh"],
     "composite_fused": ["composite_fused.cu", "gnomonic_stage.cuh", "gnomonic_march.cuh",
-                        "relu_trap.cuh"],
+                        "relu_trap.cuh", "smem_limit.cuh"],
     "composite_backward_fused": ["composite_backward_fused.cu", "gnomonic_stage.cuh",
-                                 "gnomonic_march.cuh", "relu_trap.cuh"],
-    "composite_stripe": ["composite_stripe.cu", "gnomonic_stripe.cuh",
-                         "gnomonic_march.cuh", "relu_trap.cuh"],
+                                 "gnomonic_march.cuh", "relu_trap.cuh", "smem_limit.cuh"],
+    "composite_stripe": ["composite_stripe.cu", "gnomonic_stripe.cuh", "gnomonic_march.cuh",
+                         "relu_trap.cuh", "smem_limit.cuh"],
     "composite_stripe_backward": ["composite_stripe_backward.cu", "gnomonic_stage.cuh",
-                                  "gnomonic_stripe.cuh", "gnomonic_march.cuh", "relu_trap.cuh"],
+                                  "gnomonic_stripe.cuh", "gnomonic_march.cuh", "relu_trap.cuh",
+                                  "smem_limit.cuh"],
     "resample_rows": ["resample_rows.cu"],
     "slab_march": ["slab_march.cu", "slab_march.cuh"],
-    "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh"],
+    "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh", "smem_limit.cuh"],
     "plane_march": ["plane_march.cu", "plane_march.cuh", "slab_march.cuh", "relu_trap.cuh"],
     "plane_march_backward": ["plane_march_backward.cu", "plane_march.cuh", "slab_march.cuh",
                              "relu_trap.cuh"],

@@ -22,6 +22,7 @@ or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -333,19 +334,59 @@ def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bo
 slab_march_render.launches = 0
 
 
+class SlabBackwardPlan(NamedTuple):
+    """K10's launch (csrc/slab_march_backward.cu): a block of ``threads`` = R
+    rays a tile, whose step sums go through ``cells`` patch cells of
+    BACKWARD_BUCKET ray ids each, with each ray's ``ch`` channel cotangents
+    (the used channels rounded up to 4), in ``smem`` bytes of shared memory."""
+    cells: int
+    ch: int
+    threads: int
+    smem: int
+
+
+BACKWARD_BUCKET = 16  # ray ids a cell holds at a step (csrc/slab_march_backward.cu BUCKET)
+
+
+def slab_backward_plan(R: int, ncoeff: int) -> SlabBackwardPlan:
+    """K10's buckets for tiles of R rays: 2 R patch cells (a 16 x 16 tile's
+    rays reach about 8 x 8 cells at a step at the CLI's and the serving 0.4
+    voxels a pixel; an 8 x 8 tile's about a quarter of that), at most the
+    (PU + 1) x (PV + 1) cells a patch's taps have corners in. A step whose
+    box of cells is larger adds its taps into the global cotangent
+    directly. Shared memory: the rays' cotangents [R, ch] f32, their tap
+    weights [R] float4, the cells' counts and buckets [cells, 1 + BUCKET]
+    int."""
+    ch = -(-(3 * ncoeff + 1) // 4) * 4
+    cells = min(2 * R, (PU + 1) * (PV + 1))
+    return SlabBackwardPlan(cells, ch, R, R * ch * 4 + R * 16 + cells * (1 + BACKWARD_BUCKET) * 4)
+
+
 def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
                     relu_sigma: bool = False, exit_eps: float = 1e-4,
-                    with_diffuse: bool = False) -> torch.Tensor:
+                    with_diffuse: bool = False, stats=None, dgrid=None) -> torch.Tensor:
     """The replay VJP of the slab march (K10): the grid cotangent
     [XG, U, V, 128] f32 (see ``slab_march_grad_plain``). On a CUDA tensor one
-    launch of csrc/slab_march_backward.cu, which adds each tap's product into
-    the cotangent with f32 atomics (tiles run in no order on the card, so the
-    sums round in another order than the plain version's); on a CPU tensor
-    the plain version."""
+    launch of csrc/slab_march_backward.cu, which sums each step's tap
+    products over the tile's rays by patch cell in shared memory and adds
+    the sums into the cotangent with f32 atomics (tiles run in no order on
+    the card, so the sums round in another order than the plain
+    version's); on a CPU tensor the plain version. ``stats`` (a
+    four-element int64 CUDA tensor) gets added to it: the tap products, the
+    global atomics, and the steps summed in shared memory and added
+    directly. ``dgrid`` (a contiguous [XG, U, V, 128] f32 tensor on the
+    grid's device) is the cotangent to add into and return instead of a
+    zeroed one: the kernel's time apart from the zeroing's."""
+    if dgrid is not None and (tuple(dgrid.shape) != (*grid.shape[:3], LAN)
+                              or dgrid.dtype != F32 or dgrid.device != grid.device
+                              or not dgrid.is_contiguous()):
+        raise ValueError(f"slab_march_grad: dgrid must be a contiguous "
+                         f"{(*grid.shape[:3], LAN)} f32 tensor on {grid.device}")
     if grid.device.type == "cpu":
-        return slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
-                                     ncoeff=ncoeff, relu_sigma=relu_sigma,
-                                     exit_eps=exit_eps, with_diffuse=with_diffuse)
+        g = slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
+                                  ncoeff=ncoeff, relu_sigma=relu_sigma,
+                                  exit_eps=exit_eps, with_diffuse=with_diffuse)
+        return g if dgrid is None else dgrid.add_(g)
     (tab, cnt, rays, grid), dev = _cuda_operands("slab_march_grad", tables, counts, rays,
                                                  grid, ncoeff)
     T, G, _ = tab.shape
@@ -355,11 +396,19 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     g = gout.to(device=dev, dtype=F32).contiguous()
     if tuple(fwd.shape) != (T, R, 8) or tuple(g.shape) != (T, R, 8):
         raise ValueError("slab_march_grad: fwd_out and gout must be [T, R, 8]")
-    dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
-    err = _lib("slab_march_backward", "slab_march_backward_launch", 7, 10)(
+    if stats is not None and (stats.dtype != torch.int64 or stats.numel() != 4
+                              or stats.device != dev):
+        raise ValueError(f"slab_march_grad: stats must be a four-element int64 tensor on {dev}")
+    plan = slab_backward_plan(R, ncoeff)
+    if dgrid is None:
+        dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
+    err = kernels.bind("slab_march_backward", "slab_march_backward_launch",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), fwd.data_ptr(),
-        g.data_ptr(), dgrid.data_ptr(), T, G, R, XG, U, V, ncoeff, int(relu_sigma),
-        int(with_diffuse), 0, float(exit_eps), kernels.stream(dgrid))
+        g.data_ptr(), dgrid.data_ptr(), None if stats is None else stats.data_ptr(),
+        T, G, R, XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), plan.cells,
+        plan.smem, float(exit_eps), kernels.stream(dgrid))
     kernels.check(err, "slab_march_backward")
     slab_march_grad.launches += 1
     return dgrid
