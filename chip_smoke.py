@@ -49,11 +49,13 @@ version on the card at the main paths' shapes:
   14.  the slab-march render (K9) and its replay backward (K10) on one
        bricked pose of the blob model (400 x 400, tile 16, K = 2, the
        serving occupancy threshold), and on an opaque copy, where the early
-       exit must end tiles; K10 also on the bricked trainer's batch of 64
-       tiles of that pose, the call, the kernel alone (into a cotangent
-       zeroed before) and the cotangent's zeroing timed apart (CUDA
-       events), with its tap products, global atomics and steps summed in
-       shared memory or added directly;
+       exit must end tiles; K9 and K10 also on the bricked trainer's batch
+       of 64 tiles of that pose, K10's call, its kernel alone (into a
+       cotangent zeroed before) and the cotangent's zeroing timed apart
+       (CUDA events), with its tap products, global atomics and steps
+       summed in shared memory or added directly; K9's table entries a tile
+       (max, mean, empty tiles), live samples, registers a thread and
+       blocks an SM;
   15.  bricked serving through the entry points: the blob model saved with
        render_procedure="render_sh_voxel_grid_bricked", loaded, 8 poses
        through render_poses, held against the plain render;
@@ -64,7 +66,9 @@ version on the card at the main paths' shapes:
   17.  the plane-march render (K11) and its replay backward (K12) on one
        planes pose of the blob model (400 x 400, tile 16, P = 2, the serving
        occupancy threshold), and on an opaque copy, where the early exit
-       must end tiles;
+       must end tiles; K11 also at the render CLI's frame (phase 19's
+       second pose, 800 x 800, 2500 tiles); its table entries a tile, live
+       positions, registers a thread and blocks an SM;
   18.  planes serving through the entry points: the blob model saved with
        render_procedure="render_sh_voxel_grid_planes", loaded, 8 poses
        through render_poses, held against the plain render; the gradient
@@ -91,13 +95,16 @@ checkout of the repository. Imports nothing of JAX.
     python3 chip_smoke.py --readings PORT_ROOT
 
 reads K5 (phase 9's serving pose and training operands), K6 (phase 13's
-serving pose) and K10 (phase 14's pose and its 64-tile batch: the call, the
-kernel alone on CUDA events and under torch.profiler, and the zeroing) on
-the operands those phases build, with the
-port package of the checkout at PORT_ROOT (built there): a parent commit's
-readings in the same call as this one's, on one card. It prints them as
-one JSON line and the card's name and power limit; no kernel is held
-against its plain version in this mode.
+serving pose), K9 and K10 (phase 14's pose and its 64-tile batch; K10's
+call, its kernel alone on CUDA events and under torch.profiler, and the
+zeroing), K11 (phase 17's pose and the render CLI's frame) and K12 (the
+pose) on the operands those phases build, with the port package of the
+checkout at PORT_ROOT (built there): a parent commit's readings in the
+same call as this one's, on one card. K9's and K11's registers a thread
+and blocks an SM come from the port's march_launch_shape where it has
+one, else from ptxas's log of the build and the occupancy rule for a
+thread a ray. It prints them as one JSON line and the card's name and
+power limit; no kernel is held against its plain version in this mode.
 """
 import contextlib
 import ctypes
@@ -834,6 +841,49 @@ def slab_counts(ops, work, ncoeff, out_elems, shade_ops=50):
     return nbytes, n_samples * (20 + 8 * nused + 2 * 3 * ncoeff + shade_ops)
 
 
+def table_stats(counts):
+    """(max, mean, empty tiles) of a march's table entries a tile."""
+    c = counts[:, 0].float()
+    return int(c.max()), float(c.mean()), int((c == 0).sum())
+
+
+def ptxas_registers(log, kernel, ncoeff, relu, diffuse):
+    """ptxas's registers a thread of ``kernel``<ncoeff, relu, diffuse> in an
+    nvcc log built with -Xptxas -v; None where the log does not name it."""
+    tag = f"{kernel}ILi{ncoeff}ELb{int(relu)}ELb{int(diffuse)}E"
+    found = False
+    for line in (log or "").splitlines():
+        if "Compiling entry function" in line:
+            found = tag in line
+        elif found and "Used" in line and "registers" in line:
+            return int(line.split("Used")[1].split("registers")[0])
+    return None
+
+
+def blocks_by_registers(regs, threads):
+    """Blocks an SM of the H100 holds for a kernel without shared memory by
+    its registers a thread (the occupancy calculator's rule: 256-register
+    units a warp, 64K registers and 64 warps an SM, 32 blocks)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(32, 64 // warps, (65536 // per_warp) // warps)
+
+
+def march_shape(sm, lib, R, kw, log=None):
+    """K9's or K11's (``lib``) registers a thread, blocks an SM and threads a
+    block at tiles of R rays: from the port's ``march_launch_shape`` where it
+    has one, else ptxas's registers in ``log`` and ``blocks_by_registers`` for
+    a thread a ray (the layout before lane groups)."""
+    if hasattr(sm, "march_launch_shape"):
+        regs, blocks, threads = sm.march_launch_shape(lib, R, kw["ncoeff"], kw["relu_sigma"],
+                                                      kw["with_diffuse"])
+        return dict(registers=regs, blocks_per_sm=blocks, threads=threads, source="cuda")
+    regs = ptxas_registers(log, f"{lib}_kernel", kw["ncoeff"], kw["relu_sigma"],
+                           kw["with_diffuse"])
+    return dict(registers=regs, threads=R, source="ptxas",
+                blocks_per_sm=None if regs is None else blocks_by_registers(regs, R))
+
+
 def gif_frames(data: bytes):
     """(width, height, frames) of a GIF89a, walking its blocks: the header
     and global colour table, extensions, image descriptors with their LZW
@@ -964,11 +1014,11 @@ class PlanesRun(NamedTuple):
     wall19: float
 
 
-def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr,
-                  render_poses, axis, flip, rot0_t, org0_t, gen, dev) -> PlanesRun:
+def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, config, intr,
+                  render_poses, axis, flip, gen, dev) -> PlanesRun:
     """Phases 17-20 (the plane march, planes serving, the render CLI, the
-    one-hot gather pair) on the blob model of phase 5: its grid, scene
-    arrays, render config, intrinsics and poses, with phase 4's march
+    one-hot gather pair) on the blob model of phase 5 (``scene``): its grid,
+    scene arrays, render config, intrinsics and poses, with phase 4's march
     variant and pose."""
     gn, wm, sm, vm = (port[k_] for k_ in ("gn", "wm", "sm", "vm"))
     results = {}
@@ -984,11 +1034,10 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
     kw11 = dict(ncoeff=pst.ncoeff, relu_sigma=pst.relu_sigma, exit_eps=pst.exit_eps,
                 with_diffuse=pst.with_diffuse)
 
-    def k11_case(vgrid, label):
-        rep, occ_p = pl.prepare_plane_grid(vgrid, pst)
-        rf, tab, cnt, ovf = pl.tile_operands(pst, IMAGE_SIZE, IMAGE_SIZE, intr.focal, occ_p,
-                                             rot0_t, org0_t)
-        ops = (tab, cnt, rf, rep)
+    def k11_case(vgrid, label, cli=False):
+        ops, kw, ovf = k11_operands(torch, port, scene, dev, vgrid, cli=cli)
+        check(kw == kw11, f"K11 ({label}) kwargs {kw}")
+        tab, cnt, rf, _ = ops
         got = pm.plane_march_render(*ops, **kw11)
         torch.cuda.synchronize()
         want, work = pm.plane_march_render_plain(*ops, **kw11, return_work=True)
@@ -999,7 +1048,8 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
               f"K11 vs plain ({label}): max-abs {err}")
         check(float(want[..., 3].max()) > 0.5, f"K11 ({label}): the scene is not hit")
         print(f"# K11 plane_march {label}: max-abs {err:.3g}; {rf.shape[0]} tiles, "
-              f"{int(cnt.sum())} entries; live positions marched {work[0]} (exit_eps 0: "
+              f"{int(cnt.sum())} entries (a tile: max / mean / empty tiles "
+              f"{table_stats(cnt)}); live positions marched {work[0]} (exit_eps 0: "
               f"{work0[0]}); overflow {bool(ovf)}", flush=True)
         return ops, want, work, work0, err
 
@@ -1008,10 +1058,24 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
     _, _, p_work, p_work0, k11_err_opaque = k11_case(opaque, "opaque")
     check(p_work[0] < p_work0[0], "the plane march's early exit ended no tile on the opaque scene")
     del opaque
+    # the render CLI's frame (phase 19's second pose at 800 x 800, 2500 tiles)
+    ops11c, out11c, work11c, _, k11_err_cli = k11_case(grid, "the render CLI's frame",
+                                                       cli=True)
+    k11_cli_ms = time_ms(torch, lambda: pm.plane_march_render(*ops11c, **kw11), 10)
+    k11_cli_bound = bound(*slab_counts(ops11c, work11c, pst.ncoeff, out11c.numel(),
+                                       shade_ops=80))
+    k11_cli = dict(ms=k11_cli_ms, max_abs_err=k11_err_cli, tiles=int(ops11c[0].shape[0]),
+                   positions_marched=work11c[0], entries_max_mean_empty=table_stats(ops11c[1]),
+                   bound_ms=k11_cli_bound[0])
+    print(f"# K11 plane_march (the render CLI's frame): ms={k11_cli_ms:.4f}, bound "
+          f"{k11_cli_bound[0]:.4f} ms ({k11_cli_bound[1]})", flush=True)
+    del ops11c, out11c, work11c
     ops11, out11, work11, _, k11_err = k11_case(grid, "blob")
     k11_ms = time_ms(torch, lambda: pm.plane_march_render(*ops11, **kw11), 20)
     k11_plain_ms = time_ms(torch, lambda: pm.plane_march_render_plain(*ops11, **kw11), 1)
     k11_bytes, k11_ops = slab_counts(ops11, work11, pst.ncoeff, out11.numel(), shade_ops=80)
+    k11_shape = march_shape(sm, "plane_march", ops11[2].shape[1], kw11)
+    k11_entries = table_stats(ops11[1])
     gout11 = torch.randn(out11.shape, generator=gen, device=dev)
     got12 = pm.plane_march_grad(*ops11, out11, gout11, **kw11)
     torch.cuda.synchronize()
@@ -1032,7 +1096,7 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
     k12_ops = k11_ops + work11[0] * (60 + 4 * nused11 * 2 + nused11)
     print(f"# K11 plane_march (blob, 400 x 400): ms={k11_ms:.4f} plain_ms={k11_plain_ms:.4f}; "
           f"bound counts {k11_bytes} bytes, {k11_ops} operations, {int(work11[1].sum())} "
-          f"position records read", flush=True)
+          f"position records read; launch {k11_shape}", flush=True)
     print(f"# K12 plane_march_backward: max-abs {k12_err:.3g} of {scale12:.3g} (f32), "
           f"{k12_cast:.3g} after the bf16 cast, cosine {k12_cos:.9f}; ms={k12_ms:.4f} "
           f"plain_ms={k12_plain_ms:.4f}; bound counts {k12_bytes} bytes, {k12_ops} "
@@ -1231,10 +1295,12 @@ def planes_phases(torch, port, workdir, *, grid, d, f, grid_config, config, intr
     print(f"# differentiable one-hot gather {ONEHOT_BCNK}: launches {launches20}", flush=True)
     del table20, g20, t20, w20g, idx20, w20, idx_long, lib13, flat20, bags20
     results["plane_march"] = dict(
-        err=max(k11_err, k11_err_opaque), ms=k11_ms, plain_ms=k11_plain_ms,
+        err=max(k11_err, k11_err_opaque, k11_err_cli), ms=k11_ms, plain_ms=k11_plain_ms,
         bound=bound(k11_bytes, k11_ops),
         extra=dict(positions_marched=work11[0], opaque_positions_marched=p_work[0],
-                   opaque_positions_without_exit=p_work0[0]))
+                   opaque_positions_without_exit=p_work0[0],
+                   entries_max_mean_empty=k11_entries, launch=k11_shape,
+                   render_cli_frame=k11_cli))
     results["plane_march_backward"] = dict(
         err=k12_err, ms=k12_ms, plain_ms=k12_plain_ms, bound=bound(k12_bytes, k12_ops),
         extra=dict(cosine_vs_plain=k12_cos, max_abs_err_after_bf16_cast=k12_cast,
@@ -1363,6 +1429,33 @@ def k10_operands(torch, port, sc, dev, vgrid=None):
     return (tab, cnt, rf, rep), kw, ovf
 
 
+def k11_operands(torch, port, sc, dev, vgrid=None, cli=False):
+    """Phase 17's plane-march operands (tables, counts, ray records, the
+    repacked grid) of the blob pose on the serving variant, of ``vgrid``
+    (default: the scene's grid), its kwargs and whether the tables
+    overflowed; ``cli``: of the render CLI's frame instead (phase 19: 800 x
+    800, focal doubled, the second pose of its thre360 path at pitch 60,
+    2500 tiles)."""
+    pl = port["pl"]
+    vgrid = sc.grid if vgrid is None else vgrid
+    rot, org, size, focal, axis, flip = (sc.rot0, sc.org0, IMAGE_SIZE, sc.intr.focal, sc.axis,
+                                         sc.flip)
+    if cli:
+        pose = port["camera"].get_thre360_animation_poses(4.0, 60.0, NUM_POSES)[1]
+        rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+        org = np.asarray(pose.translation, np.float32).reshape(3)
+        size, focal = 2 * IMAGE_SIZE, 2 * sc.intr.focal
+        axis, flip = pl.dominant_axis_for_pose(rot)
+    pst = pl.variant_statics(vgrid, axis, flip, sc.config)
+    rep, occ_p = pl.prepare_plane_grid(vgrid, pst)
+    rf, tab, cnt, ovf = pl.tile_operands(pst, size, size, focal, occ_p,
+                                         torch.as_tensor(rot, device=dev),
+                                         torch.as_tensor(org, device=dev))
+    kw = dict(ncoeff=pst.ncoeff, relu_sigma=pst.relu_sigma, exit_eps=pst.exit_eps,
+              with_diffuse=pst.with_diffuse)
+    return (tab, cnt, rf, rep), kw, ovf
+
+
 def k10_cotangent(torch, out):
     """The output cotangent K10 is driven with: normal draws of ``out``'s
     shape from seed 0."""
@@ -1425,13 +1518,17 @@ def k10_readings(torch, sm, ops, out, gout, kw, label, counted=True, profiled=Fa
 
 
 def readings(torch) -> int:
-    """The ``--readings`` mode: K5, K6 and K10 of the imported port on the
-    operands phases 9, 13 and 14 build (see the module docstring)."""
+    """The ``--readings`` mode: K5, K6, K9-K12 of the imported port on the
+    operands phases 9, 13, 14 and 17 build (see the module docstring)."""
     port = load_port()
-    gn, sm = port["gn"], port["sm"]
+    gn, sm, pm = port["gn"], port["sm"], port["pm"]
     dev = torch.device("cuda")
     print(card_line(), flush=True)
-    port["kernels"].build_all()
+    logs = port["kernels"].build_all()
+    for name in ("slab_march", "plane_march"):
+        for line in logs.get(name, "").splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling entry")):
+                print(f"# ptxas {name}: {line.strip()}")
     sc = main_scene(port, dev)
     out = {}
     for kind, key, iters in (("serving", "k5_serving_ms", 20), ("training", "k5_training_ms", 10),
@@ -1444,8 +1541,29 @@ def readings(torch) -> int:
     gout = k10_cotangent(torch, fwd)
     for label, args in (("pose", (ops, fwd, gout)),
                         ("batch", trainer_batch(torch, ops, fwd, gout))):
+        out[f"k9_{label}_ms"] = time_ms(torch, lambda: sm.slab_march_render(*args[0], **kw), 20)
         r = k10_readings(torch, sm, *args, kw, label, counted=False, profiled=True)
         out.update({f"k10_{label}_{k}": v for k, v in r.items()})
+    out["k9_shape"] = march_shape(sm, "slab_march", ops[2].shape[1], kw, logs.get("slab_march"))
+    del ops, fwd, gout
+    for label, cli in (("pose", False), ("cli", True)):
+        ops11, kw11, _ = k11_operands(torch, port, sc, dev, cli=cli)
+        out[f"k11_{label}_ms"] = time_ms(torch, lambda: pm.plane_march_render(*ops11, **kw11),
+                                         20 if not cli else 10)
+        out[f"k11_{label}_tiles"] = int(ops11[0].shape[0])
+        if not cli:
+            out["k11_shape"] = march_shape(sm, "plane_march", ops11[2].shape[1], kw11,
+                                           logs.get("plane_march"))
+            fwd11 = pm.plane_march_render(*ops11, **kw11)
+            gout11 = k10_cotangent(torch, fwd11)
+            out["k12_pose_ms"] = time_ms(
+                torch, lambda: pm.plane_march_grad(*ops11, fwd11, gout11, **kw11), 5)
+            del fwd11, gout11
+        del ops11
+    print(f"# K9 pose {out['k9_pose_ms']:.4f} ms, batch {out['k9_batch_ms']:.4f}, "
+          f"{out['k9_shape']}; K11 pose {out['k11_pose_ms']:.4f}, CLI frame "
+          f"{out['k11_cli_ms']:.4f} ({out['k11_cli_tiles']} tiles), {out['k11_shape']}; "
+          f"K12 pose {out['k12_pose_ms']:.4f}", flush=True)
     print(json.dumps({"readings": out, "port": str(Path(gn.__file__).resolve().parents[2])}))
     return 0
 
@@ -2314,7 +2432,8 @@ def run(torch, workdir: Path) -> int:
               f"K9 vs plain ({label}): max-abs {err}")
         check(float(want[..., 3].max()) > 0.5, f"K9 ({label}): the scene is not hit")
         print(f"# K9 slab_march {label}: max-abs {err:.3g}; {rf.shape[0]} tiles, "
-              f"{int(cnt.sum())} entries; live samples marched {work[0]} (exit_eps 0: "
+              f"{int(cnt.sum())} entries (a tile: max / mean / empty tiles "
+              f"{table_stats(cnt)}); live samples marched {work[0]} (exit_eps 0: "
               f"{work0[0]}); overflow {bool(ovf)}", flush=True)
         return ops, kw9, want, work, work0, err
 
@@ -2327,6 +2446,24 @@ def run(torch, workdir: Path) -> int:
     k9_ms = time_ms(torch, lambda: sm.slab_march_render(*ops9, **kw9), 20)
     k9_plain_ms = time_ms(torch, lambda: sm.slab_march_render_plain(*ops9, **kw9), 1)
     k9_bytes, k9_ops = slab_counts(ops9, work9, bst.ncoeff, out9.numel())
+    k9_shape = march_shape(sm, "slab_march", ops9[2].shape[1], kw9)
+    k9_entries = table_stats(ops9[1])
+    # K9 on the bricked trainer's batch of K10_BATCH_TILES tiles of the pose
+    (ops9b,) = trainer_batch(torch, ops9)
+    got9b = sm.slab_march_render(*ops9b, **kw9)
+    torch.cuda.synchronize()
+    want9b, work9b = sm.slab_march_render_plain(*ops9b, **kw9, return_work=True)
+    k9_err_batch = max_abs(got9b, want9b)
+    check(bool(torch.isfinite(got9b).all()) and k9_err_batch <= 1e-6,
+          f"K9 on the {K10_BATCH_TILES}-tile batch vs plain: max-abs {k9_err_batch}")
+    k9_batch_ms = time_ms(torch, lambda: sm.slab_march_render(*ops9b, **kw9), 20)
+    k9_batch_bound = bound(*slab_counts(ops9b, work9b, bst.ncoeff, want9b.numel()))
+    print(f"# K9 slab_march on the trainer's batch ({K10_BATCH_TILES} tiles): max-abs "
+          f"{k9_err_batch:.3g}; entries a tile (max / mean / empty tiles) "
+          f"{table_stats(ops9b[1])}; live samples marched {work9b[0]}; ms={k9_batch_ms:.4f}, "
+          f"bound {k9_batch_bound[0]:.4f} ms ({k9_batch_bound[1]}); launch {k9_shape}",
+          flush=True)
+    del ops9b, got9b, want9b
     gout9 = k10_cotangent(torch, out9)
     got10 = sm.slab_march_grad(*ops9, out9, gout9, **kw9)
     torch.cuda.synchronize()
@@ -2481,9 +2618,9 @@ def run(torch, workdir: Path) -> int:
     del firsts_b
 
     planes_results, launches18, launches18g, launches19, launches20, ms_pose_p, wall19 = (
-        planes_phases(torch, port, workdir, grid=grid, d=d, f=f, grid_config=grid_config,
-                      config=config, intr=intr, render_poses=render_poses, axis=axis,
-                      flip=flip, rot0_t=rot0_t, org0_t=org0_t, gen=gen, dev=dev))
+        planes_phases(torch, port, workdir, scene=scene, grid=grid, d=d, f=f,
+                      grid_config=grid_config, config=config, intr=intr,
+                      render_poses=render_poses, axis=axis, flip=flip, gen=gen, dev=dev))
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -2491,10 +2628,14 @@ def run(torch, workdir: Path) -> int:
         err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, bound=k8_bound,
         extra=dict(cosine_vs_plain=k8_cos))
     results["slab_march"] = dict(
-        err=max(k9_err, k9_err_opaque), ms=k9_ms, plain_ms=k9_plain_ms,
+        err=max(k9_err, k9_err_opaque, k9_err_batch), ms=k9_ms, plain_ms=k9_plain_ms,
         bound=bound(k9_bytes, k9_ops),
         extra=dict(samples_marched=work9[0], opaque_samples_marched=o_work[0],
-                   opaque_samples_without_exit=o_work0[0]))
+                   opaque_samples_without_exit=o_work0[0],
+                   entries_max_mean_empty=k9_entries, launch=k9_shape,
+                   trainer_batch=dict(ms=k9_batch_ms, max_abs_err=k9_err_batch,
+                                      samples_marched=work9b[0],
+                                      bound_ms=k9_batch_bound[0])))
     results["slab_march_backward"] = dict(
         err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms, bound=bound(k10_bytes, k10_ops),
         extra=dict(cosine_vs_plain=k10_cos, max_abs_err_after_bf16_cast=k10_cast,

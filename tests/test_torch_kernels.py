@@ -1151,6 +1151,59 @@ def test_slab_march_kernels_match_plain(cuda, relu, exit_eps, density_scale, nco
     assert float(cast) <= scale * 2.0 ** -8
 
 
+def _cut_tables(counts):
+    """The counts of a march with every third tile emptied and the next of
+    each three cut to its first entry (the tables are left as they are)."""
+    cut = counts.clone()
+    t = torch.arange(cut.shape[0], device=cut.device)
+    cut[t % 3 == 0] = 0
+    cut[t % 3 == 1] = torch.clamp(cut[t % 3 == 1], max=1)
+    return cut
+
+
+def _march_table_cases(render, render_plain, ops, kw):
+    """K9 or K11 (``render``) against its plain version (max-abs 1e-6) on
+    ``ops`` with empty and single-entry tiles (``_cut_tables``), whose empty
+    tiles write zeros, and with exit_eps 1: every tile's vote before its
+    first entry ends it, so the output is zero; one launch a call."""
+    tables, counts, rays, grid = ops
+    cut = _cut_tables(counts)
+    assert int((cut == 0).sum()) > 0 and int((cut == 1).sum()) > 0
+    before = render.launches
+    got = render(tables, cut, rays, grid, **kw)
+    torch.cuda.synchronize()
+    want = render_plain(tables, cut, rays, grid, **kw)
+    assert float((got - want).abs().max()) <= 1e-6
+    assert not got[cut[:, 0] == 0].any() and float(want[..., 3].max()) > 0.5
+    first = {**kw, "exit_eps": 1.0}
+    got = render(*ops, **first)
+    torch.cuda.synchronize()
+    assert float((got - render_plain(*ops, **first)).abs().max()) <= 1e-6
+    assert not got.any()
+    assert render.launches - before == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_px", [16, 8])
+@pytest.mark.parametrize("relu,exit_eps,density_scale,ncoeff,abs_field", MARCH_CASES)
+def test_slab_march_kernel_table_cases(cuda, relu, exit_eps, density_scale, ncoeff, abs_field,
+                                       tile_px):
+    """K9 on tiles of 256 and 64 rays (16 and 8 pixels) at every
+    MARCH_CASES case, against its plain version with the bound of
+    test_slab_march_kernels_match_plain (max-abs 1e-6): as they come, with
+    empty and single-entry tiles, and with an exit at the first entry."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    st, ops = _bricked_case(cuda, density_scale, ncoeff=ncoeff, relu=not abs_field,
+                            tile_px=tile_px)
+    assert ops[2].shape[1] == tile_px ** 2
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=relu, exit_eps=exit_eps, with_diffuse=True)
+    got = sm.slab_march_render(*ops, **kw)
+    torch.cuda.synchronize()
+    assert float((got - sm.slab_march_render_plain(*ops, **kw)).abs().max()) <= 1e-6
+    _march_table_cases(sm.slab_march_render, sm.slab_march_render_plain, ops, kw)
+
+
 @pytest.mark.gpu
 def test_bricked_render_and_train_step_kernels_match_plain(cuda):
     """render_image_bricked through K9 against the plain render (max-abs
@@ -1299,10 +1352,12 @@ def test_slab_backward_plan_fits(R, ncoeff):
     assert plan.smem <= 227 * 1024 and 2 * (plan.smem + 1024) <= 228 * 1024
 
 
-def _planes_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=True):
+def _planes_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=True,
+                 tile_px=0):
     """One pose's plane-march operands on a carved scene (see ``_grid``): the
     repacked position grid (P = 4 AUTO at 64^3), ray records, tables and
-    counts at the serving threshold."""
+    counts at the serving threshold; tiles of ``tile_px`` pixels (0: the
+    procedure's choice, 16 here)."""
     from thr3ed_atom_tpu_torch.rendering import planes as pl
 
     tgrid = _grid(size, device=device, density_scale=density_scale, ncoeff=ncoeff, relu=relu)
@@ -1310,7 +1365,7 @@ def _planes_case(device, density_scale=1.0, size=64, image=128, ncoeff=9, relu=T
     rot = torch.as_tensor(np.asarray(pose.rotation, np.float32).reshape(3, 3)).to(device)
     org = torch.as_tensor(np.asarray(pose.translation, np.float32).reshape(3)).to(device)
     axis, flip = pl.dominant_axis_for_pose(rot.cpu().numpy())
-    st = pl.statics_for_grid(tgrid, axis, flip, with_diffuse=True)
+    st = pl.statics_for_grid(tgrid, axis, flip, with_diffuse=True, tile_px=tile_px)
     rep, occ = pl.prepare_plane_grid(tgrid, st)
     rf, tables, counts, _ = pl.tile_operands(st, image, image, image * 1.1, occ, rot, org)
     return st, (tables, counts, rf, rep)
@@ -1357,6 +1412,27 @@ def test_plane_march_kernels_match_plain(cuda, relu, exit_eps, density_scale, nc
     assert _cosine(dg, dg_plain) > 0.99999
     cast = (dg.to(torch.bfloat16).float() - dg_plain.to(torch.bfloat16).float()).abs().max()
     assert float(cast) <= scale * 2.0 ** -8
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_px", [16, 8])
+@pytest.mark.parametrize("relu,exit_eps,density_scale,ncoeff,abs_field", MARCH_CASES)
+def test_plane_march_kernel_table_cases(cuda, relu, exit_eps, density_scale, ncoeff,
+                                        abs_field, tile_px):
+    """K11 on tiles of 256 and 64 rays (16 and 8 pixels) at every
+    MARCH_CASES case, against its plain version with the bound of
+    test_plane_march_kernels_match_plain (max-abs 1e-6): as they come, with
+    empty and single-entry tiles, and with an exit at the first entry."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+
+    st, ops = _planes_case(cuda, density_scale, ncoeff=ncoeff, relu=not abs_field,
+                           tile_px=tile_px)
+    assert ops[2].shape[1] == tile_px ** 2
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=relu, exit_eps=exit_eps, with_diffuse=True)
+    got = pm.plane_march_render(*ops, **kw)
+    torch.cuda.synchronize()
+    assert float((got - pm.plane_march_render_plain(*ops, **kw)).abs().max()) <= 1e-6
+    _march_table_cases(pm.plane_march_render, pm.plane_march_render_plain, ops, kw)
 
 
 @pytest.mark.gpu

@@ -43,7 +43,7 @@ __device__ __forceinline__ Pos position(const __nv_bfloat16* __restrict__ grid,
                                         int k, int U, int V, int goff, slab::Sample& s) {
   constexpr int NUSED = 3 * NCOEFF + 1;
   Pos p;
-  s = slab::sample<Geom, NCOEFF>(ray, e, k, U, V, goff);
+  s = slab::sample<Geom>(ray, e, k, U, V, goff);
   p.live = s.live;
   if (!s.live) {
     p.sigma = 0.0f;

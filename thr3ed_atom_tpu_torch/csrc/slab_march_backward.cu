@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(256, 2) slab_march_backward_kernel(Params prm)
     e.load(prm.tables + (size_t)t * prm.G + i);
 #pragma unroll 1
     for (int b = 0; b < GS; ++b, ++step) {
-      const Sample s = sample<SlabGeom, NCOEFF>(ray, e, b, prm.U, prm.V, 0);
+      const Sample s = sample<SlabGeom>(ray, e, b, prm.U, prm.V, 0);
       bool adds = false;  // a nonzero tap and a nonzero channel cotangent
       if (s.live) {
         float d_int[NUSED];

@@ -277,7 +277,8 @@ def plane_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: b
     (global group indices; ``group_offset`` rebases them onto ``grid``),
     counts [T, 1], rays [T, R, 48] f32 and the repacked grid [XG, U, V, 256]
     bf16. On a CUDA tensor one launch of csrc/plane_march.cu (a block per
-    tile, a thread per ray); on a CPU tensor ``plane_march_render_plain``."""
+    tile, a group of lanes per ray: ``slab_march.march_launch_shape``); on a
+    CPU tensor ``plane_march_render_plain``."""
     if grid.device.type == "cpu":
         return plane_march_render_plain(tables, counts, rays, grid, ncoeff=ncoeff,
                                         relu_sigma=relu_sigma, exit_eps=exit_eps,

@@ -311,8 +311,8 @@ def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bo
     """The slab-march render (K9): [T, R, 8] f32 from tables [T, G, 4] int32,
     counts [T, 1], rays [T, R, 48] f32 and the repacked grid
     [XG, U, V, 128] bf16. On a CUDA tensor one launch of csrc/slab_march.cu
-    (a block per tile, a thread per ray); on a CPU tensor
-    ``slab_march_render_plain``."""
+    (a block per tile, a group of lanes per ray: ``march_launch_shape``); on
+    a CPU tensor ``slab_march_render_plain``."""
     if grid.device.type == "cpu":
         return slab_march_render_plain(tables, counts, rays, grid, ncoeff=ncoeff,
                                        relu_sigma=relu_sigma, exit_eps=exit_eps,
@@ -332,6 +332,21 @@ def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bo
 
 
 slab_march_render.launches = 0
+
+
+def march_launch_shape(lib: str, R: int, ncoeff: int, relu_sigma: bool = False,
+                       with_diffuse: bool = False):
+    """The launch of K9 (``lib="slab_march"``) or K11 (``"plane_march"``) on
+    tiles of R rays, on the current card: (ptxas's registers a thread, the
+    blocks an SM holds by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    threads a block: R times the lanes a ray, 2 at SH degree 2)."""
+    if lib not in ("slab_march", "plane_march"):
+        raise ValueError(f"march_launch_shape: no launch shape for {lib!r}")
+    out = (ctypes.c_int * 3)()
+    err = kernels.bind(lib, f"{lib}_occupancy", [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+        R, ncoeff, int(relu_sigma), int(with_diffuse), ctypes.addressof(out))
+    kernels.check(err, f"{lib}_occupancy")
+    return tuple(out)
 
 
 class SlabBackwardPlan(NamedTuple):
