@@ -68,7 +68,10 @@ version on the card at the main paths' shapes:
        occupancy threshold), and on an opaque copy, where the early exit
        must end tiles; K11 also at the render CLI's frame (phase 19's
        second pose, 800 x 800, 2500 tiles); its table entries a tile, live
-       positions, registers a thread and blocks an SM;
+       positions, registers a thread and blocks an SM; K12's call, its
+       kernel alone (into a cotangent zeroed before) and the zeroing timed
+       apart, with its tap products, global atomics and steps summed in
+       shared memory or added directly, its registers and blocks an SM;
   18.  planes serving through the entry points: the blob model saved with
        render_procedure="render_sh_voxel_grid_planes", loaded, 8 poses
        through render_poses, held against the plain render; the gradient
@@ -78,8 +81,9 @@ version on the card at the main paths' shapes:
   20.  the one-hot gather (K13) and its scatter-add (K14) against their plain
        versions at the JAX package's test shapes and at the trilinear corners
        of 256K samples in an 8^3 brick, with embedding_bag and its dense
-       backward (and index_add_) timed beside them, K14 also at B = 4096
-       (past shared memory), and the differentiable gather.
+       backward (and index_add_) timed beside them, K13 also at the shape
+       of the weights' cotangent (K = 1 on 2M rows), K13 and K14 at B =
+       4096 (K14 past shared memory), and the differentiable gather.
 The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19 and 20, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
@@ -97,8 +101,12 @@ checkout of the repository. Imports nothing of JAX.
 reads K5 (phase 9's serving pose and training operands), K6 (phase 13's
 serving pose), K9 and K10 (phase 14's pose and its 64-tile batch; K10's
 call, its kernel alone on CUDA events and under torch.profiler, and the
-zeroing), K11 (phase 17's pose and the render CLI's frame) and K12 (the
-pose) on the operands those phases build, with the port package of the
+zeroing), K11 (phase 17's pose and the render CLI's frame), K12 (the
+pose, in its tiles of 16 x 16 and of 8 x 8 pixels: the call, the kernel
+alone and under torch.profiler, the zeroing, its counts where the port's
+wrapper takes ``stats``) and K13 (phase 20's three shapes: K = 8, the
+weights' cotangent at K = 1 and B = 4096) on the operands those phases
+build, with the port package of the
 checkout at PORT_ROOT (built there): a parent commit's readings in the
 same call as this one's, on one card. K9's and K11's registers a thread
 and blocks an SM come from the port's march_launch_shape where it has
@@ -1088,7 +1096,16 @@ def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, confi
           and k12_cast <= scale12 * 2.0 ** -8,
           f"K12 vs plain: max-abs {k12_err} (scale {scale12}), cosine {k12_cos}, "
           f"after the bf16 cast {k12_cast}")
-    k12_ms = time_ms(torch, lambda: pm.plane_march_grad(*ops11, out11, gout11, **kw11), 5)
+    k12_pose = grad_readings(torch, pm.plane_march_grad, "plane_march_backward", ops11, out11,
+                             gout11, kw11, "pose")
+    k12_ms = k12_pose["ms"]
+    check(k12_pose["steps_summed"] > 0 and k12_pose["steps_direct"] == 0
+          and k12_pose["global_atomics"] * 4 < k12_pose["tap_products"],
+          f"K12 did not sum its steps in shared memory: {k12_pose}")
+    k12_shape = dict(zip(("registers", "blocks_per_sm", "threads"),
+                         pm.plane_backward_launch_shape(ops11[2].shape[1], **{
+                             k_: kw11[k_] for k_ in ("ncoeff", "relu_sigma", "with_diffuse")})))
+    k12_shape["smem"] = pm.plane_backward_plan(ops11[2].shape[1], pst.ncoeff).smem
     k12_plain_ms = time_ms(torch, lambda: pm.plane_march_grad_plain(
         *ops11, out11, gout11, **kw11), 1)
     nused11 = 3 * pst.ncoeff + 1
@@ -1100,7 +1117,7 @@ def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, confi
     print(f"# K12 plane_march_backward: max-abs {k12_err:.3g} of {scale12:.3g} (f32), "
           f"{k12_cast:.3g} after the bf16 cast, cosine {k12_cos:.9f}; ms={k12_ms:.4f} "
           f"plain_ms={k12_plain_ms:.4f}; bound counts {k12_bytes} bytes, {k12_ops} "
-          f"operations", flush=True)
+          f"operations; launch {k12_shape}", flush=True)
     del got12, want12
 
     # ---- phase 18: planes serving through the entry points: the blob model
@@ -1262,11 +1279,48 @@ def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, confi
           f"(max-abs vs the kernel {k14_lib_err:.3g}); index_add_ with its source product "
           f"ms={k14_index_add_ms:.4f}, the product alone ms={k14_src_ms:.4f}; bound "
           f"{k14_bound[0]:.4f} ms ({k14_bound[1]})", flush=True)
+    # K13 at the autograd backward's shape: the weights' cotangent gathers
+    # each index's row alone (K = 1 on N K rows, unit weights)
+    idx1, w1 = idx20.reshape(N * K, 1), torch.ones(N * K, 1, device=dev)
+    k13_1 = og.onehot_gather_forward(table20, idx1, w1)
+    torch.cuda.synchronize()
+    want13_1 = og.onehot_gather_plain(table20, idx1, w1)
+    k13_1_err = max_abs(k13_1, want13_1)
+    check(k13_1_err <= 1e-5 * float(want13_1.abs().max()) + 1e-6,
+          f"K13 vs plain at K = 1, N = {N * K}: max-abs {k13_1_err}")
+    del k13_1, want13_1
+    k13_1_ms = time_ms(torch, lambda: og.onehot_gather_forward(table20, idx1, w1), 10)
+    k13_1_plain_ms = time_ms(torch, lambda: og.onehot_gather_plain(table20, idx1, w1), 2)
+    k13_1_lib_ms = time_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        idx1.long(), table20, per_sample_weights=w1, mode="sum"), 10)
+    k13_1_bound = bound(B * C * 4 + 2 * N * K * 4 + N * K * C * 4, 2 * N * K * C)
+    print(f"# K13 onehot_gather at the weights' cotangent (K = 1, N = {N * K}): max-abs "
+          f"{k13_1_err:.3g}; ms={k13_1_ms:.4f} plain_ms={k13_1_plain_ms:.4f} embedding_bag "
+          f"ms={k13_1_lib_ms:.4f}; bound {k13_1_bound[0]:.4f} ms ({k13_1_bound[1]})", flush=True)
+    del idx1, w1
     # K14 at a table past shared memory (B = 4096: its global-atomic branch),
-    # the same N, K, C and seeded indices, beside the same library call
+    # the same N, K, C and seeded indices, beside the same library call; K13
+    # there too (a 2 MB table, rows drawn at random)
     BL = ONEHOT_LARGE_B
     idxL = torch.randint(0, BL, (N, K), generator=gen, device=dev, dtype=torch.int32)
     flatL = idxL.long().reshape(-1)
+    tableL = torch.randn(BL, C, generator=gen, device=dev)
+    k13L = og.onehot_gather_forward(tableL, idxL, w20)
+    torch.cuda.synchronize()
+    k13L_want = og.onehot_gather_plain(tableL, idxL, w20)
+    k13L_err = max_abs(k13L, k13L_want)
+    check(k13L_err <= 1e-5 * float(k13L_want.abs().max()) + 1e-6,
+          f"K13 vs plain at B = {BL}: max-abs {k13L_err}")
+    del k13L, k13L_want
+    k13L_ms = time_ms(torch, lambda: og.onehot_gather_forward(tableL, idxL, w20), 20)
+    k13L_plain_ms = time_ms(torch, lambda: og.onehot_gather_plain(tableL, idxL, w20), 5)
+    k13L_lib_ms = time_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        flatL.reshape(N, K), tableL, per_sample_weights=w20, mode="sum"), 20)
+    k13L_bound = bound(BL * C * 4 + 2 * N * K * 4 + N * C * 4, 2 * N * K * C)
+    print(f"# K13 onehot_gather at B = {BL}: max-abs "
+          f"{k13L_err:.3g}; ms={k13L_ms:.4f} plain_ms={k13L_plain_ms:.4f} embedding_bag "
+          f"ms={k13L_lib_ms:.4f}; bound {k13L_bound[0]:.4f} ms ({k13L_bound[1]})", flush=True)
+    del tableL
     k14L = og.onehot_scatter_add(idxL, w20, g20, BL)
     torch.cuda.synchronize()
     k14L_want = og.onehot_scatter_add_plain(idxL, w20, g20, BL)
@@ -1304,11 +1358,18 @@ def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, confi
     results["plane_march_backward"] = dict(
         err=k12_err, ms=k12_ms, plain_ms=k12_plain_ms, bound=bound(k12_bytes, k12_ops),
         extra=dict(cosine_vs_plain=k12_cos, max_abs_err_after_bf16_cast=k12_cast,
-                   grad_scale=scale12))
+                   grad_scale=scale12, pose=k12_pose, launch=k12_shape))
     results["onehot_gather"] = dict(
-        err=k13_err, ms=k13_ms, plain_ms=k13_plain_ms, bound=k13_bound, library=k13_lib_ms,
+        err=max(k13_err, k13_1_err, k13L_err), ms=k13_ms, plain_ms=k13_plain_ms,
+        bound=k13_bound, library=k13_lib_ms,
         extra=dict(shape_BCNK=list(ONEHOT_BCNK), library_call="torch.nn.functional.embedding_bag("
-                   "mode='sum', per_sample_weights=w)"))
+                   "mode='sum', per_sample_weights=w)",
+                   k1_shape_BCNK=[B, C, N * K, 1], k1_max_abs_err=k13_1_err, k1_ms=k13_1_ms,
+                   k1_plain_ms=k13_1_plain_ms, k1_library_ms=k13_1_lib_ms,
+                   k1_bound_ms=k13_1_bound[0], large_B=ONEHOT_LARGE_B,
+                   large_B_max_abs_err=k13L_err, large_B_ms=k13L_ms,
+                   large_B_plain_ms=k13L_plain_ms, large_B_library_ms=k13L_lib_ms,
+                   large_B_bound_ms=k13L_bound[0]))
     results["onehot_scatter_add"] = dict(
         err=k14_err, ms=k14_ms, plain_ms=k14_plain_ms, bound=k14_bound, library=k14_lib_ms,
         extra=dict(shape_BCNK=list(ONEHOT_BCNK), library_call="torch.ops.aten."
@@ -1429,13 +1490,13 @@ def k10_operands(torch, port, sc, dev, vgrid=None):
     return (tab, cnt, rf, rep), kw, ovf
 
 
-def k11_operands(torch, port, sc, dev, vgrid=None, cli=False):
+def k11_operands(torch, port, sc, dev, vgrid=None, cli=False, tile_px=None):
     """Phase 17's plane-march operands (tables, counts, ray records, the
     repacked grid) of the blob pose on the serving variant, of ``vgrid``
     (default: the scene's grid), its kwargs and whether the tables
     overflowed; ``cli``: of the render CLI's frame instead (phase 19: 800 x
     800, focal doubled, the second pose of its thre360 path at pitch 60,
-    2500 tiles)."""
+    2500 tiles); ``tile_px``: tiles of that edge instead of the variant's."""
     pl = port["pl"]
     vgrid = sc.grid if vgrid is None else vgrid
     rot, org, size, focal, axis, flip = (sc.rot0, sc.org0, IMAGE_SIZE, sc.intr.focal, sc.axis,
@@ -1447,6 +1508,8 @@ def k11_operands(torch, port, sc, dev, vgrid=None, cli=False):
         size, focal = 2 * IMAGE_SIZE, 2 * sc.intr.focal
         axis, flip = pl.dominant_axis_for_pose(rot)
     pst = pl.variant_statics(vgrid, axis, flip, sc.config)
+    if tile_px is not None:
+        pst = pst._replace(tile_px=tile_px)
     rep, occ_p = pl.prepare_plane_grid(vgrid, pst)
     rf, tab, cnt, ovf = pl.tile_operands(pst, size, size, focal, occ_p,
                                          torch.as_tensor(rot, device=dev),
@@ -1475,37 +1538,41 @@ def trainer_batch(torch, ops, *per_tile):
     return (tuple(x[sel] for x in ops[:3]) + tuple(ops[3:]),) + tuple(x[sel] for x in per_tile)
 
 
-def k10_readings(torch, sm, ops, out, gout, kw, label, counted=True, profiled=False):
-    """K10 on ``ops``: device ms (CUDA events) of a call, of the kernel alone
-    (launched into a cotangent zeroed before, ``dgrid=``; None where the
-    port's wrapper has no ``dgrid``) and of the f32 cotangent's zeroing
-    alone (torch.zeros of the grid's shape); ``profiled``, the kernel's
-    device ms under torch.profiler too (a wrapper with or without
-    ``dgrid``); ``counted``, its counts: tap products (the global atomics
-    of a tap-by-tap add), global atomics issued, steps summed in shared
-    memory and added directly."""
+def grad_readings(torch, grad, name, ops, out, gout, kw, label, counted=True, profiled=False):
+    """A replay backward on ``ops``: K10 (``grad`` the port's
+    slab_march_grad, ``name`` "slab_march_backward") or K12
+    (plane_march_grad, "plane_march_backward"). Device ms (CUDA events) of a
+    call, of the kernel alone (launched into a cotangent zeroed before,
+    ``dgrid=``; None where the port's wrapper has no ``dgrid``) and of the
+    f32 cotangent's zeroing alone (torch.zeros of the grid's shape);
+    ``profiled``, the kernel's device ms under torch.profiler too (a wrapper
+    with or without ``dgrid``); ``counted``, where the wrapper takes
+    ``stats``, its counts: tap products (the global atomics of a tap-by-tap
+    add), global atomics issued, steps summed in shared memory and added
+    directly."""
     grid = ops[3]
-    ms = time_ms(torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw), 5)
+    params = inspect.signature(grad).parameters
+    ms = time_ms(torch, lambda: grad(*ops, out, gout, **kw), 5)
     kernel_ms = None
-    if "dgrid" in inspect.signature(sm.slab_march_grad).parameters:
+    if "dgrid" in params:
         dgrid = torch.zeros(grid.shape, dtype=torch.float32, device=grid.device)
-        kernel_ms = time_ms(torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw,
-                                                              dgrid=dgrid), 5)
+        kernel_ms = time_ms(torch, lambda: grad(*ops, out, gout, **kw, dgrid=dgrid), 5)
         del dgrid
     zeros_ms = time_ms(torch, lambda: torch.zeros(grid.shape, dtype=torch.float32,
                                                   device=grid.device), 5)
-    r = dict(ms=ms, kernel_ms=kernel_ms, zeros_ms=zeros_ms, tiles=int(ops[0].shape[0]))
+    r = dict(ms=ms, kernel_ms=kernel_ms, zeros_ms=zeros_ms, tiles=int(ops[0].shape[0]),
+             rays_a_tile=int(ops[2].shape[1]))
     alone = "not measured" if kernel_ms is None else f"{kernel_ms:.4f}"
-    line = (f"# K10 slab_march_backward {label} ({r['tiles']} tiles): ms={ms:.4f}; the "
-            f"kernel alone {alone}, the zeroing alone {zeros_ms:.4f} (CUDA events)")
+    line = (f"# {name} {label} ({r['tiles']} tiles of {r['rays_a_tile']} rays): ms={ms:.4f}; "
+            f"the kernel alone {alone}, the zeroing alone {zeros_ms:.4f} (CUDA events)")
     if profiled:
-        name = "slab_march_backward_kernel"
+        kname = f"{name}_kernel"
         r["profiled_kernel_ms"] = kernel_times(
-            torch, lambda: sm.slab_march_grad(*ops, out, gout, **kw), 5, [name])[name]
+            torch, lambda: grad(*ops, out, gout, **kw), 5, [kname])[kname]
         line += f"; the kernel under torch.profiler {r['profiled_kernel_ms']:.4f}"
-    if counted:
+    if counted and "stats" in params:
         stats = torch.zeros(4, dtype=torch.int64, device=out.device)
-        sm.slab_march_grad(*ops, out, gout, **kw, stats=stats)
+        grad(*ops, out, gout, **kw, stats=stats)
         torch.cuda.synchronize()
         products, atomics, summed, direct = stats.tolist()
         r.update(tap_products=products, global_atomics=atomics, steps_summed=summed,
@@ -1518,8 +1585,8 @@ def k10_readings(torch, sm, ops, out, gout, kw, label, counted=True, profiled=Fa
 
 
 def readings(torch) -> int:
-    """The ``--readings`` mode: K5, K6, K9-K12 of the imported port on the
-    operands phases 9, 13, 14 and 17 build (see the module docstring)."""
+    """The ``--readings`` mode: K5, K6, K9-K13 of the imported port on the
+    operands phases 9, 13, 14, 17 and 20 build (see the module docstring)."""
     port = load_port()
     gn, sm, pm = port["gn"], port["sm"], port["pm"]
     dev = torch.device("cuda")
@@ -1542,7 +1609,8 @@ def readings(torch) -> int:
     for label, args in (("pose", (ops, fwd, gout)),
                         ("batch", trainer_batch(torch, ops, fwd, gout))):
         out[f"k9_{label}_ms"] = time_ms(torch, lambda: sm.slab_march_render(*args[0], **kw), 20)
-        r = k10_readings(torch, sm, *args, kw, label, counted=False, profiled=True)
+        r = grad_readings(torch, sm.slab_march_grad, "slab_march_backward", *args, kw, label,
+                          counted=False, profiled=True)
         out.update({f"k10_{label}_{k}": v for k, v in r.items()})
     out["k9_shape"] = march_shape(sm, "slab_march", ops[2].shape[1], kw, logs.get("slab_march"))
     del ops, fwd, gout
@@ -1554,16 +1622,39 @@ def readings(torch) -> int:
         if not cli:
             out["k11_shape"] = march_shape(sm, "plane_march", ops11[2].shape[1], kw11,
                                            logs.get("plane_march"))
-            fwd11 = pm.plane_march_render(*ops11, **kw11)
-            gout11 = k10_cotangent(torch, fwd11)
-            out["k12_pose_ms"] = time_ms(
-                torch, lambda: pm.plane_march_grad(*ops11, fwd11, gout11, **kw11), 5)
-            del fwd11, gout11
         del ops11
+    # K12 on the pose, and on the pose cut into 8 x 8 tiles (the planes
+    # procedure's tiles past 128 vertices a side)
+    for label, tile_px in (("pose", None), ("pose_tile8", 8)):
+        ops11, kw11, _ = k11_operands(torch, port, sc, dev, tile_px=tile_px)
+        fwd11 = pm.plane_march_render(*ops11, **kw11)
+        gout11 = k10_cotangent(torch, fwd11)
+        r = grad_readings(torch, pm.plane_march_grad, "plane_march_backward", ops11, fwd11,
+                          gout11, kw11, label, profiled=True)
+        out.update({f"k12_{label}_{k}": v for k, v in r.items()})
+        del ops11, fwd11, gout11
+    # K13 at phase 20's three shapes: the trilinear corners (K = 8), the
+    # weights' cotangent (K = 1 on N K rows) and B = 4096
+    og = port["og"]
+    B, C, N, K = ONEHOT_BCNK
+    gen = torch.Generator(device=dev).manual_seed(20)
+    idx, w = trilinear_corners(torch, gen, dev, N, 8)
+    table = torch.randn(B, C, generator=gen, device=dev)
+    idxL = torch.randint(0, ONEHOT_LARGE_B, (N, K), generator=gen, device=dev,
+                         dtype=torch.int32)
+    tableL = torch.randn(ONEHOT_LARGE_B, C, generator=gen, device=dev)
+    ones = torch.ones(N * K, 1, device=dev)
+    for key, args, iters in (("k13_ms", (table, idx, w), 20),
+                             ("k13_k1_ms", (table, idx.reshape(N * K, 1), ones), 10),
+                             ("k13_large_B_ms", (tableL, idxL, w), 20)):
+        out[key] = time_ms(torch, lambda: og.onehot_gather_forward(*args), iters)
+    del idx, w, table, idxL, tableL, ones
     print(f"# K9 pose {out['k9_pose_ms']:.4f} ms, batch {out['k9_batch_ms']:.4f}, "
           f"{out['k9_shape']}; K11 pose {out['k11_pose_ms']:.4f}, CLI frame "
           f"{out['k11_cli_ms']:.4f} ({out['k11_cli_tiles']} tiles), {out['k11_shape']}; "
-          f"K12 pose {out['k12_pose_ms']:.4f}", flush=True)
+          f"K12 pose {out['k12_pose_ms']:.4f}, 8 x 8 tiles {out['k12_pose_tile8_ms']:.4f}; "
+          f"K13 {out['k13_ms']:.4f}, K = 1 {out['k13_k1_ms']:.4f}, B = {ONEHOT_LARGE_B} "
+          f"{out['k13_large_B_ms']:.4f}", flush=True)
     print(json.dumps({"readings": out, "port": str(Path(gn.__file__).resolve().parents[2])}))
     return 0
 
@@ -2476,7 +2567,8 @@ def run(torch, workdir: Path) -> int:
           and k10_cast <= scale10 * 2.0 ** -8,
           f"K10 vs plain: max-abs {k10_err} (scale {scale10}), cosine {k10_cos}, "
           f"after the bf16 cast {k10_cast}")
-    k10_pose = k10_readings(torch, sm, ops9, out9, gout9, kw9, "pose")
+    k10_pose = grad_readings(torch, sm.slab_march_grad, "slab_march_backward", ops9, out9,
+                             gout9, kw9, "pose")
     k10_ms = k10_pose["ms"]
     check(k10_pose["steps_summed"] > 0 and
           k10_pose["global_atomics"] < k10_pose["tap_products"],
@@ -2492,7 +2584,8 @@ def run(torch, workdir: Path) -> int:
           f"K10 on the {K10_BATCH_TILES}-tile batch vs plain: max-abs {e10b} (scale "
           f"{scale10b}), cosine {c10b}")
     del got10b, want10b
-    k10_batch = k10_readings(torch, sm, ops10b, out10b, gout10b, kw9,
+    k10_batch = grad_readings(torch, sm.slab_march_grad, "slab_march_backward", ops10b,
+                              out10b, gout10b, kw9,
                              f"the trainer's batch (max-abs {e10b:.3g} of {scale10b:.3g})")
     del ops10b, out10b, gout10b
     k10_plain_ms = time_ms(torch, lambda: sm.slab_march_grad_plain(

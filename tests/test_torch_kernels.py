@@ -1414,6 +1414,117 @@ def test_plane_march_kernels_match_plain(cuda, relu, exit_eps, density_scale, nc
     assert float(cast) <= scale * 2.0 ** -8
 
 
+# K12's bucket plans: plane_backward_plan's as it is, and one of 8 cells,
+# which sends the steps whose box of cells is larger (most of them) down the
+# direct path beside summed ones
+PLANE_BUCKET_CELLS = {"real": None, "forced": 8}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", list(PLANE_BUCKET_CELLS))
+@pytest.mark.parametrize("tile_px", [16, 8])
+@pytest.mark.parametrize("relu,exit_eps,density_scale,ncoeff,abs_field", MARCH_CASES)
+def test_plane_march_backward_bucket_cases(cuda, relu, exit_eps, density_scale, ncoeff,
+                                           abs_field, tile_px, plan, monkeypatch):
+    """K12 on tiles of 256 and 64 rays (16 and 8 pixels) of a 256-pixel image
+    (about 0.4 voxels a pixel, as the serving and CLI frames) at every
+    MARCH_CASES case, against its plain version with the bounds of
+    test_plane_march_kernels_match_plain (max-abs <= 1e-4 of the largest
+    element before the cast, cosine > 0.99999, one bf16 unit after it); its
+    counts: on the real plan no step down the direct path (every box of a
+    position step fits the buckets) and the global atomics at most a quarter
+    of the tap products; on a plan of 8 cells, steps both summed and added
+    directly."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+
+    st, ops = _planes_case(cuda, density_scale, image=256, ncoeff=ncoeff, relu=not abs_field,
+                           tile_px=tile_px)
+    assert ops[2].shape[1] == tile_px ** 2
+    cells = PLANE_BUCKET_CELLS[plan]
+    if cells is not None:
+        real = pm.plane_backward_plan
+        monkeypatch.setattr(pm, "plane_backward_plan", lambda R, nc: real(R, nc)._replace(
+            cells=cells, smem=real(R, nc).smem - (real(R, nc).cells - cells) * 4 * 17))
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=relu, exit_eps=exit_eps, with_diffuse=True)
+    out = pm.plane_march_render_plain(*ops, **kw)
+    gout = torch.randn(out.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    before = pm.plane_march_grad.launches
+    dg = pm.plane_march_grad(*ops, out, gout, **kw, stats=stats)
+    torch.cuda.synchronize()
+    assert pm.plane_march_grad.launches - before == 1
+    dg_plain = pm.plane_march_grad_plain(*ops, out, gout, **kw)
+    scale = float(dg_plain.abs().max())
+    assert scale > 0.0 and float((dg - dg_plain).abs().max()) <= 1e-4 * scale
+    assert _cosine(dg, dg_plain) > 0.99999
+    cast = (dg.to(torch.bfloat16).float() - dg_plain.to(torch.bfloat16).float()).abs().max()
+    assert float(cast) <= scale * 2.0 ** -8
+    products, atomics, summed, direct = stats.tolist()
+    assert products > 0 and summed > 0, stats.tolist()
+    if cells is None:
+        assert direct == 0 and atomics * 4 < products, stats.tolist()
+    else:
+        assert direct > 0, stats.tolist()
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_plane_march_grad_adds_into_dgrid(device, request):
+    """plane_march_grad with ``dgrid=``: it adds the cotangent into the given
+    tensor and returns that tensor (on the card the kernel alone, the
+    zeroing left to the caller): the fresh cotangent plus what the tensor
+    held, exactly on the CPU and within K12's 1e-4 of the largest element
+    on the card; a tensor of another shape, dtype or layout is refused, and
+    so is a ``stats`` tensor of another dtype or size."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    st, ops = _planes_case(dev, size=32, image=64)
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=True, exit_eps=1e-4, with_diffuse=True)
+    out = pm.plane_march_render_plain(*ops, **kw)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gout = torch.randn(out.shape, generator=gen, device=dev)
+    fresh = pm.plane_march_grad(*ops, out, gout, **kw)
+    base = torch.randn(fresh.shape, generator=gen, device=dev)
+    held = base.clone()
+    got = pm.plane_march_grad(*ops, out, gout, **kw, dgrid=held)
+    assert got is held
+    scale = float(fresh.abs().max())
+    assert scale > 0.0
+    gap = float((got - (base + fresh)).abs().max())
+    assert gap == 0.0 if device == "cpu" else gap <= 1e-4 * scale
+    for bad in (held[:-1], held.to(torch.float64), held.transpose(1, 2)):
+        with pytest.raises(ValueError, match="dgrid"):
+            pm.plane_march_grad(*ops, out, gout, **kw, dgrid=bad)
+    for bad in (torch.zeros(4, dtype=torch.int32, device=dev),
+                torch.zeros(3, dtype=torch.int64, device=dev)):
+        with pytest.raises(ValueError, match="stats"):
+            pm.plane_march_grad(*ops, out, gout, **kw, stats=bad)
+
+
+@pytest.mark.parametrize("R", [64, 256])
+@pytest.mark.parametrize("ncoeff", [1, 4, 9])
+def test_plane_backward_plan_fits(R, ncoeff):
+    """On the CPU: K12's launch plan for tiles of 64 and 256 rays at SH
+    degrees 0-2: K10's plan (test_slab_backward_plan_fits) on the planes
+    patch, buckets of min(2 R, 17 x 25) cells, so that a 256-ray tile's
+    every position step fits (its taps have corners in at most the 17 x 25
+    cells of the [16, 24] patch), at most 227 KB, and at least two blocks
+    an SM by shared memory beside the kernel's static tables (tile order,
+    boxes, counts: under 2 KB)."""
+    from thr3ed_atom_tpu_torch.ops import plane_march as pm
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+
+    plan = pm.plane_backward_plan(R, ncoeff)
+    assert plan == sm.slab_backward_plan(R, ncoeff, (pm.PU, pm.PV))
+    assert plan.threads == R
+    assert plan.ch % 4 == 0 and 3 * ncoeff + 1 <= plan.ch < 3 * ncoeff + 5
+    assert plan.cells == min(2 * R, (pm.PU + 1) * (pm.PV + 1))
+    assert R == 64 or plan.cells == (pm.PU + 1) * (pm.PV + 1)
+    assert plan.smem == R * plan.ch * 4 + R * 16 + plan.cells * (1 + sm.BACKWARD_BUCKET) * 4
+    assert plan.smem <= 227 * 1024 and 2 * (plan.smem + 2048 + 1024) <= 228 * 1024
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tile_px", [16, 8])
 @pytest.mark.parametrize("relu,exit_eps,density_scale,ncoeff,abs_field", MARCH_CASES)
@@ -1474,19 +1585,24 @@ def test_planes_render_and_repack_gradient_kernels_match_plain(cuda):
     (128, 128, 300, 8, False), (256, 128, 1024, 4, False), (128, 256, 64, 1, False),
     (512, 128, 65536, 8, False), (100, 6, 333, 3, False), (4096, 128, 20000, 8, False),
     (64, 70, 500, 32, False), (512, 128, 4096, 8, True), (128, 128, 1, 8, False),
-    (1024, 128, 5000, 8, False)])
+    (1024, 128, 5000, 8, False), (512, 128, 1 << 20, 1, False), (800, 128, 5000, 8, False),
+    (1600, 128, 5000, 8, False), (1601, 70, 5000, 8, False)])
 def test_onehot_kernels_match_plain(cuda, B, C, N, K, same):
     """K13 (weighted one-hot gather) and K14 (its scatter-add adjoint) against
     their plain versions, with indices at -1, B and B + 7 among them (they
-    contribute nothing). K13: C = 6 and 70 take the scalar path. K14's
-    branches: 64-channel shared-memory slices (B <= 800, C > 32), 32-channel
-    ones (C = 6; B = 1024), and B = 4096 past shared memory (global
-    atomics); rows with and without repeated indices; K = 32, C = 70 (not a
-    multiple of 4 or of a slice), N = 1, and every index of every row equal
-    (the worst contention). Bounds: f32 sums in another order, max-abs <=
-    1e-5 of the largest value + 1e-6; K14 measured on an H100 at most
-    4.8e-6 of the largest value with every index equal (2.4e-3 of 497),
-    1.4e-6 elsewhere (1.8e-4 of 135 at B = 512, N = 65,536). The autograd
+    contribute nothing). K14's branches: 64-channel shared-memory slices (B
+    <= 800, C > 32; B = 800 at the edge), 32-channel ones (C = 6; B = 1024;
+    B = 1600 at the edge), and past shared memory (B = 1601, B = 4096:
+    global atomics); K13 (one path: a warp a row over 128 channels, the
+    table rows from device memory) at C = 6, 70 (lanes past C masked), 128
+    and 256 (two channel slices); rows with and without repeated indices;
+    K = 1 at N = 2^20 (the shape of the weights' cotangent, where K13
+    merges nothing); K = 32, C = 70 (not a multiple of 4 or of a slice), N
+    = 1, and every index of every row equal (the worst contention). Bounds:
+    f32 sums in another order, max-abs <= 1e-5 of the largest value + 1e-6;
+    K14 measured on an H100 at most 4.8e-6 of the largest value with every
+    index equal (2.4e-3 of 497), 1.4e-6 elsewhere (1.8e-4 of 135 at B =
+    512, N = 65,536). The autograd
     backward launches K14 once and K13 once (the weights' cotangent)."""
     from thr3ed_atom_tpu_torch.ops import onehot_gather as og
 

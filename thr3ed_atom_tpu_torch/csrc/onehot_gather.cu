@@ -14,10 +14,21 @@
 //
 // Here a row's W has at most K nonzeros.
 //
-// K13: a thread owns a row and a chunk of VEC channels: it merges the row's
-// in-range indices into distinct rows with their weights summed in k order
-// (merge_row), orders them by row, and sums W * table[b] over the distinct b
-// in ascending b (the dot's order), VEC channels per 16-byte load.
+// K13: a warp owns a sample row at a time and its lanes own channels, lane
+// l on channels c0 + l + 32 v (v < 4: 128 channels a warp, a block's slice),
+// so that every output store is a contiguous 128-byte segment. Lanes k < K
+// load the row's indices and weights once; __match_any_sync finds repeated
+// indices, and each group's lanes sum its weights in k order by shuffles
+// (no local arrays; skipped where nothing repeats, and for K = 1, the
+// weights' cotangent). The groups' first lanes are then taken in ascending
+// index (a warp min reduction a distinct row), and every lane adds W *
+// table[b] for its channels: the sums of the dot's order, as the
+// thread-a-row kernel this replaces summed them. The table rows come from
+// L1 / L2 (the table is 256 KB at B = 512, C = 128, 2 MB at B = 4096); the
+// grid is channel slices x ranges of rows, one wave of blocks, as K14's.
+// Measured on the H100 (PERF.md §6): a [B, 64] slice staged in shared
+// memory for each block (so two merges a row at C = 128), and four rows'
+// chains interleaved in a warp, were both slower.
 //
 // K14: a warp owns a sample row at a time and its lanes own channels. Lanes
 // k < K load the row's indices and weights once, and __match_any_sync finds
@@ -44,89 +55,105 @@
 // nothing repeats and 64-wide slices cut those. Global atomics instead of
 // shared ones are bound by the L2's atomic rate (vector float4 atomics too).
 //
-// Bound on the H100: memory. K13 reads the indices, weights and the rows they
-// name (the table, 256 KB at B = 512, C = 128, stays in L2) and writes
-// [N, C] f32; K14 reads the indices and weights (once per channel slice) and
-// g and writes [B, C] f32.
+// Bound on the H100: memory. K13 reads the indices, weights and the table
+// once and writes [N, C] f32; K14 reads the indices and weights (once per
+// channel slice) and g and writes [B, C] f32.
+#include <climits>
 #include <cuda_runtime.h>
+
+#include "smem_limit.cuh"
 
 namespace {
 
 constexpr int MAXK = 32;  // indices per row
-constexpr int THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
+// K13
+constexpr int GATHER_WARPS = 32;  // warps a block
+constexpr int GATHER_ROWS = 4;  // rows a warp loads before it sums them
+constexpr int GATHER_VEC = 4;  // channels a lane: 128 a warp
 // K14
 constexpr int SCATTER_WARPS = 32;  // warps a block
 constexpr int SCATTER_ROWS = 4;  // rows a warp loads before it adds them
 constexpr size_t SMEM_CAP = 200 * 1024;  // a block's slice: 64 wide to B = 800, 32 to 1600
 
-// The row's distinct in-range indices b[0..m) in ascending order, each with
-// the sum of its weights in k order.
-__device__ __forceinline__ int merge_row(const int* __restrict__ idx, const float* __restrict__ w,
-                                         int K, int B, int* b, float* W) {
-  int m = 0;
-  for (int k = 0; k < K; ++k) {
-    const int ik = __ldg(idx + k);
-    if (ik < 0 || ik >= B) continue;
-    const float wk = __ldg(w + k);
-    int j = 0;
-    while (j < m && b[j] != ik) ++j;
-    if (j == m) {
-      b[m] = ik;
-      W[m] = 0.0f + wk;
-      ++m;
-    } else {
-      W[j] = W[j] + wk;
+// K13: row n's sum over its distinct in-range indices b, in ascending order,
+// of W[n, b] * table[b] for the lane's channels c0 + lane + 32 v (``rows``:
+// the table at the lane's first channel, rows of C), W[n, b] summed in k
+// order; lane k < K holds (idx[n, k], w[n, k]), lanes past K carry -1.
+__device__ __forceinline__ void gather_row(float (&acc)[GATHER_VEC], const float* rows, int C,
+                                           int ik, float wk, int K, int B, int lane,
+                                           const bool (&live)[GATHER_VEC]) {
+  auto add = [&](int b, float W) {
+    const float* row = rows + (size_t)b * C;
+#pragma unroll
+    for (int v = 0; v < GATHER_VEC; ++v) {
+      const float t = live[v] ? __ldg(row + 32 * v) : 0.0f;
+      acc[v] = acc[v] + W * t;
+    }
+  };
+#pragma unroll
+  for (int v = 0; v < GATHER_VEC; ++v) acc[v] = 0.0f;
+  if (K == 1) {  // one index a row (the weights' cotangent): nothing to merge
+    const int b = __shfl_sync(FULL, ik, 0);
+    const float W = 0.0f + __shfl_sync(FULL, wk, 0);
+    if (b >= 0 && b < B) add(b, W);
+    return;
+  }
+  const bool valid = ik >= 0 && ik < B;
+  const unsigned peers = __match_any_sync(FULL, valid ? ik : -1);
+  float W = 0.0f + wk;  // the group's weights summed in k order
+  if (__ballot_sync(FULL, valid && __popc(peers) > 1) != 0u) {
+    W = 0.0f;
+    for (int j = 0; j < K; ++j) {
+      const float wj = __shfl_sync(FULL, wk, j);
+      if ((peers >> j) & 1u) W = W + wj;
     }
   }
-  for (int j = 1; j < m; ++j) {  // insertion sort by row
-    const int bj = b[j];
-    const float Wj = W[j];
-    int i = j - 1;
-    while (i >= 0 && b[i] > bj) {
-      b[i + 1] = b[i];
-      W[i + 1] = W[i];
-      --i;
-    }
-    b[i + 1] = bj;
-    W[i + 1] = Wj;
+  // each group's first lane, in ascending index: the least pending index,
+  // then the lane that holds it
+  bool pending = valid && (peers & ((1u << lane) - 1u)) == 0u;
+  for (int m = __popc(__ballot_sync(FULL, pending)); m > 0; --m) {
+    const int b = __reduce_min_sync(FULL, pending ? ik : INT_MAX);
+    const int src = __ffs(__ballot_sync(FULL, pending && ik == b)) - 1;
+    const float Wb = __shfl_sync(FULL, W, src);
+    pending = pending && lane != src;
+    add(b, Wb);
   }
-  return m;
 }
 
-template <int VEC>
-__global__ void onehot_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx,
-                                     const float* __restrict__ w, float* __restrict__ out, int N,
-                                     int K, int B, int C) {
-  const int chunks = C / VEC;
-  const long long total = (long long)N * chunks;
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
-       e += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(e / chunks);
-    const int c0 = (int)(e % chunks) * VEC;
-    int b[MAXK];
-    float W[MAXK];
-    const int m = merge_row(idx + (size_t)n * K, w + (size_t)n * K, K, B, b, W);
-    float acc[VEC];
+// K13: grid (channel slices of 32 GATHER_VEC, ranges of rows_per_block rows)
+__global__ void __launch_bounds__(GATHER_WARPS * 32)
+    onehot_gather_kernel(const float* __restrict__ table, const int* __restrict__ idx,
+                         const float* __restrict__ w, float* __restrict__ out, int N, int K,
+                         int B, int C, int rows_per_block) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c0 = blockIdx.x * 32 * GATHER_VEC;
+  bool live[GATHER_VEC];
 #pragma unroll
-    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
-    for (int j = 0; j < m; ++j) {
-      const float* row = table + (size_t)b[j] * C + c0;
-      if constexpr (VEC == 4) {
-        const float4 t = __ldg(reinterpret_cast<const float4*>(row));
-        acc[0] = acc[0] + W[j] * t.x;
-        acc[1] = acc[1] + W[j] * t.y;
-        acc[2] = acc[2] + W[j] * t.z;
-        acc[3] = acc[3] + W[j] * t.w;
-      } else {
-        acc[0] = acc[0] + W[j] * __ldg(row);
-      }
+  for (int v = 0; v < GATHER_VEC; ++v) live[v] = c0 + lane + 32 * v < C;
+  const float* rows = table + c0 + lane;
+  const int n0 = blockIdx.y * rows_per_block;
+  const int n1 = min(N, n0 + rows_per_block);
+  for (int base = n0 + warp * GATHER_ROWS; base < n1; base += GATHER_WARPS * GATHER_ROWS) {
+    int ik[GATHER_ROWS];
+    float wk[GATHER_ROWS];
+#pragma unroll
+    for (int u = 0; u < GATHER_ROWS; ++u) {  // all loads first, then the sums
+      const int n = base + u;
+      const bool row = n < n1 && lane < K;
+      ik[u] = row ? __ldg(idx + (size_t)n * K + lane) : -1;
+      wk[u] = row ? __ldg(w + (size_t)n * K + lane) : 0.0f;
     }
-    float* dst = out + (size_t)n * C + c0;
-    if constexpr (VEC == 4) {
-      *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-      dst[0] = acc[0];
+#pragma unroll
+    for (int u = 0; u < GATHER_ROWS; ++u) {
+      const int n = base + u;
+      if (n >= n1) break;  // uniform over the warp
+      float acc[GATHER_VEC];
+      gather_row(acc, rows, C, ik[u], wk[u], K, B, lane, live);
+      float* dst = out + (size_t)n * C + c0 + lane;
+#pragma unroll
+      for (int v = 0; v < GATHER_VEC; ++v)
+        if (live[v]) dst[32 * v] = acc[v];
     }
   }
 }
@@ -224,40 +251,36 @@ __global__ void __launch_bounds__(SCATTER_WARPS * 32)
   }
 }
 
-template <int VEC, bool SMEM>
-int launch_scatter(const int* idx, const float* w, const float* g, float* dtable, int N, int K,
-                   int B, int C, cudaStream_t s) {
-  auto kern = onehot_scatter_add_kernel<VEC, SMEM>;
+template <int VEC, bool SMEM, class Kernel, class... Args>
+int launch_wave(Kernel kern, int warps, int per_range, int N, int B, int C, cudaStream_t s,
+                Args... args) {
+  static size_t allowed[16] = {};
   const size_t smem = SMEM ? (size_t)B * 32 * VEC * sizeof(float) : 0;
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  cudaError_t err = allow_smem(kern, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SCATTER_WARPS * 32,
-                                                           smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, warps * 32, smem)) !=
+      cudaSuccess)
     return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  // one wave of blocks: the channel slices times ranges of rows
   const int slices = (C + 32 * VEC - 1) / (32 * VEC);
-  const int per_range = SCATTER_WARPS * SCATTER_ROWS;
   int ranges = (sms * per_sm + slices - 1) / slices;
   const int most = (N + per_range - 1) / per_range;
   if (ranges > most) ranges = most;
   const int rows = (N + ranges - 1) / ranges;
-  kern<<<dim3(slices, ranges), SCATTER_WARPS * 32, smem, s>>>(idx, w, g, dtable, N, K, B, C,
-                                                              rows);
+  kern<<<dim3(slices, ranges), warps * 32, smem, s>>>(args..., rows);
   return (int)cudaGetLastError();
 }
 
-int blocks_for(long long work, int cap) {
-  long long want = (work + THREADS - 1) / THREADS;
-  if (want < 1) want = 1;
-  return (int)(want < cap ? want : cap);
+template <int VEC, bool SMEM>
+int launch_scatter(const int* idx, const float* w, const float* g, float* dtable, int N, int K,
+                   int B, int C, cudaStream_t s) {
+  return launch_wave<VEC, SMEM>(onehot_scatter_add_kernel<VEC, SMEM>, SCATTER_WARPS,
+                                SCATTER_WARPS * SCATTER_ROWS, N, B, C, s, idx, w, g, dtable, N,
+                                K, B, C);
 }
 
 }  // namespace
@@ -268,15 +291,9 @@ extern "C" int onehot_gather_launch(const float* table, const int* idx, const fl
   if (N <= 0 || C <= 0) return 0;
   if (K < 1 || K > MAXK || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const bool vec4 = C % 4 == 0 && ((size_t)table % 16 == 0) && ((size_t)out % 16 == 0);
-  if (vec4) {
-    onehot_gather_kernel<4><<<blocks_for((long long)N * (C / 4), 132 * 64), THREADS, 0, s>>>(
-        table, idx, w, out, N, K, B, C);
-  } else {
-    onehot_gather_kernel<1><<<blocks_for((long long)N * C, 132 * 64), THREADS, 0, s>>>(
-        table, idx, w, out, N, K, B, C);
-  }
-  return (int)cudaGetLastError();
+  return launch_wave<GATHER_VEC, false>(onehot_gather_kernel, GATHER_WARPS,
+                                        GATHER_WARPS * GATHER_ROWS, N, B, C, s, table, idx, w,
+                                        out, N, K, B, C);
 }
 
 // K14: adds into dtable [B, C] f32 (zeroed by the caller) from idx [N, K]

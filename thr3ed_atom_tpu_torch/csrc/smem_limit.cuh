@@ -1,6 +1,6 @@
 // smem_limit: raising a kernel's dynamic shared-memory limit, shared by the
 // kernels that launch with more than the default 48 KB (K1, K3, K5 / K6, K7,
-// K10).
+// K10, K12, K13 / K14).
 #pragma once
 
 #include <cuda_runtime.h>

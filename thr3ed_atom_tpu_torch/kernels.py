@@ -45,8 +45,8 @@ SOURCES: Dict[str, List[str]] = {
     "slab_march_backward": ["slab_march_backward.cu", "slab_march.cuh", "smem_limit.cuh"],
     "plane_march": ["plane_march.cu", "plane_march.cuh", "slab_march.cuh", "relu_trap.cuh"],
     "plane_march_backward": ["plane_march_backward.cu", "plane_march.cuh", "slab_march.cuh",
-                             "relu_trap.cuh"],
-    "onehot_gather": ["onehot_gather.cu"],
+                             "relu_trap.cuh", "smem_limit.cuh"],
+    "onehot_gather": ["onehot_gather.cu", "smem_limit.cuh"],
     "resample_rows_adjoint": ["resample_rows_adjoint.cu"],
 }
 

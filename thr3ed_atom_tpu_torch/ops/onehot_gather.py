@@ -80,10 +80,10 @@ def _cuda_rows(what, indices, weights, dev):
 
 def onehot_gather_forward(table, indices, weights) -> torch.Tensor:
     """K13: [N, C] f32 from table [B, C], indices [N, K], weights [N, K]. On a
-    CUDA tensor one launch of csrc/onehot_gather.cu (a thread per row and 4
-    channels: the row's distinct indices with their weights summed in k
-    order, then the rows in ascending index); on a CPU tensor the plain
-    version."""
+    CUDA tensor one launch of csrc/onehot_gather.cu (a warp per sample row,
+    its lanes over 128 channels: the row's distinct indices merged once with
+    their weights summed in k order, then the rows added in ascending
+    index); on a CPU tensor the plain version."""
     if table.device.type == "cpu":
         return onehot_gather_plain(table, indices, weights)
     _check("onehot_gather_forward", indices, weights, table.shape[0])

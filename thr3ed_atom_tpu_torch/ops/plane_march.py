@@ -21,8 +21,10 @@ transmittance is at most ``exit_eps``.
 K11 (``plane_march_render``, csrc/plane_march.cu) renders; K12
 (``plane_march_grad``, csrc/plane_march_backward.cu) replays the march from the
 forward totals and accumulates the repacked grid's cotangent, with tbar held
-constant (the reference's convention). On a CPU tensor each wrapper runs its
-plain version; on a CUDA tensor it launches its kernel or raises.
+constant (the reference's convention), summing each position step's taps by
+patch cell first (``plane_backward_plan`` sizes its buckets). On a CPU tensor
+each wrapper runs its plain version; on a CUDA tensor it launches its kernel
+or raises.
 """
 from __future__ import annotations
 
@@ -300,20 +302,52 @@ def plane_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: b
 plane_march_render.launches = 0
 
 
+def plane_backward_plan(R: int, ncoeff: int) -> slab.SlabBackwardPlan:
+    """K12's buckets for tiles of R rays: ``slab.slab_backward_plan`` on the
+    planes patch [PU, PV] = [16, 24]: 2 R cells, at most the 17 x 25 = 425
+    cells a patch's taps have corners in, so no box of a 256-ray tile's
+    position step exceeds the buckets."""
+    return slab.slab_backward_plan(R, ncoeff, (PU, PV))
+
+
+def plane_backward_launch_shape(R: int, ncoeff: int, relu_sigma: bool = False,
+                                with_diffuse: bool = False):
+    """K12's launch at tiles of R rays on the current card, with
+    ``plane_backward_plan``'s shared memory: (ptxas's registers a thread, the
+    blocks an SM holds by cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    threads a block)."""
+    plan = plane_backward_plan(R, ncoeff)
+    out = (ctypes.c_int * 3)()
+    err = kernels.bind("plane_march_backward", "plane_march_backward_occupancy",
+                       [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_void_p])(
+        R, ncoeff, int(relu_sigma), int(with_diffuse), plan.smem, ctypes.addressof(out))
+    kernels.check(err, "plane_march_backward_occupancy")
+    return tuple(out)
+
+
 def plane_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
                      relu_sigma: bool = False, exit_eps: float = 1e-4,
-                     with_diffuse: bool = False, group_offset: int = 0) -> torch.Tensor:
+                     with_diffuse: bool = False, group_offset: int = 0, stats=None,
+                     dgrid=None) -> torch.Tensor:
     """The replay VJP of the plane march (K12): the grid cotangent
     [XG, U, V, 256] f32 (see ``plane_march_grad_plain``). On a CUDA tensor one
-    launch of csrc/plane_march_backward.cu, which adds each tap's product into
-    the cotangent with f32 atomics (tiles run in no order on the card, so the
-    sums round in another order than the plain version's); on a CPU tensor
-    the plain version."""
+    launch of csrc/plane_march_backward.cu, which sums each position step's
+    tap products over the tile's rays by patch cell in shared memory and
+    adds the sums into the cotangent with f32 atomics (tiles run in no order
+    on the card, so the sums round in another order than the plain
+    version's); on a CPU tensor the plain version. ``stats`` (a
+    four-element int64 CUDA tensor) gets added to it: the tap products, the
+    global atomics, and the steps summed in shared memory and added
+    directly. ``dgrid`` (a contiguous [XG, U, V, 256] f32 tensor on the
+    grid's device) is the cotangent to add into and return instead of a
+    zeroed one: the kernel's time apart from the zeroing's."""
+    slab._grad_buffers("plane_march_grad", grid, LAN, stats, dgrid)
     if grid.device.type == "cpu":
-        return plane_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
-                                      ncoeff=ncoeff, relu_sigma=relu_sigma,
-                                      exit_eps=exit_eps, with_diffuse=with_diffuse,
-                                      group_offset=group_offset)
+        g = plane_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
+                                   ncoeff=ncoeff, relu_sigma=relu_sigma,
+                                   exit_eps=exit_eps, with_diffuse=with_diffuse,
+                                   group_offset=group_offset)
+        return g if dgrid is None else dgrid.add_(g)
     (tab, cnt, rays, grid), dev = _cuda_operands("plane_march_grad", tables, counts, rays,
                                                  grid, ncoeff)
     T, G, _ = tab.shape
@@ -323,12 +357,16 @@ def plane_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     g = gout.to(device=dev, dtype=F32).contiguous()
     if tuple(fwd.shape) != (T, R, 8) or tuple(g.shape) != (T, R, 8):
         raise ValueError("plane_march_grad: fwd_out and gout must be [T, R, 8]")
-    dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
-    err = _lib("plane_march_backward", "plane_march_backward_launch", 7, 10)(
+    plan = plane_backward_plan(R, ncoeff)
+    if dgrid is None:
+        dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
+    err = kernels.bind("plane_march_backward", "plane_march_backward_launch",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+                       + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), fwd.data_ptr(),
-        g.data_ptr(), dgrid.data_ptr(), T, G, R, XG, U, V, ncoeff, int(relu_sigma),
-        int(with_diffuse), int(group_offset), float(exit_eps),
-        kernels.stream(dgrid))
+        g.data_ptr(), dgrid.data_ptr(), None if stats is None else stats.data_ptr(),
+        T, G, R, XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), int(group_offset),
+        plan.cells, plan.smem, float(exit_eps), kernels.stream(dgrid))
     kernels.check(err, "plane_march_backward")
     plane_march_grad.launches += 1
     return dgrid

@@ -350,31 +350,46 @@ def march_launch_shape(lib: str, R: int, ncoeff: int, relu_sigma: bool = False,
 
 
 class SlabBackwardPlan(NamedTuple):
-    """K10's launch (csrc/slab_march_backward.cu): a block of ``threads`` = R
-    rays a tile, whose step sums go through ``cells`` patch cells of
-    BACKWARD_BUCKET ray ids each, with each ray's ``ch`` channel cotangents
-    (the used channels rounded up to 4), in ``smem`` bytes of shared memory."""
+    """K10's launch (csrc/slab_march_backward.cu), or K12's
+    (csrc/plane_march_backward.cu): a block of ``threads`` = R rays a tile,
+    whose step sums go through ``cells`` patch cells of BACKWARD_BUCKET ray
+    ids each, with each ray's ``ch`` channel cotangents (the used channels
+    rounded up to 4), in ``smem`` bytes of shared memory."""
     cells: int
     ch: int
     threads: int
     smem: int
 
 
-BACKWARD_BUCKET = 16  # ray ids a cell holds at a step (csrc/slab_march_backward.cu BUCKET)
+BACKWARD_BUCKET = 16  # ray ids a cell holds at a step (BUCKET of K10 and K12)
 
 
-def slab_backward_plan(R: int, ncoeff: int) -> SlabBackwardPlan:
-    """K10's buckets for tiles of R rays: 2 R patch cells (a 16 x 16 tile's
-    rays reach about 8 x 8 cells at a step at the CLI's and the serving 0.4
-    voxels a pixel; an 8 x 8 tile's about a quarter of that), at most the
-    (PU + 1) x (PV + 1) cells a patch's taps have corners in. A step whose
-    box of cells is larger adds its taps into the global cotangent
-    directly. Shared memory: the rays' cotangents [R, ch] f32, their tap
-    weights [R] float4, the cells' counts and buckets [cells, 1 + BUCKET]
-    int."""
+def slab_backward_plan(R: int, ncoeff: int, patch=(PU, PV)) -> SlabBackwardPlan:
+    """K10's buckets for tiles of R rays (K12's on the planes ``patch``):
+    2 R patch cells (a 16 x 16 tile's rays reach about 8 x 8 cells at a step
+    at the CLI's and the serving 0.4 voxels a pixel; an 8 x 8 tile's about a
+    quarter of that), at most the (PU + 1) x (PV + 1) cells a patch's taps
+    have corners in. A step whose box of cells is larger adds its taps into
+    the global cotangent directly. Shared memory: the rays' cotangents
+    [R, ch] f32, their tap weights [R] float4, the cells' counts and buckets
+    [cells, 1 + BUCKET] int."""
     ch = -(-(3 * ncoeff + 1) // 4) * 4
-    cells = min(2 * R, (PU + 1) * (PV + 1))
+    cells = min(2 * R, (patch[0] + 1) * (patch[1] + 1))
     return SlabBackwardPlan(cells, ch, R, R * ch * 4 + R * 16 + cells * (1 + BACKWARD_BUCKET) * 4)
+
+
+def _grad_buffers(what, grid, lan, stats, dgrid):
+    """Check the replay backwards' (K10, K12) ``stats`` (a four-element int64
+    tensor on the grid's device) and ``dgrid`` (a contiguous [XG, U, V, lan]
+    f32 tensor there), either may be None; raises ValueError."""
+    if dgrid is not None and (tuple(dgrid.shape) != (*grid.shape[:3], lan)
+                              or dgrid.dtype != F32 or dgrid.device != grid.device
+                              or not dgrid.is_contiguous()):
+        raise ValueError(f"{what}: dgrid must be a contiguous "
+                         f"{(*grid.shape[:3], lan)} f32 tensor on {grid.device}")
+    if stats is not None and (stats.dtype != torch.int64 or stats.numel() != 4
+                              or stats.device != grid.device):
+        raise ValueError(f"{what}: stats must be a four-element int64 tensor on {grid.device}")
 
 
 def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
@@ -392,11 +407,7 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     directly. ``dgrid`` (a contiguous [XG, U, V, 128] f32 tensor on the
     grid's device) is the cotangent to add into and return instead of a
     zeroed one: the kernel's time apart from the zeroing's."""
-    if dgrid is not None and (tuple(dgrid.shape) != (*grid.shape[:3], LAN)
-                              or dgrid.dtype != F32 or dgrid.device != grid.device
-                              or not dgrid.is_contiguous()):
-        raise ValueError(f"slab_march_grad: dgrid must be a contiguous "
-                         f"{(*grid.shape[:3], LAN)} f32 tensor on {grid.device}")
+    _grad_buffers("slab_march_grad", grid, LAN, stats, dgrid)
     if grid.device.type == "cpu":
         g = slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
                                   ncoeff=ncoeff, relu_sigma=relu_sigma,
@@ -411,9 +422,6 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     g = gout.to(device=dev, dtype=F32).contiguous()
     if tuple(fwd.shape) != (T, R, 8) or tuple(g.shape) != (T, R, 8):
         raise ValueError("slab_march_grad: fwd_out and gout must be [T, R, 8]")
-    if stats is not None and (stats.dtype != torch.int64 or stats.numel() != 4
-                              or stats.device != dev):
-        raise ValueError(f"slab_march_grad: stats must be a four-element int64 tensor on {dev}")
     plan = slab_backward_plan(R, ncoeff)
     if dgrid is None:
         dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
