@@ -35,17 +35,23 @@ version on the card at the main paths' shapes:
        and the first step's gradient must match the plain versions' step;
   9-10. the stripe composite (K5; its CTA shape and shared memory) and its
        replay backward (K7) at 128^3 and at the CLI's first stage (64^3, P = 4, 200 x 200), where K1, K3 and both warp
-       passes (K2, K4) are held too; K7 also against the three-launch
-       design its band kernel replaced, both split by launch, with that
-       design's cotangent-buffer bytes and the band kernel's launch plan;
+       passes (K2, K4) are held too; K7 also against the three launches
+       its band kernel replaced (bit-equal), both timed, with their
+       cotangent-buffer bytes and the band kernel's launch plan;
   11.  the serving path with gnomonic_qb = 0;
   12.  the training CLI end to end, main([...]) twice (the default qb, and
        --gnomonic_qb 0) on 20 views it renders and writes first: each
        stage's first step is held against the plain versions' step, and the
        loss on that step's views must fall by 1% over the stage;
   13.  the q-split stripe composite (K6) and its replay backward (K8) at
-       qb = 128 on the 128^3 blob pose, and one gnomonic_train_step_multi
-       with fused=False, qb = 128 against the plain versions' step;
+       qb = 128 on the 128^3 blob pose (K8 through the band kernel, held
+       bit-equal to the three launches it replaced, both timed, with each
+       band's union of needed positions against its q-blocks' own counts);
+       K7 and K8, each beside the three launches, split by launch under
+       torch.profiler in a process of its own (``--stripe-split``: the
+       band path's trace must name no march and no fold kernel); and one
+       gnomonic_train_step_multi with fused=False, qb = 128 against the
+       plain versions' step;
   14.  the slab-march render (K9) and its replay backward (K10) on one
        bricked pose of the blob model (400 x 400, tile 16, K = 2, the
        serving occupancy threshold), and on an opaque copy, where the early
@@ -99,7 +105,9 @@ checkout of the repository. Imports nothing of JAX.
     python3 chip_smoke.py --readings PORT_ROOT
 
 reads K5 (phase 9's serving pose and training operands), K6 (phase 13's
-serving pose), K9 and K10 (phase 14's pose and its 64-tile batch; K10's
+serving pose), K7 and K8 (``stripe_split``: phases 10 and 13's training
+operands, the call and the three launches split by launch, a hash of the
+output), K9 and K10 (phase 14's pose and its 64-tile batch; K10's
 call, its kernel alone on CUDA events and under torch.profiler, and the
 zeroing), K11 (phase 17's pose and the render CLI's frame), K12 (the
 pose, in its tiles of 16 x 16 and of 8 x 8 pixels: the call, the kernel
@@ -113,10 +121,17 @@ and blocks an SM come from the port's march_launch_shape where it has
 one, else from ptxas's log of the build and the occupancy rule for a
 thread a ray. It prints them as one JSON line and the card's name and
 power limit; no kernel is held against its plain version in this mode.
+
+    python3 chip_smoke.py --stripe-split
+
+prints K7's and K8's split by launch (``stripe_split``) and then one JSON
+line; phase 13 runs it, since torch.profiler reads kernels short or not at
+all late in a long process on the card's machine.
 """
 import contextlib
 import ctypes
 import gc
+import hashlib
 import inspect
 import json
 import shutil
@@ -403,25 +418,31 @@ def device_profile(torch, fn, n, unit, top_n=6):
     return wall, device_ms, summary
 
 
-def kernel_times(torch, fn, n, names):
+def kernel_times(torch, fn, n, names, call_ms):
     """Device ms per call of the kernels whose names hold each of ``names``,
-    over ``n`` calls of ``fn`` under torch.profiler (after one warm-up call)."""
+    over ``n`` calls of ``fn`` under torch.profiler (after one warm-up
+    call), and the share of ``call_ms`` (a call's CUDA-event time) that the
+    trace's device time makes up. On the card's machine a trace taken late
+    in a process that has run heavy work (this script's phases from 7 on)
+    reads short or empty kernels (shares 0-0.92); one taken early in a
+    process of its own (``stripe_split``, ``--readings``) reads 0.94-1.0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
+    out, total = dict.fromkeys(names, 0.0), 0.0
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
+            total += e.self_device_time_total / 1e3 / n
             for name in names:
                 if name in e.key:
                     out[name] += e.self_device_time_total / 1e3 / n
-    return out
+    return out, total / call_ms
 
 
 def bound(nbytes, ops):
@@ -569,26 +590,58 @@ def nan_allocations(torch):
         torch.empty = empty
 
 
+# the kernels of csrc/composite_stripe_backward.cu, as torch.profiler names them
+STRIPE_BACKWARD_KERNELS = ("column_taps_kernel", "stripe_band_kernel", "stripe_march_kernel",
+                           "stripe_fold_kernel")
+
+
+def stripe_backward_args(torch, args, state, gen):
+    """The replay backward's operands (composite_backward's arguments) on
+    the stripe operands ``args``: a state cotangent drawn from ``gen`` and
+    gaux, its S_total and T_final rows from the forward ``state``."""
+    t1, ops, st, frame, occ = args[0], args[1:7], args[7], args[8:12], args[12]
+    gstate = torch.randn(state.shape, generator=gen, device=state.device)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    return (t1, *ops, gaux, occ, st, *frame)
+
+
+def union_schedule(pos_needed):
+    """For q-split flags [PB, QB, NP]: each u-block band's union of needed
+    positions (the band kernel's phases), each q-block's own count, and the
+    share of (texel, phase) pairs in which a texel's q-block sits the phase
+    out."""
+    per_block = pos_needed.sum(-1)  # [PB, QB]
+    union = (pos_needed != 0).any(1).sum(-1)  # [PB]
+    idle = 1.0 - float(per_block.sum()) / max(float(union.sum()) * pos_needed.shape[1], 1.0)
+    return dict(union=union.tolist(), per_block=per_block.tolist(), idle_share=idle)
+
+
 def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
     """K7 (or K8, q-split flags) against its plain version on a seeded state
     cotangent: max-abs within 1e-2 of the largest element, cosine > 0.99999
     (K3's bound), pad channels and dead blocks zero (dt1 allocated
-    NaN-filled). Returns (max-abs, cosine, ms, plain ms,
-    bound, extra). For K7 also the three-launch design it replaced (K8's
-    launches with one q-block) on the same operands: its gap to the band
-    kernel, both timed, both split by launch (torch.profiler), the bytes of
-    its cotangent buffer, and the band kernel's launch plan."""
+    NaN-filled). Returns (max-abs, cosine, ms, plain ms, bound, extra).
+    The wrapper must take the band kernel (not the three launches). Also
+    the three launches the band kernel replaced, on the same operands:
+    bit-equal to the band kernel (checked) and timed, the bytes of their
+    cotangent buffer, the band kernel's launch plan and, for K8, each band's
+    union of needed positions against its q-blocks' own counts (the split
+    by launch: ``stripe_split``)."""
     t1, ops, st, frame, occ = args[0], args[1:7], args[7], args[8:12], args[12]
     qsplit = occ[0].dim() == 3
     k = "K8" if qsplit else "K7"
     backward_plain = gt.composite_backward_qb_plain if qsplit else gt.composite_backward_plain
-    state = stripe_plain(gn, args)[0](*args)
-    gstate = torch.randn(state.shape, generator=gen, device=state.device)
-    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
-    bargs = (t1, *ops, gaux, occ, st, *frame)
-    with nan_allocations(torch):
-        got = gt.composite_backward(*bargs)
-    torch.cuda.synchronize()
+    bargs = stripe_backward_args(torch, args, stripe_plain(gn, args)[0](*args), gen)
+    gaux = bargs[7]
+    three_launch_fn, taken = gt.stripe_backward_three_launch, []
+    gt.stripe_backward_three_launch = lambda *a: taken.append(a) or three_launch_fn(*a)
+    try:
+        with nan_allocations(torch):
+            got = gt.composite_backward(*bargs)
+        torch.cuda.synchronize()
+    finally:
+        gt.stripe_backward_three_launch = three_launch_fn
+    check(not taken, f"{k} ({label}) took the three launches, not the band kernel")
     want = backward_plain(*bargs)
     err, scale = max_abs(got.float(), want.float()), float(want.float().abs().max())
     cos = cosine(got.float(), want.float())
@@ -606,51 +659,45 @@ def stripe_backward_compare(torch, gn, gt, args, work, gen, label):
     # cell's backward, the SH fold back, and the v-fold (2 taps x mul+add per
     # used channel and column) of every needed texel row
     rb, rops = stripe_counts(torch, args, work)
-    Qb = Qn // occ[1].shape[1] if qsplit else Qn
+    QB, Qb = gn._qb_blocks(st, Qn)
     needed_texels = int(occ[1].any(dim=-1).sum()) * Pb * Qb
     nbytes = rb + gaux.shape[0] * needed_texels * 4 + got.numel() * 2
     nops = (rops + int(work.sum()) * (120 + used * 2)
             + int(occ[1].sum()) * Pb * used * Qb * 4)
     print(f"# {k} composite_stripe_backward {label}: max-abs {err:.3g} of {scale:.3g}, cosine "
           f"{cos:.9f}; ms={ms:.4f} plain_ms={plain_ms:.4f}; dt1 {tuple(got.shape)}", flush=True)
-    extra = {}
-    if not qsplit:
-        checked = gn._check_stripe_operands(k, t1, *ops, occ, st, *frame)
-        g32 = gaux.contiguous()
+    checked = gn._check_stripe_operands(k, t1, *ops, occ, st, *frame)
+    g32 = gaux.contiguous()
 
-        def three_launch():
-            return gt.stripe_backward_three_launch(checked, g32, st, Pn, Qn, Pb, 1, Qn)
+    def three_launch():
+        return three_launch_fn(checked, g32, st, Pn, Qn, Pb, QB, Qb)
 
-        with nan_allocations(torch):
-            old = three_launch()
-        torch.cuda.synchronize()
-        old_err = max_abs(got.float(), old.float())
-        old_ms = time_ms(torch, three_launch, 5)
-        new_parts = kernel_times(torch, lambda: gt.composite_backward(*bargs), 5,
-                                 ("column_taps_kernel", "stripe_band_kernel"))
-        old_parts = kernel_times(torch, three_launch, 5, ("column_taps_kernel",
-                                                          "stripe_march_kernel",
-                                                          "stripe_fold_kernel"))
-        _, n_slots = gt.dvals_slots(checked[8])
-        dvals_bytes = n_slots * used * Pb * Qn * 2
-        aligned = t1.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t1.stride()[:3])
-        plan = gt.stripe_band_plan(Qn, Pb, t1.shape[0], used, t1.shape[3], aligned)
-        print(f"# {k} {label}: band kernel, clusters of {plan.S} CTAs of {plan.R} x "
-              f"{plan.Qc} texels ({plan.threads} threads), {plan.smem} bytes of shared memory, "
-              f"t1 staged {plan.staged}; device clock (torch.profiler, 5 calls): column taps "
-              f"{new_parts['column_taps_kernel']:.4f} ms, band "
-              f"{new_parts['stripe_band_kernel']:.4f} ms. The three-launch design on the "
-              f"same operands: ms={old_ms:.4f}, column taps "
-              f"{old_parts['column_taps_kernel']:.4f} ms, march "
-              f"{old_parts['stripe_march_kernel']:.4f} ms, fold "
-              f"{old_parts['stripe_fold_kernel']:.4f} ms, its cotangent buffer {n_slots} "
-              f"slots = {dvals_bytes} bytes; max-abs to the band kernel {old_err:.3g}"
-              f"{' (bit-equal)' if torch.equal(old, got) else ''}", flush=True)
-        extra = dict(band_plan=plan._asdict(), column_taps_ms=new_parts["column_taps_kernel"],
-                     band_ms=new_parts["stripe_band_kernel"], three_launch_ms=old_ms,
-                     three_launch_parts_ms=old_parts, three_launch_dvals_bytes=dvals_bytes,
-                     three_launch_max_abs=old_err)
-        del old, checked, g32
+    with nan_allocations(torch):
+        old = three_launch()
+    torch.cuda.synchronize()
+    old_err = max_abs(got.float(), old.float())
+    check(torch.equal(old, got), f"{k} ({label}): the band kernel differs from the three "
+          f"launches by {old_err}")
+    old_ms = time_ms(torch, three_launch, 5)
+    _, n_slots = gt.dvals_slots(checked[8])
+    dvals_bytes = n_slots * used * Pb * Qb * 2
+    aligned = t1.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t1.stride()[:3])
+    plan = gt.stripe_band_plan(Qn, Pb, t1.shape[0], used, t1.shape[3], aligned, QB)
+    sched = union_schedule(occ[1]) if qsplit else None
+    union_line = ("" if sched is None else
+                  f"; {QB} q-blocks of {Qb}: each band's union of needed positions "
+                  f"{sched['union']} against its q-blocks' own counts {sched['per_block']}, "
+                  f"(texel, phase) pairs sitting out {sched['idle_share']:.4f}")
+    print(f"# {k} {label}: band kernel, clusters of {plan.S} CTAs of {plan.R} x "
+          f"{plan.Qc} texels ({plan.threads} threads), {plan.smem} bytes of shared memory, "
+          f"t1 staged {plan.staged}{union_line}. The three launches on the same operands: "
+          f"ms={old_ms:.4f}, their cotangent buffer {n_slots} slots = {dvals_bytes} bytes; "
+          f"bit-equal to the band kernel", flush=True)
+    extra = dict(band_plan=plan._asdict(), three_launch_ms=old_ms,
+                 three_launch_dvals_bytes=dvals_bytes, three_launch_bit_equal=True)
+    if sched is not None:
+        extra["union_schedule"] = sched
+    del old, checked, g32
     return err, cos, ms, plain_ms, bound(nbytes, nops), extra
 
 
@@ -1387,10 +1434,11 @@ def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] != "--readings"):
-        print("usage: python3 chip_smoke.py [--readings PORT_ROOT]", file=sys.stderr)
+    if args and args != ["--stripe-split"] and (len(args) != 2 or args[0] != "--readings"):
+        print("usage: python3 chip_smoke.py [--readings PORT_ROOT | --stripe-split]",
+              file=sys.stderr)
         return 2
-    root = Path(args[1]).resolve() if args else REPO
+    root = Path(args[1]).resolve() if args[:1] == ["--readings"] else REPO
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -1398,6 +1446,12 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(root))
+    if args == ["--stripe-split"]:
+        port = load_port()
+        dev = torch.device("cuda")
+        split = stripe_split(torch, port, main_scene(port, dev), dev)
+        print(json.dumps({"stripe_split": split}))
+        return 0
     if args:
         return readings(torch)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -1453,17 +1507,22 @@ def k5_operands(torch, port, sc, dev, kind):
     ``serving`` the serving statics with qb = 0 at exit 1e-4 (phase 9),
     ``training`` the qb = 0 train statics (diffuse, phase-shifted frame;
     phases 9-10), ``qsplit`` the serving statics with qb = 128 at exit 1e-4
-    (K6, phase 13)."""
+    (K6, phase 13), ``qsplit_training`` the fused=False, qb = 128 train
+    statics (K6 / K8, phase 13)."""
     gn, gt, wm = port["gn"], port["gt"], port["wm"]
     focal_t = torch.tensor(sc.intr.focal, dtype=torch.float32, device=dev)
     rot0_t, org0_t = torch.as_tensor(sc.rot0, device=dev), torch.as_tensor(sc.org0, device=dev)
-    if kind == "training":
+    if kind in ("training", "qsplit_training"):
         swap0 = wm.warp_swap_for_pose(sc.rot0, sc.axis, sc.flip, IMAGE_SIZE, IMAGE_SIZE,
                                       sc.intr.focal)
+        qb = 128 if kind == "qsplit_training" else 0
         tstat0 = gt.make_gnomonic_train_statics(
             sc.grid, sc.axis, sc.flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
-            white_bkgd=True, apply_diffuse_render_regularization=True, warp_swap=swap0, qb=0)
-        check(not tstat0.fused, "qb=0 train statics are not the v2 pipeline")
+            white_bkgd=True, apply_diffuse_render_regularization=True, warp_swap=swap0, qb=qb,
+            fused=False)
+        check(not tstat0.fused and gn._qb_blocks(tstat0.statics, tstat0.frame[1])[0]
+              == (4 if qb else 1), f"{kind} train statics: fused {tstat0.fused}, frame "
+              f"{tstat0.frame}")
         return stripe_case(torch, gn, sc.grid, tstat0.statics, rot0_t, org0_t, IMAGE_SIZE,
                            focal_t, tstat0.supersample, phase=(0.25, -0.125))
     st = gn._variant_statics(sc.grid, sc.axis, sc.flip, sc.config)
@@ -1567,9 +1626,11 @@ def grad_readings(torch, grad, name, ops, out, gout, kw, label, counted=True, pr
             f"the kernel alone {alone}, the zeroing alone {zeros_ms:.4f} (CUDA events)")
     if profiled:
         kname = f"{name}_kernel"
-        r["profiled_kernel_ms"] = kernel_times(
-            torch, lambda: grad(*ops, out, gout, **kw), 5, [kname])[kname]
-        line += f"; the kernel under torch.profiler {r['profiled_kernel_ms']:.4f}"
+        parts, r["profiled_share"] = kernel_times(torch, lambda: grad(*ops, out, gout, **kw),
+                                                  5, [kname], ms)
+        r["profiled_kernel_ms"] = parts[kname]
+        line += (f"; the kernel under torch.profiler {r['profiled_kernel_ms']:.4f} (the trace "
+                 f"holds {r['profiled_share']:.3f} of the call)")
     if counted and "stats" in params:
         stats = torch.zeros(4, dtype=torch.int64, device=out.device)
         grad(*ops, out, gout, **kw, stats=stats)
@@ -1584,11 +1645,64 @@ def grad_readings(torch, grad, name, ops, out, gout, kw, label, counted=True, pr
     return r
 
 
+def stripe_split(torch, port, sc, dev):
+    """K7 on phase 10's operands and K8 on phase 13's (the training pose at
+    128^3, qb = 0 and qb = 128), a seeded state cotangent: the call and the
+    three launches the band kernel replaced (``stripe_backward_three_launch``),
+    each by CUDA events and split by launch under
+    torch.profiler (with the share of the events' time the trace holds),
+    and a sha1 of the call's dt1, which agrees between ports that sum alike.
+    Printed as it goes; returns {"k7": {...}, "k8": {...}}."""
+    gn, gt = port["gn"], port["gt"]
+    out = {}
+    for kind, key in (("training", "k7"), ("qsplit_training", "k8")):
+        args, _ = k5_operands(torch, port, sc, dev, kind)
+        bargs = stripe_backward_args(torch, args, gn.composite_positions(*args),
+                                     torch.Generator(device=dev).manual_seed(10))
+        del args
+        st, (Pn, Qn, PB, Pb) = bargs[9], bargs[10:]
+        QB, Qb = gn._qb_blocks(st, Qn)
+        checked = gn._check_stripe_operands(key, *bargs[:7], *bargs[8:])
+        g32 = bargs[7].contiguous()
+        fns = {"call": lambda: gt.composite_backward(*bargs),
+               "three_launch": lambda: gt.stripe_backward_three_launch(
+                   checked, g32, st, Pn, Qn, Pb, QB, Qb)}
+        r = {}
+        for name, fn in fns.items():
+            ms = time_ms(torch, fn, 5)
+            parts, share = kernel_times(torch, fn, 5, STRIPE_BACKWARD_KERNELS, ms)
+            r[name] = dict(ms=ms, parts_ms=parts, profiled_share=share)
+        dt1 = fns["call"]()
+        r["dt1_sha1"] = hashlib.sha1(dt1.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+        out[key] = r
+        print(f"# {key.upper()} ({QB} q-block{'s' if QB > 1 else ''}): "
+              + "; ".join(f"{name} {v['ms']:.4f} ms (CUDA events), under torch.profiler "
+                          + ", ".join(f"{n_} {t:.4f}" for n_, t in v["parts_ms"].items())
+                          + f" (the trace holds {v['profiled_share']:.3f} of the call)"
+                          for name, v in r.items() if name != "dt1_sha1")
+              + f"; dt1 sha1 {r['dt1_sha1']}", flush=True)
+        del bargs, fns, dt1, checked, g32
+    return out
+
+
+def stripe_split_process():
+    """``stripe_split`` in a process of its own (``--stripe-split``), where
+    torch.profiler's trace holds the kernels' time (see kernel_times);
+    waits for it and returns its result."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--stripe-split"],
+                          capture_output=True, text=True, timeout=600, cwd=str(REPO))
+    print("\n".join(line for line in proc.stdout.splitlines() if line.startswith("# K")),
+          flush=True)
+    check(proc.returncode == 0, f"--stripe-split failed (rc {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["stripe_split"]
+
+
 def readings(torch) -> int:
-    """The ``--readings`` mode: K5, K6, K9-K13 of the imported port on the
-    operands phases 9, 13, 14, 17 and 20 build (see the module docstring)."""
+    """The ``--readings`` mode: K5-K13 of the imported port on the operands
+    phases 9, 10, 13, 14, 17 and 20 build (see the module docstring)."""
     port = load_port()
-    gn, sm, pm = port["gn"], port["sm"], port["pm"]
+    gn, gt, sm, pm = port["gn"], port["gt"], port["sm"], port["pm"]
     dev = torch.device("cuda")
     print(card_line(), flush=True)
     logs = port["kernels"].build_all()
@@ -1603,6 +1717,7 @@ def readings(torch) -> int:
         args, _ = k5_operands(torch, port, sc, dev, kind)
         out[key] = time_ms(torch, lambda: gn.composite_positions(*args), iters)
         del args
+    out.update(stripe_split(torch, port, sc, dev))
     ops, kw, _ = k10_operands(torch, port, sc, dev)
     fwd = sm.slab_march_render(*ops, **kw)
     gout = k10_cotangent(torch, fwd)
@@ -2050,8 +2165,8 @@ def run(torch, workdir: Path) -> int:
     check(not bool(got3[:, :, used_t:].any()), "composite backward wrote pad channels")
     k3_ms = time_ms(torch, lambda: gt.composite_backward_fused(*args3), 10)
     k3_plain_ms = time_ms(torch, lambda: gt.composite_backward_fused_plain(*args3), 1)
-    k3_parts = kernel_times(torch, lambda: gt.composite_backward_fused(*args3), 10,
-                            ("backward_march_kernel", "ufold_kernel"))
+    k3_parts, k3_share = kernel_times(torch, lambda: gt.composite_backward_fused(*args3), 10,
+                                      ("backward_march_kernel", "ufold_kernel"), k3_ms)
     # the march's v-fold output (bf16 dt1 rows, f32 edge records), beside the
     # per-texel bf16 cotangent buffer (dvals) that the design before it wrote
     # and read back
@@ -2073,7 +2188,8 @@ def run(torch, workdir: Path) -> int:
     print(f"# K3 composite_backward_fused: max-abs {k3_err:.3g} of {k3_scale:.3g}, cosine "
           f"{k3_cos:.9f}; ms={k3_ms:.4f} plain_ms={k3_plain_ms:.4f}; device clock "
           f"(torch.profiler, 10 calls): march {k3_parts['backward_march_kernel']:.4f} ms, "
-          f"u-fold {k3_parts['ufold_kernel']:.4f} ms; v-fold output {records_bytes} bytes "
+          f"u-fold {k3_parts['ufold_kernel']:.4f} ms (the trace holds {k3_share:.3f} of the "
+          f"call); v-fold output {records_bytes} bytes "
           f"(dt1 rows {n_dt1 * 2}, edge records {n_edge * 4}; a per-texel cotangent "
           f"buffer: {n_slots} slots = {dvals_bytes} bytes), "
           f"dslices {dsl_bytes} bytes", flush=True)
@@ -2084,7 +2200,8 @@ def run(torch, workdir: Path) -> int:
     results["composite_backward_fused"] = dict(
         err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms, bound=bound(k3_bytes, k3_ops),
         extra=dict(cosine_vs_plain=k3_cos, march_ms=k3_parts["backward_march_kernel"],
-                   ufold_ms=k3_parts["ufold_kernel"], records_bytes=records_bytes,
+                   ufold_ms=k3_parts["ufold_kernel"], profiled_share=k3_share,
+                   records_bytes=records_bytes,
                    dvals_bytes=dvals_bytes, dslices_bytes=dsl_bytes))
     del args3, args7, got3, want3, state_k, state_p, work_t, gstate, gaux, slices_t, geo_t, occ_t
 
@@ -2212,7 +2329,6 @@ def run(torch, workdir: Path) -> int:
     # configuration with qb = 0 on the blob pose (exit_eps 1e-4, and 0), the
     # training operands (diffuse, phase-shifted frame, exit 0), and the CLI's
     # first stage (64^3, P = 4, 200 x 200), where K1 is held too
-    focal_t = torch.tensor(intr.focal, dtype=torch.float32, device=dev)
     rot0_t, org0_t = torch.as_tensor(rot0, device=dev), torch.as_tensor(org0, device=dev)
     a9, t1_exact = k5_operands(torch, port, scene, dev, "serving")
     check(t1_exact == 0, f"u-resample t1 differs from the f32 reference in {t1_exact} elements")
@@ -2443,19 +2559,24 @@ def run(torch, workdir: Path) -> int:
           f"ms={k6_ms:.4f} plain_ms={k6_plain_ms:.4f}; {int(k6_work.sum())} marched pairs; "
           f"bound counts {k6_bytes} bytes, {k6_ops} operations", flush=True)
     del a13, k6_work
-    tstat_q = gt.make_gnomonic_train_statics(
-        grid, axis, flip, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
-        apply_diffuse_render_regularization=True, warp_swap=swap0, qb=128, fused=False)
-    check(not tstat_q.fused and gn._qb_blocks(tstat_q.statics, tstat_q.frame[1])[0] == 4,
-          f"fused=False, qb=128 statics: fused {tstat_q.fused}, frame {tstat_q.frame}")
-    args13t, _ = stripe_case(torch, gn, grid, tstat_q.statics, rot0_t, org0_t, IMAGE_SIZE,
-                             focal_t, tstat_q.supersample, phase=(0.25, -0.125))
+    args13t, _ = k5_operands(torch, port, scene, dev, "qsplit_training")
     gap, work13t = stripe_compare(torch, gn, args13t, "q-split training operands 128^3")
     k6_err = max(k6_err, max(gap))
     k6t_ms = time_ms(torch, lambda: gn.composite_positions(*args13t), 10)
-    k8_err, k8_cos, k8_ms, k8_plain_ms, k8_bound, _ = stripe_backward_compare(
+    k8_err, k8_cos, k8_ms, k8_plain_ms, k8_bound, k8_extra = stripe_backward_compare(
         torch, gn, gt, args13t, work13t, gen, "q-split training 128^3")
     del args13t, work13t
+    # K7 and K8 (phases 10 and 13's operands), the band kernel and the three
+    # launches, split by launch under torch.profiler in a process of its
+    # own: the band path's trace names no march and no fold kernel
+    split = stripe_split_process()
+    for key, extra in (("k7", results["composite_stripe_backward"]["extra"]), ("k8", k8_extra)):
+        parts = split[key]["call"]["parts_ms"]
+        check(parts["stripe_band_kernel"] > 0.0 and parts["stripe_march_kernel"] == 0.0
+              and parts["stripe_fold_kernel"] == 0.0,
+              f"{key.upper()} did not run as the column taps and the band kernel: {parts}")
+        extra.update(column_taps_ms=parts["column_taps_kernel"],
+                     band_ms=parts["stripe_band_kernel"], split_process=split[key])
 
     tstat13 = gt.make_gnomonic_train_statics(
         grid, ax, fl, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
@@ -2719,7 +2840,7 @@ def run(torch, workdir: Path) -> int:
         extra=dict(training_operands_ms=k6t_ms))
     results["composite_stripe_backward_qb"] = dict(
         err=k8_err, ms=k8_ms, plain_ms=k8_plain_ms, bound=k8_bound,
-        extra=dict(cosine_vs_plain=k8_cos))
+        extra=dict(cosine_vs_plain=k8_cos, **k8_extra))
     results["slab_march"] = dict(
         err=max(k9_err, k9_err_opaque, k9_err_batch), ms=k9_ms, plain_ms=k9_plain_ms,
         bound=bound(k9_bytes, k9_ops),

@@ -762,9 +762,13 @@ BAND_CASES = {"narrow": ("ball32", 2, 96, 96, 105.0),
 
 
 def _band_case(device, view):
-    """The stripe operands of BAND_CASES[view] (diffuse on, qb = 0), as
+    """The stripe operands of BAND_CASES[view] (diffuse on, qb = 0) or of
+    QSPLIT_BAND_CASES[view] (its qb: [PB, QB, NP] flags), as
     ``_stripe_case`` builds them."""
-    grid_kind, P, height, width, focal = BAND_CASES[view]
+    if view in BAND_CASES:
+        grid_kind, P, height, width, focal, qb = *BAND_CASES[view], 0
+    else:
+        grid_kind, P, height, width, focal, qb = QSPLIT_BAND_CASES[view]
     gn._strict_f32()
     pose = pose_spherical(140.0, -30.0, 3.5)
     rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
@@ -777,14 +781,18 @@ def _band_case(device, view):
     else:
         tgrid = _grid(int(grid_kind[4:]), device=device)
     st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=True, pos_per_cell=P,
-                             exit_eps=0.0, qb=0)
+                             exit_eps=0.0, qb=qb)
     Pn, Qn, PB, Pb = gn.gnomonic_frame(None, height, width, focal, SS, st)
     slices = gn.repack_position_slices(tgrid, st, vertex_only=False)
     geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(device),
                                torch.from_numpy(org).to(device), st, height, width,
                                torch.tensor(focal, device=device), SS,
                                phase=(0.25, -0.125), lite=False, skip_basis=False)
-    occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    if qb == 0:
+        occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb)
+    else:
+        occ = gn.gnomonic_occupancy(slices, geo.Ru, st, PB, Pb, RvT=geo.RvT,
+                                    QB=gn._qb_blocks(st, Qn)[0])
     return slices, geo, st, (Pn, Qn, PB, Pb), occ
 
 
@@ -852,7 +860,8 @@ def test_stripe_band_plan_fits(Qn):
     memory and 512 threads (the kernel's launch bound, under the 1024 of a
     block); clusters of at most 8 CTAs (none up to Qn = 256) whose columns,
     multiples of 32, cover the frame with no CTA idle; rows a CTA dividing
-    the flag blocks; t1 staged wherever its ring fits."""
+    the flag blocks; t1 staged wherever its ring fits. K8's plan (q-blocks
+    of 128 and 256 columns) is the same plan."""
     for NP in (65, 255, 1021, 2041):
         for used in (4, 13, 28, 49):
             for nv in (16, 64, 128, 256):
@@ -864,6 +873,9 @@ def test_stripe_band_plan_fits(Qn):
                 ring = 6 * used * plan.R * nv
                 rest = plan.smem - (ring if plan.staged else 0)
                 assert plan.staged == (rest + ring <= 227 * 1024)
+                for qb in (128, 256):  # K8's q-blocks: the same plan, the same bytes
+                    if Qn > qb and Qn % qb == 0:
+                        assert gt.stripe_band_plan(Qn, 128, NP, used, nv, QB=Qn // qb) == plan
     unaligned = gt.stripe_band_plan(Qn, 128, 255, 28, 128, t1_aligned=False)
     assert not unaligned.staged
 
@@ -879,6 +891,134 @@ def test_stripe_band_plan_reach(Qn, NP, fits):
     assert (plan is not None) == fits
     if fits:
         assert (plan.S, plan.Qc) == (8, 512) and plan.smem <= 227 * 1024
+
+
+# K8's band-kernel cases: (grid, P, height, width, focal, qb) of one pose
+# (diffuse on). two_blocks: Qn = 256 in two live q-blocks, one CTA (the
+# frame of _stripe_case(qb=128), zoomed in: that one sees the ball in one
+# block only); four_blocks: Qn = 512 in four; straddle: Qn = 640, clusters
+# of 2 CTAs of 320 columns, q-block 2 (columns 256-383) live in both;
+# sixteen_blocks: Qn = 2048, clusters of 4; qb256: Qn = 768 in three
+# q-blocks of 256, block 1 across two CTAs of 384; deep_qsplit: over 2000
+# positions (SH degree 3) in two live q-blocks; dead_block: a q-block that
+# no u-block needs; past_qsplit: Qn = 4224 (33 q-blocks), past the band
+# kernel's reach, which takes the three launches
+QSPLIT_BAND_CASES = {"two_blocks": ("ball32", 2, 128, 128, 300.0, 128),
+                     "four_blocks": ("ball32", 2, 400, 400, 1000.0, 128),
+                     "straddle": ("ball32", 2, 480, 480, 1200.0, 128),
+                     "sixteen_blocks": ("ball32", 2, 1600, 160, 1750.0, 128),
+                     "qb256": ("ball32", 2, 600, 600, 1500.0, 256),
+                     "deep_qsplit": ("deep", 8, 200, 200, 400.0, 128),
+                     "dead_block": ("ball32", 2, 400, 400, 800.0, 128),
+                     "past_qsplit": ("ball32", 2, 3300, 160, 3600.0, 128)}
+
+
+def _live_straddlers(plan, QB, Qb, pos_needed):
+    """The q-blocks whose columns lie in two CTAs of ``plan``'s clusters and
+    that some u-block needs at some position."""
+    live = pos_needed.sum(dim=(0, 2)) > 0  # [QB]
+    return [b for b in range(QB)
+            if b * Qb // plan.Qc != ((b + 1) * Qb - 1) // plan.Qc and bool(live[b])]
+
+
+@pytest.mark.parametrize("view", list(QSPLIT_BAND_CASES))
+def test_qsplit_band_cases_hold_their_geometry(view):
+    """On the CPU: each K8 band case has what it is there for: two live
+    q-blocks of Qn = 256 in one CTA (two_blocks), four in one CTA
+    (four_blocks), a live q-block across two CTAs (straddle at qb = 128,
+    qb256 at qb = 256), Qn = 2048 in clusters of 4 (sixteen_blocks), over
+    2000 positions (deep_qsplit), a q-block no u-block needs while its
+    neighbours are live (dead_block), Qn = 4224 and no band plan
+    (past_qsplit); in every case some band's union of needed positions is
+    longer than a live q-block's own count (that block's texels sit out
+    phases) and some positions are dead."""
+    slices, geo, st, (Pn, Qn, PB, Pb), occ = _band_case("cpu", view)
+    NP, nv = slices.shape[0], slices.shape[3]
+    QB, Qb = gn._qb_blocks(st, Qn)
+    pn = occ[1]
+    assert pn.shape == (PB, QB, NP) and QB > 1, (pn.shape, QB)
+    per_block = pn.sum(-1)  # [PB, QB]
+    union = (pn != 0).any(1).sum(-1)  # [PB]
+    assert bool(((per_block > 0) & (per_block < union[:, None])).any()), (per_block, union)
+    assert not bool((pn != 0).any(1).all())
+    plan = gt.stripe_band_plan(Qn, Pb, NP, 3 * st.ncoeff + 1, nv, QB=QB)
+    if view == "past_qsplit":
+        assert Qn == 4224 and plan is None, (Qn, plan)
+        return
+    live_blocks = per_block.sum(0) > 0  # [QB]
+    dead_blocks = [b for b in range(1, QB - 1)
+                   if not live_blocks[b] and live_blocks[:b].any() and live_blocks[b + 1:].any()]
+    dead_blocks += [b for b in (0, QB - 1) if not live_blocks[b] and live_blocks.any()]
+    expect = {"two_blocks": (Qn, QB, plan.S) == (256, 2, 1) and bool((per_block > 0).all()),
+              "four_blocks": (Qn, QB, plan.S) == (512, 4, 1) and int(live_blocks.sum()) == 4,
+              "straddle": (Qn, Qb, plan.S, plan.Qc) == (640, 128, 2, 320)
+              and _live_straddlers(plan, QB, Qb, pn) == [2],
+              "sixteen_blocks": (Qn, QB, plan.S) == (2048, 16, 4),
+              "qb256": (Qn, Qb, plan.S) == (768, 256, 2)
+              and _live_straddlers(plan, QB, Qb, pn) == [1],
+              "deep_qsplit": NP > 2000 and st.ncoeff == 16 and bool((per_block > 0).any(0).all()),
+              "dead_block": len(dead_blocks) > 0 and bool(live_blocks.any())}
+    assert expect[view], (Qn, QB, Qb, NP, plan, per_block)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", list(QSPLIT_BAND_CASES))
+def test_stripe_backward_qsplit_band_cases(cuda, view, monkeypatch):
+    """K8 on the QSPLIT_BAND_CASES views through the band kernel (the past
+    case through the three launches: counted), bit-equal to the three
+    launches on the same operands (the fold adds the same per-q-block
+    partials in the same order) and against its plain version with the
+    bounds of test_qsplit_backward_kernel_matches_plain (max-abs <= 1e-2 of
+    the largest element, cosine > 0.99999); pad channels and positions no
+    q-block of a u-block needs stay zero (dt1 allocated NaN-filled)."""
+    slices, geo, st, (Pn, Qn, PB, Pb), occ = _band_case(cuda, view)
+    QB, Qb = gn._qb_blocks(st, Qn)
+    t1 = gn.resample_u(slices, geo.Ru)
+    ops = (geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom)
+    args = (t1, *ops, st, Pn, Qn, PB, Pb, occ)
+    state = gn.composite_positions_qb_plain(*args)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    checked = gn._check_stripe_operands("K8", t1, *ops, occ, st, Pn, Qn, PB, Pb)
+    three_launch, taken = gt.stripe_backward_three_launch, []
+
+    def counted(*a):
+        taken.append(a[-2:])
+        return three_launch(*a)
+
+    monkeypatch.setattr(gt, "stripe_backward_three_launch", counted)
+    before = gt.composite_backward_qb.launches
+    with _nan_allocations():
+        got = gt.composite_backward(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+        old = three_launch(checked, gaux.contiguous(), st, Pn, Qn, Pb, QB, Qb)
+    torch.cuda.synchronize()
+    assert gt.composite_backward_qb.launches == before + 1
+    assert taken == ([(QB, Qb)] if view == "past_qsplit" else []), taken
+    want = gt.composite_backward_qb_plain(t1, *ops, gaux, occ, st, Pn, Qn, PB, Pb)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, 3 * st.ncoeff + 1:].any()
+    dead = (occ[1] == 0).all(1).T.repeat_interleave(Pb, 1)  # [NP, Pn]
+    assert not got.permute(0, 2, 1, 3)[dead].any()
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("Qn,QB,fits", [(4096, 32, True), (4096, 16, True), (2048, 32, True),
+                                        (2048, 64, False), (4224, 33, False),
+                                        (4224, 3, False)])
+def test_stripe_band_plan_reach_qsplit(Qn, QB, fits):
+    """On the CPU: K8's band plan (QB q-blocks) is K7's plan for the frame
+    up to 32 q-blocks, the bits of a flag word, and None past them (qb = 32
+    at Qn = 2048) or past Qn = 4096; there the wrapper takes the three
+    launches."""
+    plan = gt.stripe_band_plan(Qn, 128, 1021, 28, 128, QB=QB)
+    assert (plan is not None) == fits
+    if fits:
+        assert plan == gt.stripe_band_plan(Qn, 128, 1021, 28, 128)
+        assert plan.smem <= 227 * 1024
 
 
 # K5's cases: the K7 band views (Qn = 128 and 2048, over 2000 positions,

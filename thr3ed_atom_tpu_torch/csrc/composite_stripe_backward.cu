@@ -11,48 +11,56 @@
 // second product, dt1[j-1] = bf16(bf16(dvals) @ rv) (f32 sum), rv = RvT
 // transposed; blocks of dead positions write zeros.
 //
-// K7 (QB = 1) here: the column taps (column_taps_kernel, gnomonic_stripe.cuh:
-// every column of RvT read once, its two taps), then one band kernel. A
-// band CTA owns R texel rows by Qc columns, one thread a texel; a cluster of
-// S CTAs spans the row band's whole q extent (one CTA up to Qn = 512 where
-// the shared memory allows; stripe_band_plan in gnomonic_train.py). The
-// occupancy flags are per u-block ([PB, NP]), so every texel of a band needs
-// the same positions and the cluster steps through them together, one
-// barrier a needed position. Two needed positions ahead, cp.async copies a
-// position's t1 rows of the band ([used, R, nv] bf16), its columns' taps and
-// its liveness to shared-memory rings; every texel replays from them
-// (march_backward's arithmetic, step for step) and writes its bf16
+// K7 (QB = 1) and K8 (QB > 1 q-blocks) here: the column taps
+// (column_taps_kernel, gnomonic_stripe.cuh: every column of RvT read once,
+// its two taps), then one band kernel. A band CTA owns R texel rows by Qc
+// columns, one thread a texel; a cluster of S CTAs spans the row band's
+// whole q extent (one CTA up to Qn = 512 where the shared memory allows;
+// stripe_band_plan in gnomonic_train.py). The occupancy flags are per
+// (u-block, q-block) ([PB, QB, NP]; K7's [PB, NP] is QB = 1); every CTA
+// holds, for each position, the flags of all the band's q-blocks as bits
+// of one word (QB <= 32), and the cluster steps through the union of the
+// q-blocks' needed positions together, one barrier a position of the
+// union. Two positions ahead, cp.async copies a position's t1 rows of the
+// band ([used, R, nv] bf16), its columns' taps and its liveness to
+// shared-memory rings; every texel replays from them under its own
+// q-block's flags (march_backward's arithmetic, step for step: where its
+// block does not need a position the texel neither replays it nor moves
+// its state, and it flushes only what its block needs) and writes its bf16
 // cotangent of the flushed position to shared memory, and the band records
 // the range of columns whose taps reach each row v (shared atomics of
 // order-free min / max). A barrier on, each CTA folds its share of the rows
-// v: dt1[j, c, p, v] = bf16(sum over the columns q of v's range, in
-// ascending q, of w(q, v) * dvals[c, p, q]), reading the other CTAs'
-// cotangents and taps through distributed shared memory, and writes dt1's
-// rows coalesced along v, each element once; the next position's replay
-// runs in the same phase. Dead positions and pad channels get zero rows.
-// No per-texel cotangent leaves the cluster: no dvals buffer and no fold
-// launch. The sums are the three-launch fold's, in its order.
+// v in the TPU kernel's association: for each q-block that needs the
+// position, a partial sum over the block's columns of v's range in
+// ascending q of w(q, v) * dvals[c, p, q] in f32, the partials added in
+// ascending q-block order, dt1[j, c, p, v] = bf16 of the total (QB = 1: one
+// partial over the whole range). It reads the other CTAs' cotangents and
+// taps through distributed shared memory (a q-block may straddle two CTAs:
+// the partials restart at q-block boundaries, not at CTA boundaries) and
+// writes dt1's rows coalesced along v, each element once; the next
+// position's replay runs in the same phase. Positions no q-block of the
+// band needs, and pad channels, get zero rows. No per-texel cotangent
+// leaves the cluster: no dvals buffer and no fold launch.
 //
-// K8 (QB > 1) keeps three launches: the column taps (with, for each row v,
-// the range of columns reaching it: global atomics), a march with one thread
-// per texel (march_backward over the stripe source) writing bf16 dvals of
-// every needed (u-block, q-block, position) into a compact buffer, and a
-// fold. Its TPU kernel sums each live q-block's partial dvals[C Pb, Qb] @
-// rv[Qb, nv] in f32, adds the partials across q-blocks in ascending order
-// into an f32 accumulator and rounds to bf16 once; the fold here does the
-// same. A QB = 1 frame past the band kernel's reach (Qn > 4096: more than
-// 8 CTAs of 512 columns, the portable cluster size) runs these three
-// launches with one q-block; they give the band kernel's sums.
+// The three launches the band kernel replaced stay for the frames past its
+// reach (Qn > 4096: more than 8 CTAs of 512 columns, the portable cluster
+// size; more than 32 q-blocks; position tables filling shared memory): the
+// column taps (with, for each row v, the range of columns reaching it:
+// global atomics), a march with one thread per texel (march_backward over
+// the stripe source) writing bf16 dvals of every needed (u-block, q-block,
+// position) into a compact buffer, and a fold. Both designs sum in the
+// same order, so they give the same bits.
 //
 // Bound on the H100: memory. The replay reads what the forward reads; dt1
 // [NP, C, Pn, nv] bf16 is written once (1.07 GB at 128^3, P = 2, 512 x 512
 // texels). The band kernel itself runs below that bound, on the replay's
 // arithmetic at one 512-thread CTA an SM (128 registers a thread): every
 // needed position costs each texel a few hundred dependent instructions
-// between two barriers. Built with -fmad=false: the replay rounds as the
-// forward and the plain version; the fold sums in a fixed order (ascending
-// q), which differs from a matmul's order only by f32 round-off before the
-// bf16 rounding.
+// between two barriers. With QB > 1 a texel whose q-block skips a position
+// of the union sits that phase out. Built with -fmad=false: the replay
+// rounds as the forward and the plain version; the fold sums in a fixed
+// order (ascending q), which differs from a matmul's order only by f32
+// round-off before the bf16 rounding.
 #include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -189,7 +197,7 @@ int dispatch(const MarchParams& prm, int with_diffuse, int relu, cudaStream_t s)
               : launch_march<NCOEFF, false, false>(prm, s);
 }
 
-// ---------------------------------------------------------------- K7: band
+// ----------------------------------------------------------- K7 / K8: band
 
 struct BandParams {
   const __nv_bfloat16* t1;  // [NP, C, Pn, nv], unit stride along v
@@ -198,17 +206,45 @@ struct BandParams {
   const float* live_u;      // [NP, Pn]
   const float* live_v;      // [NP, Qn]
   const float* geom;        // [NP, 8]
-  const int* cell_live;     // [PB, NP]
-  const int* pos_needed;    // [PB, NP]
+  const int* cell_live;     // [PB, QB, NP]
+  const int* pos_needed;    // [PB, QB, NP]
   const float* ybasis;      // [ncoeff, Pn, Qn]
   const float* norm;        // [Pn, Qn]
   const float* gaux;        // [SROWS + 2, Pn, Qn]
   __nv_bfloat16* dt1;       // [NP, C, Pn, nv]
-  int NP, C, Pn, Qn, nv, Pb;
+  int NP, C, Pn, Qn, nv, Pb, QB, Qb;
   int S, R, Qc, staged;     // cluster size, rows and columns of a CTA, t1 staged
 };
 
 constexpr int BAND_MAX_THREADS = 512;
+constexpr int BAND_MAX_QBLOCKS = 32;  // a position's q-block flags: the bits of one word
+
+// The band's per-position tables (march_tables_bytes(NP, false) bytes, as
+// load_tables lays them out): geometry rows [NP, GEOM_COLS], then for each
+// position its cell_live and its pos_needed flags over the u-block's QB
+// q-blocks as bits (bit b: q-block b). A position is on the band's schedule
+// where its pos_needed word is not 0, as next_needed reads it.
+__device__ __forceinline__ MarchTables load_band_tables(void* smem, const BandParams& prm,
+                                                        int pb, int tid, int nthreads) {
+  const int NP = prm.NP;
+  float* s_geom = reinterpret_cast<float*>(smem);  // [NP, GEOM_COLS]
+  int* s_cl = reinterpret_cast<int*>(s_geom + NP * GEOM_COLS);
+  int* s_pn = s_cl + NP;
+  const size_t base = (size_t)pb * prm.QB * NP;
+  for (int i = tid; i < NP; i += nthreads) {
+#pragma unroll
+    for (int k = 0; k < GEOM_COLS; ++k) s_geom[i * GEOM_COLS + k] = prm.geom[(size_t)i * 8 + k];
+    unsigned cl = 0u, pn = 0u;
+    for (int b = 0; b < prm.QB; ++b) {
+      cl |= (unsigned)(prm.cell_live[base + (size_t)b * NP + i] != 0) << b;
+      pn |= (unsigned)(prm.pos_needed[base + (size_t)b * NP + i] != 0) << b;
+    }
+    s_cl[i] = (int)cl;
+    s_pn[i] = (int)pn;
+  }
+  __syncthreads();
+  return MarchTables{s_geom, s_cl, s_pn, nullptr};
+}
 
 // The schedule, in phases that one barrier (the cluster's for S > 1) ends:
 // in the phase that replays slot k (the k-th needed position), the band
@@ -289,7 +325,9 @@ __device__ __forceinline__ const T* in_rank(const T* ptr, int rank, int me) {
   return cooperative_groups::this_cluster().map_shared_rank(ptr, rank);
 }
 
-template <int NCOEFF, bool DIFFUSE, bool RELU>
+// QSPLIT: K8's instance (QB > 1: each texel under its q-block's bits, the
+// fold by q-block partials); K7's (QB = 1) keeps the plain range sum.
+template <int NCOEFF, bool DIFFUSE, bool RELU, bool QSPLIT>
 __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParams prm) {
   extern __shared__ __align__(16) unsigned char band_smem[];
   constexpr int USED = 3 * NCOEFF + 1;
@@ -304,6 +342,8 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
   const int p0 = blockIdx.y * R;
   const int p = p0 + r, q = rank * Qc + ql;
   const bool valid = q < Qn;  // the last CTA of a cluster may have idle columns
+  // the texel's q-block as its bit in the flag words (none for an idle column)
+  const unsigned mine = valid ? 1u << (q / prm.Qb) : 0u;
   const BandLayout L = band_layout(NP, USED, nv, R, Qc, prm.staged);
   float4* s_taps = reinterpret_cast<float4*>(band_smem + L.taps);
   float* s_live = reinterpret_cast<float*>(band_smem + L.live);
@@ -315,9 +355,8 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
 
   for (int i = tid; i < RANGE_SLOTS * 2 * nv; i += nthreads)
     s_lohi[i] = (i / nv) & 1 ? -1 : INT_MAX;
-  const MarchTables tb = load_tables(band_smem + L.tables, prm.geom, prm.cell_live,
-                                     prm.pos_needed, nullptr, (size_t)(p0 / prm.Pb) * NP,
-                                     NP, tid, nthreads);
+  const MarchTables tb = load_band_tables(band_smem + L.tables, prm, p0 / prm.Pb, tid,
+                                          nthreads);
 
   // the texel's constants: SH basis, norm, state cotangent
   const size_t plane = (size_t)Pn * Qn;
@@ -336,7 +375,7 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
   // dead rows in 16-byte stores where the share's rows are 16-byte aligned
   const bool vec_rows = nv % 8 == 0 && nvm % 8 == 0 && vbeg % 8 == 0;
   const FastDiv by_nvm(max(nvm, 1)), by_R(R), by_row(max(vec_rows ? nvm / 8 : nvm, 1));
-  const FastDiv by_nch(max(nv / 8, 1)), by_per_c(max(R * (nv / 8), 1));
+  const FastDiv by_nch(max(nv / 8, 1)), by_per_c(max(R * (nv / 8), 1)), by_Qb(prm.Qb);
 
   // position j's taps, liveness and band rows of t1 into ring slot k (every
   // thread), one commit group (empty past the last needed position)
@@ -389,14 +428,41 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
   for (int j = 0; j < NP; ++j) folds_left += tb.pos_needed[j] != 0;
   int dead_left = NP - folds_left;
 
-  // position jf (ring slot kf): its rows v, each channel's sum over v's
-  // columns in ascending q; items (group, row, v), v fastest: lanes store
-  // consecutive v of a channel row. Then the zero rows of a share of the
-  // dead positions, so that their stores spread over the march.
-  auto fold = [&](int jf, int kf) {
-    const int* lohi = s_lohi + (kf % RANGE_SLOTS) * 2 * nv;
+  // s[e] += w(q, v) * dvals[group channel e, row rr, q] over the columns q
+  // = qa .. qz in ascending q (the columns of one or more ranks), in ring
+  // slot kf
+  auto sum_columns = [&](int kf, int v, int rr, int grp, int qa, int qz, float* s) {
     const float4* taps = s_taps + (kf % TAP_SLOTS) * Qc;
     const __nv_bfloat16* dvk = s_dv + (kf % DV_SLOTS) * dv_slot;
+    for (int rq = qa / Qc; qa <= qz && rq <= qz / Qc; ++rq) {  // one rank's columns
+      const int q0 = rq * Qc;
+      const float4* tk = in_rank(taps, rq, rank);
+      const __nv_bfloat16* dv = in_rank(dvk, rq, rank) + (size_t)rr * Qc * CS + grp * 8;
+      for (int qq = max(qa, q0) - q0; qq <= min(qz, q0 + Qc - 1) - q0; ++qq) {
+        const float4 tp = tk[qq];
+        const int v0 = __float_as_int(tp.x);
+        const float w = v0 == v ? tp.y : (v0 + 1 == v ? tp.z : 0.0f);
+        if (w != 0.0f) {
+          float f[8];
+          unpack8(*reinterpret_cast<const uint4*>(dv + (size_t)qq * CS), f);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) s[e] = s[e] + w * f[e];
+        }
+      }
+    }
+  };
+
+  // position jf (ring slot kf): its rows v; items (group, row, v), v
+  // fastest: lanes store consecutive v of a channel row. K7: each channel's
+  // sum over v's columns in ascending q. K8: for each q-block that needs jf,
+  // a partial over the block's columns of v's range, the partials added in
+  // ascending block order, as the three-launch fold adds them over every
+  // needed block: a needed block with no column in the range adds a +0
+  // partial there, which leaves the sum's bits as they are (no partial is
+  // -0). Then the zero rows of a share of the dead positions, so that their
+  // stores spread over the march.
+  auto fold = [&](int jf, int kf) {
+    const int* lohi = s_lohi + (kf % RANGE_SLOTS) * 2 * nv;
     __nv_bfloat16* o = prm.dt1 + (size_t)jf * C * cstride + (size_t)p0 * nv + vbeg;
     for (int i = tid; i < n_fold; i += nthreads) {
       const int rest = by_nvm.div(i), vl = i - rest * nvm, grp = by_R.div(rest),
@@ -407,21 +473,22 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
       for (int e = 0; e < 8; ++e) acc[e] = 0.0f;
       if (grp < NG) {
         const int lo = lohi[v], hi = lohi[nv + v];
-        for (int rq = lo / Qc; lo <= hi && rq <= hi / Qc; ++rq) {  // one rank's columns
-          const int q0 = rq * Qc;
-          const float4* tk = in_rank(taps, rq, rank);
-          const __nv_bfloat16* dv = in_rank(dvk, rq, rank) + (size_t)rr * Qc * CS + grp * 8;
-          for (int qq = max(lo, q0) - q0; qq <= min(hi, q0 + Qc - 1) - q0; ++qq) {
-            const float4 tp = tk[qq];
-            const int v0 = __float_as_int(tp.x);
-            const float w = v0 == v ? tp.y : (v0 + 1 == v ? tp.z : 0.0f);
-            if (w != 0.0f) {
-              float f[8];
-              unpack8(*reinterpret_cast<const uint4*>(dv + (size_t)qq * CS), f);
+        if constexpr (QSPLIT) {
+          const unsigned need = tb.pos_needed[jf];  // the q-blocks that flushed jf
+          bool first = true;
+          for (int b = by_Qb.div(lo); lo <= hi && b <= by_Qb.div(hi); ++b) {
+            if (!((need >> b) & 1u)) continue;  // a q-block that skips jf adds nothing
+            float part[8];
 #pragma unroll
-              for (int e = 0; e < 8; ++e) acc[e] = acc[e] + w * f[e];
-            }
+            for (int e = 0; e < 8; ++e) part[e] = 0.0f;
+            sum_columns(kf, v, rr, grp, max(lo, b * prm.Qb), min(hi, b * prm.Qb + prm.Qb - 1),
+                        part);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) acc[e] = first ? part[e] : acc[e] + part[e];
+            first = false;
           }
+        } else {
+          sum_columns(kf, v, rr, grp, lo, hi, acc);
         }
       }
       __nv_bfloat16* out = o + (size_t)grp * 8 * cstride + (size_t)rr * nv + vl;
@@ -450,7 +517,9 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
   int k_clear = -1;  // the slot folded in the last phase: its ranges are cleared in this one
 
   // NP + 1 steps, as march_backward: step j composites cell (j-1, j) and
-  // flushes position j-1 (slot k - 1); a step that does either is a phase
+  // flushes position j-1 (slot k - 1); a step that does either for some
+  // q-block of the band is a phase. The texel takes it under its own
+  // block's flags (my_replay, my_flush), as march_backward over that block.
   for (int j = 0; j <= NP; ++j) {
     const bool replay = j < NP && tb.pos_needed[j];
     const bool flush = j > 0 && tb.pos_needed[j - 1];
@@ -458,6 +527,8 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
       pend = PosCotangent{};
       continue;
     }
+    const bool my_replay = replay && (QSPLIT ? (tb.pos_needed[j] & mine) != 0 : valid);
+    const bool my_flush = flush && (QSPLIT ? (tb.pos_needed[j - 1] & mine) != 0 : valid);
     if (k_clear >= 0) {
       for (int i = tid; i < 2 * nv; i += nthreads)
         s_lohi[(k_clear % RANGE_SLOTS) * 2 * nv + i] = i < nv ? INT_MAX : -1;
@@ -493,7 +564,7 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
           }
         }
       }
-      if (valid) {
+      if (my_replay) {
         const float4 tp = s_taps[(k % TAP_SLOTS) * Qc + ql];
         const __nv_bfloat16* row;
         long long rsc;
@@ -513,9 +584,9 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
     // cell (j-1, j): its a-side cotangents for position j-1 and its b-side
     // ones, pending for position j
     PosCotangent da{}, db{};
-    if (replay && valid && j > 0 && tb.cell_live[j])
+    if (my_replay && j > 0 && (QSPLIT ? tb.cell_live[j] & mine : tb.cell_live[j]) != 0)
       backward_cell<DIFFUSE, RELU>(G, nm, g, prev, cur, T, Sp, da, db);
-    if (flush && valid) {
+    if (my_flush) {
       PosCotangent d;
       d.sig = pend.sig + da.sig;
 #pragma unroll
@@ -538,7 +609,7 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
       }
     }
     pend = db;
-    if (replay) prev = cur;
+    if (my_replay) prev = cur;
 
     if (j_fold >= 0) {
       fold(j_fold, k_fold);
@@ -566,9 +637,9 @@ __global__ void __launch_bounds__(BAND_MAX_THREADS) stripe_band_kernel(BandParam
   }
 }
 
-template <int NCOEFF, bool DIFFUSE, bool RELU>
+template <int NCOEFF, bool DIFFUSE, bool RELU, bool QSPLIT>
 int launch_band(const BandParams& prm, size_t smem, cudaStream_t stream) {
-  auto kern = stripe_band_kernel<NCOEFF, DIFFUSE, RELU>;
+  auto kern = stripe_band_kernel<NCOEFF, DIFFUSE, RELU, QSPLIT>;
   static size_t smem_allowed[16] = {};
   const cudaError_t e = allow_smem(kern, smem, smem_allowed);
   if (e != cudaSuccess) return (int)e;
@@ -587,23 +658,30 @@ int launch_band(const BandParams& prm, size_t smem, cudaStream_t stream) {
   return (int)cudaLaunchKernelEx(&cfg, kern, prm);
 }
 
-template <int NCOEFF>
+template <int NCOEFF, bool QSPLIT>
 int dispatch_band(const BandParams& prm, size_t smem, int with_diffuse, int relu,
                   cudaStream_t s) {
   if (with_diffuse)
-    return relu ? launch_band<NCOEFF, true, true>(prm, smem, s)
-                : launch_band<NCOEFF, true, false>(prm, smem, s);
-  return relu ? launch_band<NCOEFF, false, true>(prm, smem, s)
-              : launch_band<NCOEFF, false, false>(prm, smem, s);
+    return relu ? launch_band<NCOEFF, true, true, QSPLIT>(prm, smem, s)
+                : launch_band<NCOEFF, true, false, QSPLIT>(prm, smem, s);
+  return relu ? launch_band<NCOEFF, false, true, QSPLIT>(prm, smem, s)
+              : launch_band<NCOEFF, false, false, QSPLIT>(prm, smem, s);
+}
+
+template <int NCOEFF>
+int dispatch_band(const BandParams& prm, size_t smem, int with_diffuse, int relu,
+                  cudaStream_t s) {
+  return prm.QB > 1 ? dispatch_band<NCOEFF, true>(prm, smem, with_diffuse, relu, s)
+                    : dispatch_band<NCOEFF, false>(prm, smem, with_diffuse, relu, s);
 }
 
 }  // namespace
 
-// K8: three launches on one stream: the column taps (``taps`` [NP, Qn] float4
-// and ``q_lo`` / ``q_hi`` [NP, nv], preset to INT_MAX / -1 by the caller),
-// the march (only the slots of needed blocks of ``dvals``) and the fold,
-// which writes every element of dt1. QB = 1, Qb = Qn is the design K7 ran
-// before composite_stripe_band_launch.
+// K7 / K8 past the band kernel's reach: three launches on one stream: the
+// column taps (``taps`` [NP, Qn] float4 and ``q_lo`` / ``q_hi`` [NP, nv],
+// preset to INT_MAX / -1 by the caller), the march (only the slots of needed
+// blocks of ``dvals``) and the fold, which writes every element of dt1. The
+// design K7 (QB = 1, Qb = Qn) and K8 ran before composite_stripe_band_launch.
 extern "C" int composite_stripe_backward_launch(
     const void* t1, long long sj, long long sc, long long sp, const void* rvt,
     void* taps, int* q_lo, int* q_hi, const float* live_u, const float* live_v,
@@ -650,16 +728,17 @@ extern "C" int composite_stripe_backward_launch(
   return (int)cudaGetLastError();
 }
 
-// K7 (QB = 1): the column taps (``taps`` [NP, Qn] float4), then the band
-// kernel with cluster size S, R rows and Qc columns a CTA, t1 staged or read
-// from device memory, ``smem`` bytes of shared memory (stripe_band_plan; the
+// K7 (QB = 1) and K8 (QB q-blocks of Qb columns, QB <= 32; flags [PB, QB,
+// NP]): the column taps (``taps`` [NP, Qn] float4), then the band kernel
+// with cluster size S, R rows and Qc columns a CTA, t1 staged or read from
+// device memory, ``smem`` bytes of shared memory (stripe_band_plan; the
 // layout is checked against band_layout). Writes every element of dt1.
 extern "C" int composite_stripe_band_launch(
     const void* t1, long long sj, long long sc, long long sp, const void* rvt, void* taps,
     const float* live_u, const float* live_v, const float* geom, const int* cell_live,
     const int* pos_needed, const float* ybasis, const float* norm, const float* gaux,
     void* dt1, int ncoeff, int with_diffuse, int relu, int NP, int C, int nv, int Pn, int Qn,
-    int Pb, int S, int R, int Qc, int staged, long long smem, void* stream) {
+    int Pb, int QB, int Qb, int S, int R, int Qc, int staged, long long smem, void* stream) {
   const int used = 3 * ncoeff + 1;
   const bool aligned = (uintptr_t)t1 % 16 == 0 && sj % 8 == 0 && sc % 8 == 0 &&
                        sp % 8 == 0 && nv % 8 == 0;
@@ -667,7 +746,8 @@ extern "C" int composite_stripe_band_launch(
     return (int)cudaErrorMisalignedAddress;
   if (S < 1 || S > 8 || R < 1 || Pb % R != 0 || Pn % Pb != 0 || (long long)S * Qc < Qn ||
       (long long)(S - 1) * Qc >= Qn || R * Qc > BAND_MAX_THREADS || Qc % 32 != 0 ||
-      (S == 1 && Qc != Qn) || (staged && !aligned) || used > C ||
+      (S == 1 && Qc != Qn) || (staged && !aligned) || used > C || QB < 1 ||
+      QB > BAND_MAX_QBLOCKS || QB * Qb != Qn ||
       (size_t)smem != band_layout(NP, used, nv, R, Qc, staged).total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -681,7 +761,7 @@ extern "C" int composite_stripe_band_launch(
                        reinterpret_cast<const float4*>(taps), live_u, live_v, geom,
                        cell_live, pos_needed, ybasis, norm, gaux,
                        reinterpret_cast<__nv_bfloat16*>(dt1), NP, C, Pn, Qn, nv, Pb,
-                       S, R, Qc, staged};
+                       QB, Qb, S, R, Qc, staged};
   switch (ncoeff) {
     case 1: return dispatch_band<1>(prm, (size_t)smem, with_diffuse, relu, s);
     case 4: return dispatch_band<4>(prm, (size_t)smem, with_diffuse, relu, s);

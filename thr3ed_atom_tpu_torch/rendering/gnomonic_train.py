@@ -438,12 +438,13 @@ def _stripe_backward_fn():
 def _stripe_band_fn():
     return kernels.bind("composite_stripe_backward", "composite_stripe_band_launch",
                         [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 11
-                        + [ctypes.c_int] * 13 + [ctypes.c_longlong, ctypes.c_void_p])
+                        + [ctypes.c_int] * 15 + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 class BandPlan(NamedTuple):
-    """K7's launch: clusters of ``S`` CTAs of ``R`` texel rows by ``Qc``
-    columns (``threads`` = R Qc, one a texel) span a row band's q extent;
+    """The band kernel's launch (K7, and K8 with q-block flags): clusters of
+    ``S`` CTAs of ``R`` texel rows by ``Qc`` columns (``threads`` = R Qc,
+    one a texel) span a row band's q extent;
     ``staged``: t1's band rows go through a shared-memory ring; ``smem``:
     the CTA's shared-memory bytes."""
     S: int
@@ -457,25 +458,34 @@ class BandPlan(NamedTuple):
 BAND_ROW_THREADS = 256  # texels of a CTA over several rows (Qn <= 256)
 BAND_MAX_THREADS = 512  # the kernel's launch bound: texels of a CTA over one row
 BAND_MAX_CLUSTER = 8  # the portable cluster size
+BAND_MAX_QBLOCKS = 32  # a position's q-block flags are the bits of one 32-bit word
 SMEM_OPTIN = 232_448  # shared memory a block may opt in to on an H100 (227 KB)
 
 
 def stripe_band_plan(Qn: int, Pb: int, NP: int, used: int, nv: int,
-                     t1_aligned: bool = True) -> Optional[BandPlan]:
-    """The launch plan of K7's band kernel (csrc/composite_stripe_backward.cu,
-    whose ``band_layout`` lays out the same bytes): a frame of Qn <= 256
+                     t1_aligned: bool = True, QB: int = 1) -> Optional[BandPlan]:
+    """The launch plan of the band kernel (csrc/composite_stripe_backward.cu,
+    whose ``band_layout`` lays out the same bytes) for K7 (QB = 1) and K8
+    (QB q-blocks; the plan depends on the blocks only through the limit of
+    32, the bits of the flag words: a q-block may straddle two CTAs of a
+    cluster, whose fold restarts its partials on q-block boundaries): a
+    frame of Qn <= 256
     columns takes R = 256 / Qn rows a CTA; a wider one CTAs of one row and up
     to 512 columns (one CTA up to Qn = 512; past that a cluster of S =
     ceil(Qn / 512) CTAs of Qc columns, a multiple of 32, the last CTA's
     surplus columns idle), or up to 256 columns where 512 do not fit the
     shared memory. None where no plan fits: past Qn = 4096 (a cluster of 8
-    CTAs of 512 columns) or where the position tables fill the shared
-    memory. Shared memory: the taps ring (5 x Qc float4), the
-    liveness ring (3 x [Qc + R, padded to 4] f32), the t1 ring (3 x [used,
-    R, nv] bf16, only where t1's rows are 16-byte aligned and it fits), the
-    per-position tables (32 NP bytes), the column ranges (4 x 2 nv int,
+    CTAs of 512 columns), past 32 q-blocks, or where the position tables
+    fill the shared memory. Shared memory: the taps ring (5 x Qc float4),
+    the liveness ring (3 x [Qc + R, padded to 4] f32), the t1 ring (3 x
+    [used, R, nv] bf16, only where t1's rows are 16-byte aligned and it
+    fits), the per-position tables (32 NP bytes: geometry, and the cell and
+    position flags of every q-block as the bits of two words), the column
+    ranges (4 x 2 nv int,
     padded to 16 bytes) and the flushed cotangents (2 x [R, Qc, CS] bf16, CS
     the used channels rounded up to an odd number of 8-channel groups)."""
+    if QB > BAND_MAX_QBLOCKS:
+        return None
     cs = 8 * (-(-used // 8) | 1)  # a texel's cotangent stride: odd 8-channel groups
     for width in (BAND_MAX_THREADS, BAND_ROW_THREADS):
         if Qn <= BAND_ROW_THREADS:
@@ -497,9 +507,11 @@ def stripe_band_plan(Qn: int, Pb: int, NP: int, used: int, nv: int,
 
 def _launch_stripe_backward(what, t1, rvt, ybasis, live_u, live_v, norm, geom, gaux,
                             occupancy, statics: GnomonicStatics, Pn, Qn, PB, Pb):
-    """One call of csrc/composite_stripe_backward.cu: K7's band kernel for
-    QB = 1, K8's three launches for QB > 1 and for a QB = 1 frame that no
-    band plan serves (Qn > 4096). Returns dt1 [NP, C, Pn, nv] bf16."""
+    """One call of csrc/composite_stripe_backward.cu: the band kernel (K7
+    for QB = 1, K8 for QB > 1) wherever ``stripe_band_plan`` gives a plan,
+    else the three launches (Qn > 4096, more than 32 q-blocks, or position
+    tables that fill shared memory). A failed launch raises. Returns dt1
+    [NP, C, Pn, nv] bf16."""
     if t1.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {t1.device}")
     ops = _check_stripe_operands(what, t1, rvt, ybasis, live_u, live_v, norm, geom,
@@ -511,9 +523,8 @@ def _launch_stripe_backward(what, t1, rvt, ybasis, live_u, live_v, norm, geom, g
     t1, rvt, yb, lu, lv, nm, geom, cl, pn = ops
     NP, C, _, nv = t1.shape
     aligned = t1.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t1.stride()[:3])
-    plan = None if QB > 1 else stripe_band_plan(Qn, Pb, NP, 3 * statics.ncoeff + 1, nv,
-                                                aligned)
-    if plan is None:  # K8, or a frame past the band kernel's reach
+    plan = stripe_band_plan(Qn, Pb, NP, 3 * statics.ncoeff + 1, nv, aligned, QB)
+    if plan is None:  # a frame past the band kernel's reach
         return stripe_backward_three_launch(ops, gaux, statics, Pn, Qn, Pb, QB, Qb)
     if lv.data_ptr() % 16:  # the kernel copies live_v rows in 16-byte pieces
         lv = lv.clone()
@@ -523,20 +534,20 @@ def _launch_stripe_backward(what, t1, rvt, ybasis, live_u, live_v, norm, geom, g
         t1.data_ptr(), *t1.stride()[:3], rvt.data_ptr(), taps.data_ptr(), lu.data_ptr(),
         lv.data_ptr(), geom.data_ptr(), cl.data_ptr(), pn.data_ptr(), yb.data_ptr(),
         nm.data_ptr(), gaux.data_ptr(), dt1.data_ptr(), statics.ncoeff,
-        int(statics.with_diffuse), int(statics.relu_sigma), NP, C, nv, Pn, Qn, Pb,
+        int(statics.with_diffuse), int(statics.relu_sigma), NP, C, nv, Pn, Qn, Pb, QB, Qb,
         plan.S, plan.R, plan.Qc, int(plan.staged), plan.smem, kernels.stream(dt1))
     kernels.check(err, "composite_stripe_band")
     return dt1
 
 
 def stripe_backward_three_launch(ops, gaux, statics: GnomonicStatics, Pn, Qn, Pb, QB, Qb):
-    """K8's three launches of csrc/composite_stripe_backward.cu on the
+    """The three launches of csrc/composite_stripe_backward.cu on the
     checked operands ``ops`` of ``_check_stripe_operands`` and the f32
     ``gaux``: the column taps with each row's column range, the march into a
     compact cotangent buffer of ``dvals_slots`` slots of [3 ncoeff + 1, Pb,
-    Qb] bf16, the fold. With QB = 1 it is the design K7 ran before its band
-    kernel (chip_smoke.py holds the two against each other), and K7's path
-    on a frame that no band plan serves. Returns dt1."""
+    Qb] bf16, the fold. The design K7 (QB = 1) and K8 ran before the band
+    kernel (chip_smoke.py and the GPU tests hold the two bit-equal), and
+    their path on a frame that no band plan serves. Returns dt1."""
     t1, rvt, yb, lu, lv, nm, geom, cl, pn = ops
     NP, C, _, nv = t1.shape
     dev = t1.device
@@ -591,10 +602,12 @@ def composite_backward_qb(t1, rvt, ybasis, live_u, live_v, norm, geom, gaux, occ
     """The q-split replay VJP (K8): as ``composite_backward`` with [PB, QB, NP]
     flags, the fold summing per q-block partials (see
     ``composite_backward_qb_plain``). On a CUDA tensor one call of
-    csrc/composite_stripe_backward.cu with the q-block grain (column taps, a
-    march over the texels into a compact cotangent buffer of
-    ``dvals_slots(pos_needed)`` slots of [3 ncoeff + 1, Pb, Qb] bf16, a fold
-    over (texel rows, position)); on a CPU tensor the plain version."""
+    csrc/composite_stripe_backward.cu with the q-block grain: the column
+    taps, then K7's band kernel under the q-blocks' flags, each texel's
+    replay under its own block's, the fold adding per-q-block partials in
+    ascending block order (past the plan's reach, Qn > 4096 or more than 32
+    q-blocks, the three launches of ``stripe_backward_three_launch``); on a
+    CPU tensor the plain version."""
     if t1.device.type == "cpu":
         return composite_backward_qb_plain(t1, rvt, ybasis, live_u, live_v, norm, geom,
                                            gaux, occupancy, statics, Pn, Qn, PB, Pb)
