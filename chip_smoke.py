@@ -90,7 +90,22 @@ version on the card at the main paths' shapes:
        backward (and index_add_) timed beside them, K13 also at the shape
        of the weights' cotangent (K = 1 on 2M rows), K13 and K14 at B =
        4096 (K14 past shared memory), and the differentiable gather.
-The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19 and 20, each
+  21.  the reference's quality gates (tools/run_quality_gates.py's scene,
+       camera and thresholds) on the port: the exact renderer
+       (render_sh_voxel_grid, the default procedure) at 1024 samples a ray,
+       and gnomonic at P = 1, 2, 4, P = 2 with the gather warp and with warp
+       order 5 in both forms, bricked at K = 1, 2, 4, each through
+       VolumetricModel.render and gated on its PSNR against the exact
+       render; the exact render on the card against the CPU on a 64 x 64
+       crop;
+  22.  one gnomonic_train_step_multi through warp order 5 and one through
+       the gather warp (phase 8's first step), each against its plain step;
+  23.  the held-out tester with LPIPS on phase 12's test views, and LPIPS on
+       the card against the CPU on one pair;
+  24.  timings: the exact render a pose, orders 3 and 5 and both warp forms a
+       gnomonic pose, the B-spline prefilter alone (both passes' operands,
+       beside its row recursion) and LPIPS at 400 x 400.
+The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21 and 22, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
 and the device's busy share.
@@ -166,7 +181,7 @@ def load_port():
     from thr3ed_atom_tpu_torch import kernels
     from thr3ed_atom_tpu_torch.apps import render_sh_voxel_grid as rcli
     from thr3ed_atom_tpu_torch.apps import train_sh_voxel_grid as cli
-    from thr3ed_atom_tpu_torch.data import png
+    from thr3ed_atom_tpu_torch.data import dataset, png
     from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid, voxel_grid_from_numpy
     from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
     from thr3ed_atom_tpu_torch.modules import trainer
@@ -186,7 +201,8 @@ def load_port():
     return dict(kernels=kernels, voxel_grid_from_numpy=voxel_grid_from_numpy,
                 VoxelGrid=VoxelGrid, vm=vm, rt=rt, gn=gn, gt=gt, wm=wm,
                 trainer=trainer, Config=SHVoxGridRenderConfig, camera=camera, cli=cli,
-                png=png, br=br, sm=sm, bt=bt, pl=pl, pm=pm, og=og, rcli=rcli)
+                png=png, br=br, sm=sm, bt=bt, pl=pl, pm=pm, og=og, rcli=rcli,
+                dataset=dataset)
 
 
 def check(cond, msg):
@@ -1428,6 +1444,242 @@ def planes_phases(torch, port, workdir, *, scene, grid, d, f, grid_config, confi
                    large_B_library_ms=k14L_lib_ms, large_B_bound_ms=k14L_bound[0]))
     return PlanesRun(results, launches18, launches18g, launches19, launches20, ms_pose_p,
                      wall19)
+
+
+# the reference's quality gates (tools/run_quality_gates.py, QUALITY_GATES_r05.json)
+GATE_POSE = (45.0, -40.0, 4.0)
+GATES_DB = {"gnomonic_P1": 60.0, "gnomonic_P2": 73.0, "gnomonic_P4": 75.0,
+            "gnomonic_P2_gather": 73.0, "gnomonic_P2_order5": 73.0,
+            "gnomonic_P2_gather_order5": 73.0,
+            "bricked_K1": 60.0, "bricked_K2": 70.0, "bricked_K4": 75.0}
+EXACT_CROP = 64  # phase 21: the exact render's card-vs-CPU crop, 64 x 64 = 4096 rays
+
+
+class TrainingView(NamedTuple):
+    """Phase 8's first step: its grid init, views, targets and phases."""
+    init_grid: object
+    targets: object
+    rots: np.ndarray
+    orgs: np.ndarray
+    pick: np.ndarray
+    phases: list
+    variant: tuple
+
+
+def warp_options_phases(torch, port, workdir, *, scene, view, dev) -> dict:
+    """Phases 21-24 (this slice's paths): the reference's quality gates on the
+    port, the train step through warp order 5 and through the gather warp,
+    the held-out tester with LPIPS, and the new paths' timings. ``scene`` is
+    the blob model of phase 5, ``view`` phase 8's first step. Returns what
+    the summary prints."""
+    gn, gt, wm, vm, camera = (port[k_] for k_ in ("gn", "gt", "wm", "vm", "camera"))
+    from thr3ed_atom_tpu_torch.modules import tester
+    from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
+    from thr3ed_atom_tpu_torch.rendering.renderer import render_sh_voxel_grid
+    from thr3ed_atom_tpu_torch.utils import lpips
+
+    grid, config, intr = scene.grid, scene.config, scene.intr
+    counters = {"composite_fused": gn.composite_positions_fused,
+                "resample_rows": wm.resample_rows}
+    out = {}
+
+    # ---- phase 21: the reference's quality gates. tools/run_quality_gates.py's
+    # scene and camera (the 128^3 blob, 400 x 400, focal 440, pose (45, -40,
+    # 4), bounds (2, 6), no jitter, white background), every render through
+    # VolumetricModel.render, each PSNR against the exact render at 1024
+    # samples a ray
+    gate_pose = camera.pose_spherical(*GATE_POSE)
+    gate_config = config.replace(num_samples_per_ray=1024, parallel_rays_chunk_size=4096)
+    exact = vm.VolumetricModel(grid, "render_sh_voxel_grid", gate_config, device=dev)
+    check(vm.VolumetricModel(grid, render_config=gate_config, device=dev).render_procedure_name
+          == "render_sh_voxel_grid", "the default procedure is not the exact renderer")
+    t0 = time.perf_counter()
+    ref = exact.render(gate_pose, intr)
+    torch.cuda.synchronize()
+    exact_wall = time.perf_counter() - t0
+    acc = ref.extra["accumulated_weight"]
+    check(ref.colour.shape == (IMAGE_SIZE, IMAGE_SIZE, 3)
+          and all(bool(torch.isfinite(x).all()) for x in (ref.colour, ref.depth, acc))
+          and float(acc.max()) > 0.5 and float(acc.min()) < 1e-3,
+          "the exact render is not finite, or misses the scene or the background")
+    renders = {
+        "gnomonic_P1": ("render_sh_voxel_grid_gnomonic", dict(gnomonic_pos_per_cell=1)),
+        "gnomonic_P2": ("render_sh_voxel_grid_gnomonic", dict(gnomonic_pos_per_cell=2)),
+        "gnomonic_P4": ("render_sh_voxel_grid_gnomonic", dict(gnomonic_pos_per_cell=4)),
+        "gnomonic_P2_gather": ("render_sh_voxel_grid_gnomonic", dict(
+            gnomonic_pos_per_cell=2, gnomonic_warp_impl="gather")),
+        "gnomonic_P2_order5": ("render_sh_voxel_grid_gnomonic", dict(
+            gnomonic_pos_per_cell=2, gnomonic_warp_order=5)),
+        "gnomonic_P2_gather_order5": ("render_sh_voxel_grid_gnomonic", dict(
+            gnomonic_pos_per_cell=2, gnomonic_warp_impl="gather", gnomonic_warp_order=5)),
+        "bricked_K1": ("render_sh_voxel_grid_bricked", dict(bricked_axis_supersample=1)),
+        "bricked_K2": ("render_sh_voxel_grid_bricked", dict(bricked_axis_supersample=2)),
+        "bricked_K4": ("render_sh_voxel_grid_bricked", dict(bricked_axis_supersample=4)),
+    }
+    gates, launches21 = {}, {}
+    for name, (procedure, cfg) in renders.items():
+        model = vm.VolumetricModel(grid, procedure, gate_config.replace(**cfg), device=dev)
+        for c in counters.values():
+            c.launches = 0
+        img = model.render(gate_pose, intr).colour
+        torch.cuda.synchronize()
+        if procedure.endswith("gnomonic"):
+            launches21[name] = {k_: c.launches for k_, c in counters.items()}
+        gates[name] = psnr(img, ref.colour)
+        check(bool(torch.isfinite(img).all()), f"{name}: non-finite render")
+    # the new warp paths ran through the kernels: K1, and K2 for the matmul
+    # warp (two launches a pass at order 5), none for the gather warp
+    check(launches21["gnomonic_P2_order5"] == {"composite_fused": 1, "resample_rows": 4}
+          and launches21["gnomonic_P2_gather"] == {"composite_fused": 1, "resample_rows": 0}
+          and launches21["gnomonic_P2_gather_order5"]
+          == {"composite_fused": 1, "resample_rows": 0}
+          and launches21["gnomonic_P2"] == {"composite_fused": 1, "resample_rows": 2},
+          f"phase 21 launches {launches21}")
+    print(f"# quality gates (PSNR vs the exact render at 1024 samples, pose {GATE_POSE}, "
+          f"exact render {exact_wall:.2f} s on the host clock): "
+          + ", ".join(f"{k_} {v:.2f} dB (gate {GATES_DB[k_]})" for k_, v in gates.items())
+          + f"; gnomonic launches {launches21}", flush=True)
+    failed = {k_: v for k_, v in gates.items() if not v >= GATES_DB[k_]}
+    check(not failed, f"quality gates failed: {failed}")
+    check(gates["gnomonic_P1"] < gates["gnomonic_P2"] < gates["gnomonic_P4"],
+          f"gnomonic P ladder not monotone: {gates}")
+    out["gates_db"] = gates
+
+    # the exact render on the card against the same function on the CPU, on
+    # the central 64 x 64 crop (4096 rays)
+    flat = rays_mod.flatten_rays(rays_mod.cast_rays(intr, gate_pose, dev))
+    lo = (IMAGE_SIZE - EXACT_CROP) // 2
+    rows = torch.arange(lo, lo + EXACT_CROP, device=dev)
+    idx = (rows[:, None] * IMAGE_SIZE + rows[None, :]).reshape(-1)
+    crop = rays_mod.Rays(flat.origins[idx], flat.directions[idx])
+    got = render_sh_voxel_grid(grid, crop, gate_config)
+    cpu_grid = port["voxel_grid_from_numpy"](scene.d, scene.f, scene.grid_config, device="cpu")
+    t0 = time.perf_counter()
+    want = render_sh_voxel_grid(cpu_grid, rays_mod.Rays(crop.origins.cpu(),
+                                                        crop.directions.cpu()), gate_config)
+    cpu_s = time.perf_counter() - t0
+    crop_err = {k_: max_abs(a.cpu(), b) for k_, a, b in (
+        ("colour", got.colour, want.colour), ("depth", got.depth, want.depth),
+        ("acc", got.extra["accumulated_weight"], want.extra["accumulated_weight"]))}
+    check(crop_err["colour"] <= 1e-4 and crop_err["acc"] <= 1e-4 and crop_err["depth"] <= 1e-3
+          and float(want.extra["accumulated_weight"].max()) > 0.5,
+          f"exact render card vs CPU on the crop: {crop_err}")
+    print(f"# exact render, card vs CPU on the {EXACT_CROP} x {EXACT_CROP} crop (4096 rays, "
+          f"1024 samples): max-abs {crop_err} (CPU {cpu_s:.1f} s)", flush=True)
+    out["exact_crop_max_abs"] = crop_err
+    del cpu_grid, want, got, crop, flat, ref, exact
+
+    # ---- phase 22: one train step (phase 8's first: 4 views, 128^3 from
+    # uniform(-1, 1), diffuse regularization, jitter) through warp order 5 (the
+    # matmul warp) and through the gather warp (order 3), each against the
+    # same step through the plain versions
+    ax, fl, sw = view.variant
+    step_args = (view.targets[view.pick], view.rots[view.pick], view.orgs[view.pick],
+                 intr.focal)
+    train_counters = {"composite_fused": gn.composite_positions_fused,
+                      "composite_backward_fused": gt.composite_backward_fused,
+                      "resample_rows": wm.resample_rows,
+                      "resample_rows_adjoint": wm.resample_rows_adjoint}
+    k_views = len(view.pick)
+    steps22 = {}
+    for label, kw in (("order5", dict(warp_order=5)), ("gather", dict(warp_impl="gather"))):
+        grads, losses = [], []
+        for plain in (True, False):
+            g = view.init_grid()
+            tstat = gt.make_gnomonic_train_statics(
+                g, ax, fl, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+                apply_diffuse_render_regularization=True, warp_swap=sw, **kw)
+            opt, sched = port["trainer"].make_gnomonic_optimizer(g, 0.03)
+            for c in train_counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            m = gt.gnomonic_train_step_multi(tstat, opt, g, *step_args, phases=view.phases,
+                                             scheduler=sched, plain=plain)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            grads.append((g.densities.grad.clone(), g.features.grad.clone()))
+            losses.append(float(m["total_loss"]))
+            del g, opt, sched
+        counts = {k_: c.launches for k_, c in train_counters.items()}
+        warp_launches = 4 * k_views if label == "order5" else 0
+        check(counts == dict(composite_fused=k_views, composite_backward_fused=k_views,
+                             resample_rows=warp_launches, resample_rows_adjoint=warp_launches),
+              f"{label} train step launches {counts}")
+        cos = [cosine(a, b) for a, b in zip(grads[1], grads[0])]
+        check(min(cos) > 0.99999 and abs(losses[1] - losses[0]) <= 1e-5 * losses[0]
+              and all(bool(torch.isfinite(x).all()) for x in grads[1]),
+              f"{label} train step vs plain: gradient cosines {cos}, losses {losses}")
+        steps22[label] = dict(loss=losses[1], plain_loss=losses[0], cosines=cos,
+                              launches=counts, first_step_ms=step_ms)
+        print(f"# train step through {label} (k={k_views}, variant {view.variant}): loss "
+              f"{losses[1]:.6f} (plain {losses[0]:.6f}), gradient cosines vs plain {cos}; "
+              f"{step_ms:.1f} ms (host clock, first step); launches {counts}", flush=True)
+        del grads
+    out["train_steps"] = steps22
+
+    # ---- phase 23: the held-out tester with LPIPS on the card: phase 12's
+    # 4 test views (downsampled to 400 x 400) against the gnomonic model; the
+    # metric on the card against the CPU on one pair
+    ds = port["dataset"].PosedImagesDataset(
+        images_dir=workdir / "blob_views" / "test",
+        camera_params_json=workdir / "blob_views" / "test_camera_params.json",
+        downsample_factor=2.0, rgba_white_bkgd=True)
+    model = vm.VolumetricModel(grid, "render_sh_voxel_grid_gnomonic", config, device=dev)
+    t0 = time.perf_counter()
+    res23 = tester.test_sh_vox_grid_vol_mod_with_posed_images(model, ds)
+    tester_s = time.perf_counter() - t0
+    key23 = tester.TEST_SET_LPIPS_RAND if tester.TEST_SET_LPIPS_RAND in res23 \
+        else tester.TEST_SET_LPIPS
+    check(sorted(res23) == sorted([tester.TEST_SET_PSNR, key23]) and res23[tester.TEST_SET_PSNR]
+          > 30.0 and 0.0 <= res23[key23] < 0.05, f"tester results {res23}")
+    img, _ = ds[0]
+    rendered = model.render(camera.CameraPose(rotation=ds[0][1][:, :3],
+                                              translation=ds[0][1][:, 3:]),
+                            ds.camera_intrinsics).colour
+    metric_gpu = tester._get_lpips(dev)
+    metric_cpu = lpips.LPIPSMetric(device="cpu")
+    l_gpu, l_cpu = metric_gpu(rendered, img), metric_cpu(rendered.cpu(), img)
+    check(abs(l_gpu - l_cpu) <= 1e-4 * max(1.0, abs(l_cpu)) and l_gpu > 0.0,
+          f"LPIPS card {l_gpu} vs CPU {l_cpu}")
+    print(f"# tester: {res23} on {len(ds)} views of {ds.camera_intrinsics[:2]} "
+          f"({tester_s:.2f} s in the tester, {metric_gpu.name}); LPIPS of one pair on the card "
+          f"{l_gpu:.8f}, on the CPU {l_cpu:.8f}", flush=True)
+    out["tester"] = dict(results=res23, lpips_card=l_gpu, lpips_cpu=l_cpu)
+
+    # ---- phase 24: timings (CUDA events), each beside its plain version
+    pose = gate_pose
+    t24 = {}
+    exact = vm.VolumetricModel(grid, "render_sh_voxel_grid", gate_config, device=dev)
+    t24["exact_render_ms_pose"] = time_ms(torch, lambda: exact.render(pose, intr), 2)
+    variants = {"matmul_order3": {}, "matmul_order5": dict(gnomonic_warp_order=5),
+                "gather_order3": dict(gnomonic_warp_impl="gather"),
+                "gather_order5": dict(gnomonic_warp_impl="gather", gnomonic_warp_order=5)}
+    for label, cfg in variants.items():
+        m_ = vm.VolumetricModel(grid, "render_sh_voxel_grid_gnomonic",
+                                config.replace(gnomonic_pos_per_cell=2, **cfg), device=dev)
+        t24[f"gnomonic_P2_{label}_ms_pose"] = time_ms(torch, lambda: m_.render(pose, intr), 10)
+    # the prefilter alone, on the two passes' operands of this pose's frame
+    st = gn._variant_statics(grid, *gn.dominant_axis_for_pose(
+        np.asarray(pose.rotation, np.float32).reshape(3, 3)), config)
+    ss = gn.effective_supersample(config.gnomonic_supersample, st, IMAGE_SIZE, IMAGE_SIZE)
+    Pn, Qn, _, _ = gn.gnomonic_frame(None, IMAGE_SIZE, IMAGE_SIZE, intr.focal, ss, st)
+    Hp = -(-IMAGE_SIZE // 128) * 128
+    gen24 = torch.Generator(device=dev).manual_seed(24)
+    for label, shape in (("pass_a", (Pn, 8, Qn)), ("pass_b", (Hp, 8, -(-Pn // 128) * 128))):
+        x = torch.rand(shape, generator=gen24, device=dev)
+        t24[f"prefilter_{label}_ms"] = time_ms(torch, lambda: wm.prefilter_last_axis(x), 20)
+        t24[f"prefilter_{label}_plain_ms"] = time_ms(
+            torch, lambda: wm.prefilter_last_axis(x, plain=True), 3)
+        err = max_abs(wm.prefilter_last_axis(x), wm.prefilter_last_axis(x, plain=True))
+        check(err <= 2e-6, f"prefilter {label}: matrix vs recursion max-abs {err}")
+        t24[f"prefilter_{label}_shape"] = list(shape)
+    a_img = rendered[None].contiguous()
+    b_img = torch.as_tensor(np.asarray(img, np.float32), device=dev)[None]
+    t24["lpips_400_ms"] = time_ms(torch, lambda: lpips.lpips(metric_gpu.weights, a_img, b_img),
+                                  5)
+    print(f"# timings (CUDA events; {card_line()}): {json.dumps(t24)}", flush=True)
+    out["timings"] = t24
+    return out
 
 
 def main() -> int:
@@ -2835,6 +3087,9 @@ def run(torch, workdir: Path) -> int:
         planes_phases(torch, port, workdir, scene=scene, grid=grid, d=d, f=f,
                       grid_config=grid_config, config=config, intr=intr,
                       render_poses=render_poses, axis=axis, flip=flip, gen=gen, dev=dev))
+    new_paths = warp_options_phases(
+        torch, port, workdir, scene=scene, dev=dev,
+        view=TrainingView(init_grid, targets, rots, orgs, picks[0], phases[0], (ax, fl, sw)))
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -2949,7 +3204,8 @@ def run(torch, workdir: Path) -> int:
           f"{ms_pose_b:.3f}; planes: {ms_pose_p:.3f}); training ms/step {ms_per_step:.3f}; "
           f"CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
           f"{cli_runs[0]['ms_per_step']}, bricked {ms_step_b}; render CLI {wall19:.2f} s; "
-          f"total {time.perf_counter() - t_start:.1f} s")
+          f"exact render {new_paths['timings']['exact_render_ms_pose']:.1f} ms/pose; quality "
+          f"gates {new_paths['gates_db']}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -231,7 +231,8 @@ def test_staircase_adam_matches_optax():
 
 def test_out_of_slice_paths_raise_and_psnr(tmp_path):
     """What the port still lacks raises, naming it: fused=True with qb = 0,
-    the gather warp, the mesh step, the stage loop on another procedure
+    an unknown warp form (the gather warp is ported), the mesh step, the
+    stage loop on another procedure
     (the fast renderer) or on a device mesh, and image files other than
     8-bit PNGs; fused=False with qb > 0 is the v2 pipeline with the q-split
     kernels (K6 / K8); mse2psnr matches the reference's definition."""
@@ -241,8 +242,10 @@ def test_out_of_slice_paths_raise_and_psnr(tmp_path):
     assert not ts.fused and ts.statics.qb == 128
     with pytest.raises(ValueError, match="qb=0 is the v2"):
         gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0, fused=True)
-    with pytest.raises(NotImplementedError, match="gather warp"):
-        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, warp_impl="gather")
+    assert gt.make_gnomonic_train_statics(tgrid, 0, False, **kw,
+                                          warp_impl="gather").warp_impl == "gather"
+    with pytest.raises(ValueError, match="gnomonic_warp_impl"):
+        gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, warp_impl="scatter")
     assert not gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0).fused
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         gt.gnomonic_train_step_mesh()

@@ -37,6 +37,21 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread per test where there is no card (the CPU suite
+    runs in several worker processes at once, and PyTorch's threads in each
+    of them starve the others: the CPU cases here ran ~10x slower so); on a
+    card's machine the threads are left as they are."""
+    if torch.cuda.is_available():
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _trap_pairs(n=100_000, seed=0):
     """Seeded (a, b) pairs: generic, near-equal endpoints, zero crossings in
     both directions, both negative, and exact ties."""
@@ -116,7 +131,9 @@ def test_port_imports_no_jax():
                  "apps.train_sh_voxel_grid", "data.dataset", "data.png", "modules.tester",
                  "visualizations.static", "utils.misc", "utils.profiling",
                  "ops.plane_march", "rendering.planes", "ops.onehot_gather",
-                 "visualizations.video", "apps.render_sh_voxel_grid"):
+                 "visualizations.video", "apps.render_sh_voxel_grid", "utils.lpips",
+                 "rendering.rays", "rendering.sample", "rendering.process",
+                 "rendering.accumulate", "ops.grid_sample"):
         assert f"thr3ed_atom_tpu_torch.{name}" in modules
 
 
@@ -1774,3 +1791,106 @@ def test_onehot_kernels_match_plain(cuda, B, C, N, K, same):
     assert (og.onehot_gather_forward.launches - before[0],
             og.onehot_scatter_add.launches - before[1]) == (2, 1)
     assert float((t.grad - dt_want).abs().max()) <= 1e-5 * float(dt_want.abs().max()) + 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [130, 512, 640])
+def test_prefilter_matrix_form_on_the_card(cuda, n):
+    """The B-spline prefilter's matrix form on the card (an f32 cuBLAS
+    product, TF32 off) against the float64 product on the CPU: within 4e-7
+    x the largest value (a few f32 ulp), along axis 0 and along the last
+    axis (the matmul warp's lines); its gradient is M^T g within the same
+    bound; the card's and the CPU's plain recursions agree to 1e-6."""
+    gn._strict_f32()
+    rng = np.random.default_rng(n)
+    a = rng.uniform(0.0, 1.0, (n, 8, 24)).astype(np.float32)
+    a[-(n // 5):] = 0.0  # a zero-padded tail, as the warp's second pass
+    m64 = gn._bspline_prefilter_matrix64(n)
+    want = (m64 @ a.reshape(n, -1).astype(np.float64)).reshape(a.shape)
+    scale = np.abs(want).max()
+    x = torch.from_numpy(a).to(cuda).requires_grad_(True)
+    got = gn.bspline_prefilter_axis0(x)
+    g = rng.normal(size=a.shape).astype(np.float32)
+    got.backward(torch.from_numpy(g).to(cuda))
+    torch.cuda.synchronize()
+    assert np.abs(got.detach().cpu().numpy() - want).max() <= 4e-7 * scale
+    g_want = (m64.T @ g.reshape(n, -1).astype(np.float64)).reshape(a.shape)
+    assert np.abs(x.grad.cpu().numpy() - g_want).max() <= 4e-7 * np.abs(g_want).max()
+    line = wm.prefilter_last_axis(torch.from_numpy(np.moveaxis(a, 0, -1).copy()).to(cuda))
+    assert np.abs(np.moveaxis(line.cpu().numpy(), -1, 0) - want).max() <= 4e-7 * scale
+    plain = gn.bspline_prefilter_axis0(torch.from_numpy(a).to(cuda), plain=True)
+    cpu = gn.bspline_prefilter_axis0(torch.from_numpy(a), plain=True)
+    assert float((plain.cpu() - cpu).abs().max()) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 3, 5])
+def test_gather_warp_on_the_card(cuda, order):
+    """The gather warp (``_warp_to_camera``, warp_impl "gather") of one
+    composited state on the card against the same function on the CPU, and
+    its gradient with respect to the state: outputs within 1e-4 (texel
+    positions may round 1 ulp apart, ~3e-5 on this random state), gradient
+    cosine > 0.9999 (order 5: > 0.999, where near-subnormal B-spline tails
+    may take the other side of a clamp tie). The state has empty rows and
+    columns, so the hull clamp meets ties."""
+    gn._strict_f32()
+    tgrid = _grid(16)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    st = gn.statics_for_grid(tgrid, axis, flip, with_diffuse=True, pos_per_cell=1)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot), torch.from_numpy(org), st, H, W,
+                               torch.tensor(FOCAL), SS)
+    Pn, Qn, _, _ = gn.gnomonic_frame(None, H, W, FOCAL, SS, st)
+    rng = np.random.default_rng(5)
+    state = rng.uniform(0.0, 1.0, (9, Pn, Qn)).astype(np.float32)
+    state[:, : Pn // 3] = 0.0
+    state[:, :, Qn // 2:] = 0.0
+    g_out = torch.from_numpy(rng.normal(size=(H, W, 8)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        s = torch.from_numpy(state).to(dev).requires_grad_(True)
+        out = gn._warp_to_camera(
+            s, tuple(v.to(dev) for v in geo.xr), tuple(v.to(dev) for v in geo.yr),
+            torch.from_numpy(rot).to(dev), st, H, W, torch.tensor(FOCAL, device=dev), SS,
+            True, warp_order=order, warp_impl="gather")
+        flat = torch.cat([out.colour, out.extra["accumulated_weight"], out.depth,
+                          out.extra["diffuse_colour"]], -1)
+        flat.backward(g_out.to(dev))
+        outs.append(flat.detach().cpu())
+        grads.append(s.grad.cpu())
+    torch.cuda.synchronize()
+    assert float((outs[0] - outs[1]).abs().max()) <= 1e-4
+    assert _cosine(grads[1], grads[0]) > (0.999 if order == 5 else 0.9999)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl,order", [("matmul", 5), ("gather", 3), ("gather", 5)])
+def test_train_step_warp_options_match_plain(cuda, impl, order):
+    """One gnomonic_train_step_multi (k = 2) through warp order 5 and through
+    the gather warp with the kernels, against the same step through the
+    plain versions (the prefilter's row recursion included): the grid
+    gradients within cosine > 0.99999, the losses within rtol 1e-5."""
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    images = torch.rand((2, H, W, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    grads, losses = [], []
+    for plain in (False, True):
+        tgrid = _grid(32, device=cuda)
+        ts = gt.make_gnomonic_train_statics(tgrid, axis, flip, image_height=H, image_width=W,
+                                            white_bkgd=True, pos_per_cell=2,
+                                            warp_order=order, warp_impl=impl)
+        opt, sched = make_gnomonic_optimizer(tgrid)
+        m = gt.gnomonic_train_step_multi(ts, opt, tgrid, images, np.stack([rot] * 2),
+                                         np.stack([org] * 2), FOCAL,
+                                         phases=[(0.1, 0.2), (-0.3, 0.4)],
+                                         scheduler=sched, plain=plain)
+        torch.cuda.synchronize()
+        grads.append((tgrid.densities.grad.clone(), tgrid.features.grad.clone()))
+        losses.append(float(m["total_loss"]))
+    assert losses[0] == pytest.approx(losses[1], rel=1e-5)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999

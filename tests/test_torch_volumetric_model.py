@@ -1,7 +1,8 @@
 """The PyTorch port's serving slice end to end against the JAX package:
 VolumetricModel.render_poses through the gnomonic procedure, checkpoints in
-both directions, the camera-path panels, and the configurations outside the
-port, which must raise rather than fall back."""
+both directions, the camera-path panels, the warp options (order 5, the
+gather warp) against the JAX model, and the procedures outside the port,
+which must raise rather than fall back."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -159,31 +160,41 @@ def test_camera_path_panels():
     dict(gnomonic_qb=0),
 ])
 def test_outside_the_slice_raises(override):
-    """Warp order 5 and the gather warp lie outside the port and raise,
-    naming their ROADMAP items. ``gnomonic_qb=0`` selects the v2 stripe
-    pipeline, which the port has: it renders, within the render bounds
-    (colour / acc 3e-3, depth 2e-2) of the fused render."""
-    _, tmodel = _models()
+    """The options that were once outside the slice now render. Warp order
+    5 and the gather warp match the JAX model's render with the same
+    override (colour / acc 3e-3, depth 2e-2, the render bounds);
+    ``gnomonic_qb=0`` selects the v2 stripe pipeline: it renders within the
+    same bounds of the fused render. An unknown warp form raises."""
+    jmodel, tmodel = _models()
     pose, intr = pose_spherical(140.0, -30.0, 3.5), CameraIntrinsics(32, 32, 35.0)
-    if "gnomonic_qb" not in override:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmodel.render(pose, intr, **override)
-        return
-    v2, fused = tmodel.render(pose, intr, **override), tmodel.render(pose, intr)
     acc = "accumulated_weight"
-    assert float(fused.extra[acc].max()) > 0.5  # the object is in view
-    np.testing.assert_allclose(v2.colour.numpy(), fused.colour.numpy(), rtol=0, atol=3e-3)
-    np.testing.assert_allclose(v2.extra[acc].numpy(), fused.extra[acc].numpy(),
-                               rtol=0, atol=3e-3)
-    np.testing.assert_allclose(v2.depth.numpy(), fused.depth.numpy(), rtol=0, atol=2e-2)
+    got = tmodel.render(pose, intr, **override)
+    if "gnomonic_qb" in override:
+        want = tmodel.render(pose, intr)
+        want_acc, want_colour, want_depth = (want.extra[acc].numpy(), want.colour.numpy(),
+                                             want.depth.numpy())
+    else:
+        want = jmodel.render(pose, intr, **override)
+        want_acc, want_colour, want_depth = (np.asarray(want.extra[acc]),
+                                             np.asarray(want.colour), np.asarray(want.depth))
+    assert float(want_acc.max()) > 0.5  # the object is in view
+    np.testing.assert_allclose(got.colour.numpy(), want_colour, rtol=0, atol=3e-3)
+    np.testing.assert_allclose(got.extra[acc].numpy(), want_acc, rtol=0, atol=3e-3)
+    np.testing.assert_allclose(got.depth.numpy(), want_depth, rtol=0, atol=2e-2)
+    with pytest.raises(ValueError, match="gnomonic_warp_impl"):
+        tmodel.render(pose, intr, gnomonic_warp_impl="scatter")
 
 
 def test_other_procedures_and_flat_rays_raise():
-    """Procedures the port has not got raise naming ROADMAP.md; flat ray
+    """Procedures the port has not got (fast, hierarchical) raise naming
+    ROADMAP.md; the exact renderer is ported and constructs; flat ray
     batches through the gnomonic, bricked and planes procedures raise naming
     the fast renderer, where the JAX package would route them."""
     _, tmodel = _models()
-    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_fast"):
+    exact = vm.VolumetricModel(tmodel.thre3d_repr, "render_sh_voxel_grid",
+                               tmodel.render_config, device="cpu")
+    assert exact.render_procedure_name == "render_sh_voxel_grid"
+    for name in ("render_sh_voxel_grid_fast", "render_sh_voxel_grid_hierarchical"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
                                device="cpu")

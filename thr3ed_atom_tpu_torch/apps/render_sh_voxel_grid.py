@@ -6,7 +6,7 @@ camera path on the CUDA card, write a video.
 The JAX package's apps/render_sh_voxel_grid.py with the same option names and
 defaults (argparse instead of click). It loads a checkpoint written by either
 package (``<model>.npz`` / ``<model>.json``) whose procedure the port serves
-(gnomonic, bricked, planes), renders the colour | depth | inverted-acc panels
+(exact, gnomonic, bricked, planes), renders the colour | depth | inverted-acc panels
 of every pose and writes ``rendered_video.gif`` in the output directory: the
 GIF the JAX package writes when it has no mp4 backend (the port has none).
 ``main(argv, device="cpu")`` runs on the CPU through the kernels' plain

@@ -31,13 +31,13 @@ from thr3ed_atom_tpu_torch.models.voxels import (
 )
 from thr3ed_atom_tpu_torch.modules.trainer import train_sh_vox_grid_vol_mod_with_posed_images
 from thr3ed_atom_tpu_torch.modules.volumetric_model import VolumetricModel
+from thr3ed_atom_tpu_torch.rendering.rays import (
+    compute_expected_density_scale_for_relu_field_grid,
+)
 from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
 from thr3ed_atom_tpu_torch.utils.constants import NUM_COLOUR_CHANNELS, SEED
 from thr3ed_atom_tpu_torch.utils.logging import log
-from thr3ed_atom_tpu_torch.utils.misc import (
-    compute_expected_density_scale_for_relu_field_grid,
-    log_config_to_disk,
-)
+from thr3ed_atom_tpu_torch.utils.misc import log_config_to_disk
 from thr3ed_atom_tpu_torch.utils.profiling import profile_trace
 
 PROCEDURES = ("render_sh_voxel_grid_gnomonic", "render_sh_voxel_grid_bricked",
@@ -66,8 +66,9 @@ def resolve_render_procedure(render_procedure: str, sh_degree: int,
     if render_procedure not in ("render_sh_voxel_grid_gnomonic",
                                 "render_sh_voxel_grid_bricked"):
         raise NotImplementedError(
-            f"render procedure '{render_procedure}' is not ported (ROADMAP.md, 'Modules "
-            "to port', item 3 for the exact renderer, item 8 for the others)"
+            f"training through '{render_procedure}' is not ported: ray-batch training "
+            "(ROADMAP.md, 'Modules to port', items 2 + 3, the next slice) and the fast "
+            "and hierarchical procedures (item 8) come later"
         )
     if render_procedure == "render_sh_voxel_grid_gnomonic" and (
             sh_degree > 3 or use_softplus_field):

@@ -12,7 +12,10 @@ graph; ``trainable()`` enables them for the duration of a train step.
 Conventions (shared with the JAX package): x = width, y = depth, z = height;
 AABB = grid_dims * voxel_size centred at grid_location; the density
 preactivation applies to ``densities * expected_density_scale`` on the whole
-grid before interpolation, the postactivation after.
+grid before interpolation, the postactivation after. Calling the grid on
+world points [N, 3] interpolates it (``forward``, the exact renderer's point
+lookup: ops/grid_sample.py, torch grid_sample's align_corners=False
+semantics).
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from thr3ed_atom_tpu_torch.ops.grid_sample import trilinear_grid_sample
+from thr3ed_atom_tpu_torch.utils.camera import adjust_dynamic_range
 from thr3ed_atom_tpu_torch.utils.constants import CONFIG_DICT, STATE_DICT, THRE3D_REPR
 
 
@@ -59,6 +64,14 @@ ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 }
 
 
+# registry of radiance transfer functions by name (empty, as in the JAX
+# package): (interpolated features [N, F], viewdirs [N, 3]) -> radiance-space
+# features. ``None`` keeps the raw SH features, evaluated in the point
+# processor; an unknown name fails its lookup in ``forward``, as in the JAX
+# package
+RADIANCE_TRANSFER_FUNCTIONS: Dict[str, Callable] = {}
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``None`` means the CUDA card."""
     return torch.device("cuda" if device is None else device)
@@ -88,11 +101,6 @@ class VoxelGrid(nn.Module):
                      feature_preactivation, feature_postactivation):
             if name not in ACTIVATIONS:
                 raise ValueError(f"unknown activation '{name}'")
-        if radiance_transfer_function is not None:
-            raise NotImplementedError(
-                "radiance transfer functions are not ported (ROADMAP.md, "
-                "'Modules to port', item 2: models/voxels.py)"
-            )
         self.densities = nn.Parameter(densities, requires_grad=False)
         self.features = nn.Parameter(features, requires_grad=False)
         self.voxel_size = VoxelSize(*voxel_size)
@@ -127,6 +135,54 @@ class VoxelGrid(nn.Module):
             y_range=(loc.y_coord - half[1], loc.y_coord + half[1]),
             z_range=(loc.z_coord - half[2], loc.z_coord + half[2]),
         )
+
+    # ------------------------------------------------------------------ geometry
+
+    def normalize_points(self, points: torch.Tensor) -> torch.Tensor:
+        """World coordinates -> [-1, 1]^3 grid coordinates (un-clipped affine map)."""
+        return torch.stack([
+            adjust_dynamic_range(points[..., axis], drange_in=axis_range,
+                                 drange_out=(-1.0, 1.0), slack=True)
+            for axis, axis_range in enumerate(self.aabb)
+        ], dim=-1)
+
+    def test_inside_volume(self, points: torch.Tensor) -> torch.Tensor:
+        """Strict-inequality AABB membership test; [..., 3] -> [..., 1] bool."""
+        aabb = self.aabb
+        return (
+            (points[..., 0:1] > aabb.x_range[0])
+            & (points[..., 0:1] < aabb.x_range[1])
+            & (points[..., 1:2] > aabb.y_range[0])
+            & (points[..., 1:2] < aabb.y_range[1])
+            & (points[..., 2:3] > aabb.z_range[0])
+            & (points[..., 2:3] < aabb.z_range[1])
+        )
+
+    def get_bounding_volume_vertices(self) -> torch.Tensor:
+        """The AABB's eight corners [8, 3] (x slowest, z fastest) on the grid's device."""
+        (x_min, x_max), (y_min, y_max), (z_min, z_max) = self.aabb
+        return torch.tensor(
+            [[x, y, z] for x in (x_min, x_max) for y in (y_min, y_max) for z in (z_min, z_max)],
+            dtype=torch.float32, device=self.device,
+        )
+
+    def forward(self, points: torch.Tensor,
+                viewdirs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Interpolated [N, F + 1] (features ++ density) at world-space
+        ``points`` [N, 3]: one trilinear gather over the concatenated
+        pre-activated grids, then the post-activations (and the radiance
+        transfer function, if the grid names one and ``viewdirs`` are
+        given). Differentiable in the grid's tensors."""
+        pre_densities, pre_features = self.activated_grids()
+        unified = torch.cat([pre_features, pre_densities], dim=-1)
+        interpolated = trilinear_grid_sample(unified, self.normalize_points(points))
+        interp_features, interp_densities = interpolated[..., :-1], interpolated[..., -1:]
+        interp_densities = ACTIVATIONS[self.density_postactivation](interp_densities)
+        interp_features = ACTIVATIONS[self.feature_postactivation](interp_features)
+        if self.radiance_transfer_function is not None and viewdirs is not None:
+            interp_features = RADIANCE_TRANSFER_FUNCTIONS[
+                self.radiance_transfer_function](interp_features, viewdirs)
+        return torch.cat([interp_features, interp_densities], dim=-1)
 
     @contextlib.contextmanager
     def trainable(self) -> Iterator["VoxelGrid"]:

@@ -24,8 +24,8 @@ package's format (optax's state leaves ``leaf_0 .. leaf_5``), so either
 package resumes from the other's. Summaries are JSON lines in
 ``training_logs/summaries.jsonl`` under the JAX package's scalar names.
 
-Out of this module (each raises NotImplementedError): the ray-batch
-procedures and the device mesh.
+Out of this module (each raises NotImplementedError): ray-batch training
+(the exact, fast and hierarchical procedures) and the device mesh.
 """
 from __future__ import annotations
 
@@ -267,9 +267,10 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
 
     if vol_mod.render_procedure_name not in (_GNOMONIC, _BRICKED):
         raise NotImplementedError(
-            f"training through '{vol_mod.render_procedure_name}' is not ported: the "
-            "ray-batch procedures (ROADMAP.md, 'Modules to port', items 3 and 8) come "
-            "later; the port trains the gnomonic and bricked procedures"
+            f"training through '{vol_mod.render_procedure_name}' is not ported: "
+            "ray-batch training (ROADMAP.md, 'Modules to port', items 2 + 3, the next "
+            "slice, with item 8's fast procedure) comes later; the port trains the "
+            "gnomonic and bricked procedures"
         )
     bricked = vol_mod.render_procedure_name == _BRICKED
     if use_mesh:

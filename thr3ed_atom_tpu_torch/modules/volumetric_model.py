@@ -1,10 +1,14 @@
 """VolumetricModel: a voxel grid + a named render procedure + its config.
 
-Counterpart of thr3ed_atom_tpu/modules/volumetric_model.py for the
-pose-structured procedures (gnomonic, bricked, planes). Checkpoints keep the JAX package's
-format: <path>.npz holds the arrays, <path>.json the grid config, the render
-procedure's registry name and the render config; no pickles. Either package
-loads the other's.
+Counterpart of thr3ed_atom_tpu/modules/volumetric_model.py. The default
+procedure is the JAX package's, the exact renderer ``render_sh_voxel_grid``:
+``render_rays`` renders flat rays through it, and ``render`` casts a pose's
+rays and renders them in chunks of ``parallel_rays_chunk_size``. The
+pose-structured procedures (gnomonic, bricked, planes) render whole poses
+through their ``render_image`` / ``render_poses``. Checkpoints keep the JAX
+package's format: <path>.npz holds the arrays, <path>.json the grid config,
+the render procedure's registry name and the render config; no pickles.
+Either package loads the other's.
 """
 from __future__ import annotations
 
@@ -21,7 +25,13 @@ from thr3ed_atom_tpu_torch.models.voxels import (
     create_voxel_grid_from_saved_info_dict,
     resolve_device,
 )
-from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
+from thr3ed_atom_tpu_torch.rendering.interface import Rays, RenderOut
+from thr3ed_atom_tpu_torch.rendering.rays import (
+    cast_rays,
+    collate_rendered_output,
+    flatten_rays,
+    reshape_rendered_output,
+)
 from thr3ed_atom_tpu_torch.rendering.renderer import (
     SHVoxGridRenderConfig,
     get_render_procedure,
@@ -45,7 +55,7 @@ class VolumetricModel:
     def __init__(
         self,
         thre3d_repr: VoxelGrid,
-        render_procedure: str = "render_sh_voxel_grid_gnomonic",
+        render_procedure: str = "render_sh_voxel_grid",
         render_config: Optional[SHVoxGridRenderConfig] = None,
         device=None,
     ) -> None:
@@ -83,20 +93,53 @@ class VolumetricModel:
         overrides.setdefault("perturb_sampled_points", False)
         return self._render_config.replace(**overrides)
 
+    def render_rays(self, rays: Rays, generator: Optional[torch.Generator] = None,
+                    **config_overrides) -> RenderOut:
+        """Differentiable render of flat rays [N, 3] (on the model's device)
+        through the procedure, with optional per-call config overrides;
+        ``generator`` draws the jitter and the density noise."""
+        config = (self._render_config.replace(**config_overrides) if config_overrides
+                  else self._render_config)
+        return self.render_procedure(self._thre3d_repr, rays, config, generator)
+
     def render(self, camera_pose: CameraPose, camera_intrinsics: CameraIntrinsics,
+               parallel_rays_chunk_size: Optional[int] = None,
+               generator: Optional[torch.Generator] = None,
                **config_overrides) -> RenderOut:
-        """Full-image render of one pose: outputs [H, W, .] on the model's device."""
-        return self.render_procedure.render_image(
-            self._thre3d_repr, camera_pose, camera_intrinsics,
-            self._config(config_overrides), cache=self._image_render_cache,
-        )
+        """Full-image render of one pose: outputs [H, W, .] on the model's
+        device. Deterministic by default (no jitter): pass overrides and a
+        ``generator`` to change that. A procedure without ``render_image``
+        renders the pose's rays in chunks of ``parallel_rays_chunk_size``
+        (default: the config's), each chunk drawing from ``generator`` in
+        turn."""
+        config = self._config(config_overrides)
+        image_fn = getattr(self.render_procedure, "render_image", None)
+        if image_fn is not None:
+            return image_fn(self._thre3d_repr, camera_pose, camera_intrinsics, config,
+                            cache=self._image_render_cache)
+        chunk_size = (parallel_rays_chunk_size if parallel_rays_chunk_size is not None
+                      else config.parallel_rays_chunk_size)
+        flat_rays = flatten_rays(cast_rays(camera_intrinsics, camera_pose, self.device))
+        chunks = [self.render_procedure(self._thre3d_repr, flat_rays[start:start + chunk_size],
+                                        config, generator)
+                  for start in range(0, len(flat_rays), chunk_size)]
+        return reshape_rendered_output(collate_rendered_output(chunks), camera_intrinsics)
 
     def render_poses(self, camera_poses, camera_intrinsics: CameraIntrinsics,
+                     generator: Optional[torch.Generator] = None,
                      **config_overrides) -> RenderOut:
-        """Render a sequence of poses; every output gains a leading pose axis."""
-        return self.render_procedure.render_poses(
-            self._thre3d_repr, list(camera_poses), camera_intrinsics,
-            self._config(config_overrides), cache=self._image_render_cache,
+        """Render a sequence of poses; every output gains a leading pose axis.
+        A procedure without ``render_poses`` renders pose by pose."""
+        poses_fn = getattr(self.render_procedure, "render_poses", None)
+        if poses_fn is not None:
+            return poses_fn(self._thre3d_repr, list(camera_poses), camera_intrinsics,
+                            self._config(config_overrides), cache=self._image_render_cache)
+        outs = [self.render(pose, camera_intrinsics, generator=generator, **config_overrides)
+                for pose in camera_poses]
+        return RenderOut(
+            colour=torch.stack([o.colour for o in outs]),
+            depth=torch.stack([o.depth for o in outs]),
+            extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
         )
 
     def drop_prepared_cache(self) -> None:

@@ -36,12 +36,17 @@ operands of the composite, and a sub-texel phase shift of the frame. Its
 NP] flags (``gnomonic_occupancy(..., RvT=, QB=)``) and
 ``composite_positions_qb`` (K6: csrc/composite_stripe.cu with QB > 1).
 
-Out of this slice (each raises NotImplementedError): warp order 5, the gather
-warp and flat ray batches through the procedure object.
+The warp takes order 1 (bilinear), 3 (Catmull-Rom, the default) or 5 (the
+prefiltered cubic B-spline: ``bspline_prefilter``, the reference's IIR
+prefilter as one product with its [n, n] matrix), in two forms:
+``gnomonic_warp_impl`` "matmul" (= "auto") or "gather", the per-pixel
+gather warp (``_warp_gather``). Flat ray batches through the procedure
+object raise NotImplementedError (they go to the fast renderer, not ported).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -948,6 +953,195 @@ def effective_supersample(config_ss: float, statics: GnomonicStatics,
     return float(max(config_ss, min(_SUPERSAMPLE_CAP, floor)))
 
 
+_BSPLINE_POLE = -0.26794919243112270647  # sqrt(3) - 2
+_BSPLINE_CAUSAL_TERMS = 30  # the causal start's truncated geometric sum
+
+
+def bspline_prefilter_axis0_plain(a: torch.Tensor) -> torch.Tensor:
+    """Exact cubic-B-spline interpolation prefilter along axis 0 (causal +
+    anticausal first-order recursions, Unser 1999), row by row in f32 in the
+    order of the JAX package's ``_bspline_prefilter_axis0`` (its lax.scan).
+    The plain version of ``bspline_prefilter_axis0``: ~2n small ops a call."""
+    z = _BSPLINE_POLE
+    n = a.shape[0]
+    lam = (1.0 - z) * (1.0 - 1.0 / z)
+    a = a * lam
+    # causal init: truncated geometric sum of the first rows
+    w = z ** torch.arange(min(n, _BSPLINE_CAUSAL_TERMS), dtype=F32, device=a.device)
+    c = torch.tensordot(w, a[: w.shape[0]], dims=([0], [0]))
+    cplus = [c]
+    for i in range(1, n):
+        c = a[i] + z * c
+        cplus.append(c)
+    # anticausal init (Unser/Thevenaz): c-[N-1] = z/(z^2-1) * (z*c+[N-2] + c+[N-1])
+    c = (z / (z * z - 1.0)) * (z * cplus[-2] + cplus[-1])
+    cminus = [c]
+    for i in range(n - 2, -1, -1):
+        c = z * (c - cplus[i])
+        cminus.append(c)
+    return torch.stack(cminus[::-1])
+
+
+def _bspline_prefilter_matrix64(n: int) -> np.ndarray:
+    """The prefilter's [n, n] matrix (it is linear and depends on n only):
+    the recursion of ``bspline_prefilter_axis0_plain`` run on the identity
+    in float64, the truncated causal start included."""
+    z = _BSPLINE_POLE
+    a = np.eye(n) * ((1.0 - z) * (1.0 - 1.0 / z))
+    k = min(n, _BSPLINE_CAUSAL_TERMS)
+    cplus = np.empty_like(a)
+    cplus[0] = (z ** np.arange(k)) @ a[:k]
+    for i in range(1, n):
+        cplus[i] = a[i] + z * cplus[i - 1]
+    out = np.empty_like(a)
+    out[-1] = (z / (z * z - 1.0)) * (z * cplus[-2] + cplus[-1])
+    for i in range(n - 2, -1, -1):
+        out[i] = z * (out[i + 1] - cplus[i])
+    return out
+
+
+def bspline_prefilter_matrix(n: int, device) -> torch.Tensor:
+    """``_bspline_prefilter_matrix64(n)`` as f32 on ``device``, built once
+    per (n, device): a frame has two line lengths."""
+    return _prefilter_matrix_f32(n, str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _prefilter_matrix_f32(n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(_bspline_prefilter_matrix64(n).astype(np.float32)).to(device)
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def flush_subnormals(c: torch.Tensor) -> torch.Tensor:
+    """Values below the smallest normal f32 set to zero, as the reference's
+    XLA flushes subnormals (TPU and CPU); the gradient passes unchanged.
+    Applied to the B-spline coefficients and to the order-5 reconstruction
+    before the hull clamp: deep in empty space both decay below it, and
+    there the reference's y = lo = hi = 0 is a tie whose gradient splits,
+    where a subnormal y would send all of it to one bound."""
+    return c + torch.where(torch.abs(c) < _F32_TINY, -c, 0.0).detach()
+
+
+def bspline_prefilter_axis0(a: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The B-spline prefilter along axis 0 as one f32 product with its
+    matrix (TF32 off: ``_strict_f32``), so autograd gives the exact VJP
+    (M^T g); ``plain`` runs the row recursion instead. The JAX package
+    computes it outside any Pallas kernel, as this product is. Subnormal
+    outputs flush to zero (``flush_subnormals``)."""
+    if plain:
+        return flush_subnormals(bspline_prefilter_axis0_plain(a))
+    m = bspline_prefilter_matrix(a.shape[0], a.device)
+    return flush_subnormals((m @ a.reshape(a.shape[0], -1)).reshape(a.shape))
+
+
+def bspline_prefilter(img: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """Separable B-spline coefficient transform of [Pn, Qn, C]."""
+    img = bspline_prefilter_axis0(img, plain)
+    return bspline_prefilter_axis0(img.transpose(0, 1), plain).transpose(0, 1)
+
+
+def _clip_to_hull(y, lo, hi):
+    """``jnp.clip(y, lo, hi)`` as the reference computes it: min/max, not
+    torch.clamp with tensor bounds, so the gradient splits at ties (y = lo
+    = hi -> 1/4, 3/8, 3/8) as the reference's does; ties fill empty space."""
+    return torch.minimum(torch.maximum(y, lo), hi)
+
+
+def _bspline_weights(t):
+    t2 = t * t
+    t3 = t2 * t
+    six = torch.full((), 6.0, dtype=t.dtype, device=t.device)  # true division
+    return ((1.0 - 3.0 * t + 3.0 * t2 - t3) / six, (4.0 - 6.0 * t2 + 3.0 * t3) / six,
+            (1.0 + 3.0 * t + 3.0 * t2 - 3.0 * t3) / six, t3 / six)
+
+
+def _catmull_rom_weights(t):
+    t2 = t * t
+    t3 = t2 * t
+    return (-0.5 * t3 + t2 - 0.5 * t, 1.5 * t3 - 2.5 * t2 + 1.0,
+            -1.5 * t3 + 2.0 * t2 + 0.5 * t, 0.5 * t3 - 0.5 * t2)
+
+
+def _warp_gather(state, xr, yr, rotation, statics: GnomonicStatics, height: int,
+                 width: int, focal, Pn: int, Qn: int, warp_order: int,
+                 plain: bool = False):
+    """The per-pixel gather warp (the JAX package's ``_warp_to_camera``
+    gather branch): each pixel's ray meets the texel plane at (p, q), and
+    the 2 x 2 (order 1) or 4 x 4 (orders 3, 5) texels around it are taken
+    by indexing, so the gradient reaches ``state`` through index-add.
+    Orders 3 and 5 clip to the hull of the four bilinear taps. Returns
+    ([H, W, nch] channels colour, acc, depth (, diffuse), |pixel dirs|)."""
+    if warp_order not in (1, 3, 5):
+        raise ValueError(
+            f"gnomonic_warp_order must be 1 (bilinear), 3 (Catmull-Rom) or "
+            f"5 (prefiltered B-spline); got {warp_order}"
+        )
+    axis = statics.axis
+    u_ax, v_ax = _uv_axes(axis)
+    g = -1.0 if statics.flip else 1.0
+    x0, x1 = xr
+    y0, y1 = yr
+    nch = 8 if statics.with_diffuse else 5
+    dev = state.device
+    src = state[1:1 + nch].permute(1, 2, 0)  # [Pn, Qn, nch]
+    px = torch.arange(width, dtype=F32, device=dev) + 0.5
+    py = torch.arange(height, dtype=F32, device=dev) + 0.5
+    gy, gx = torch.meshgrid(py, px, indexing="ij")
+    dirs_cam = ((gx - width / 2) / focal, -(gy - height / 2) / focal, -torch.ones_like(gx))
+    # the rotation in true f32 (the reference's Precision.HIGHEST; TF32 is
+    # off, ``_strict_f32``): a product, so that the FMA chain rounds as the
+    # reference's dot does
+    d = torch.einsum("ij,hwj->hwi", rotation, torch.stack(dirs_cam, dim=-1))
+    x = g * d[..., u_ax] / d[..., axis]
+    y = g * d[..., v_ax] / d[..., axis]
+    p = (x - x0) / (x1 - x0) * (Pn - 1)
+    q = (y - y0) / (y1 - y0) * (Qn - 1)
+    p0 = torch.clamp(torch.floor(p), 0, Pn - 2)
+    q0 = torch.clamp(torch.floor(q), 0, Qn - 2)
+    fp = p - p0
+    fq = q - q0
+    p0, q0 = p0.long(), q0.long()
+    flat = src.reshape(Pn * Qn, nch)
+
+    def gat(dp, dq, table=flat):
+        # clamped taps (the bicubic stencil reaches 1 texel outside the frame)
+        pi = torch.clamp(p0 + dp, 0, Pn - 1)
+        qi = torch.clamp(q0 + dq, 0, Qn - 1)
+        return table[pi * Qn + qi]
+
+    if warp_order == 1:
+        out = (gat(0, 0) * ((1 - fp) * (1 - fq))[..., None]
+               + gat(1, 0) * (fp * (1 - fq))[..., None]
+               + gat(0, 1) * ((1 - fp) * fq)[..., None]
+               + gat(1, 1) * (fp * fq)[..., None])
+    else:
+        if warp_order == 5:
+            # prefiltered cubic B-spline interpolation: the coefficients of
+            # the texel image, reconstructed with the smooth B-spline basis
+            table = bspline_prefilter(src, plain).reshape(Pn * Qn, nch)
+            wps, wqs = _bspline_weights(fp), _bspline_weights(fq)
+        else:  # separable Catmull-Rom
+            table = flat
+            wps, wqs = _catmull_rom_weights(fp), _catmull_rom_weights(fq)
+        out = 0.0
+        for ip, wp in enumerate(wps):
+            row = 0.0
+            for iq, wq in enumerate(wqs):
+                row = row + gat(ip - 1, iq - 1, table) * wq[..., None]
+            out = out + row * wp[..., None]
+        # clip to the bilinear tap hull: no ringing, empty stays exactly empty
+        c00, c10, c01, c11 = gat(0, 0), gat(1, 0), gat(0, 1), gat(1, 1)
+        lo = torch.minimum(torch.minimum(c00, c10), torch.minimum(c01, c11))
+        hi = torch.maximum(torch.maximum(c00, c10), torch.maximum(c01, c11))
+        if warp_order == 5:  # the B-spline's subnormal tails in empty space
+            out = flush_subnormals(out)
+        out = _clip_to_hull(out, lo, hi)
+    # depth in world units -> reference convention (units of the pinhole dir)
+    return out, torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True))
+
+
 def _finalize_warped(out, dnorm, statics: GnomonicStatics, white_bkgd: bool):
     """Post-warp channel unpacking: colour, acc, depth (, diffuse)."""
     colour = out[..., 0:3]
@@ -975,16 +1169,20 @@ def _warp_to_camera(state, xr, yr, rotation, statics: GnomonicStatics,
                     warp_impl: str = "matmul", warp_swap: bool = False,
                     plain: bool = False) -> RenderOut:
     """Resample the composited state [SROWS, Pn, Qn] to the camera's pixels
-    (differentiable in ``state``)."""
-    if warp_impl != "matmul":
-        raise NotImplementedError(
-            f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "
-            "not ported yet (ROADMAP.md, 'Later slices': the gather warp)"
-        )
-    from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_state_matmul
-
+    (differentiable in ``state``): ``warp_impl`` "matmul", the two-pass
+    scanline warp, or "gather", the per-pixel gather warp. ``plain`` runs
+    the kernels' (and the prefilter's) plain versions."""
     Pn, Qn, _PB, _Pb = gnomonic_frame(None, height, width, focal, supersample,
                                       statics)
+    if warp_impl == "gather":
+        out, dnorm = _warp_gather(state, xr, yr, rotation, statics, height, width,
+                                  focal, Pn, Qn, int(warp_order), plain=plain)
+        return _finalize_warped(out, dnorm, statics, white_bkgd)
+    if warp_impl != "matmul":
+        raise ValueError(f"gnomonic_warp_impl must be 'auto', 'matmul' or 'gather', "
+                         f"got '{warp_impl}'")
+    from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_state_matmul
+
     out = warp_state_matmul(state, xr, yr, rotation, statics, height, width,
                             focal, Pn, Qn, int(warp_order), bool(warp_swap),
                             plain=plain)

@@ -27,8 +27,9 @@ the u-resampled stack (csrc/composite_stripe_backward.cu). ``fused=False``
 with ``qb`` > 0 runs the same pipeline on a q-block grain (K6, K8: flags per
 [128, qb] texel block, the fold summed per q-block), as the JAX package's.
 
-Out of this module (each raises NotImplementedError): the gather warp and
-the mesh step.
+The warp is either form (``warp_impl``: the scanline warp, or the gather
+warp, whose gradient is autograd's index-add) at order 1, 3 or 5. Out of
+this module (it raises NotImplementedError): the mesh step.
 """
 from __future__ import annotations
 
@@ -689,6 +690,9 @@ class GnomonicTrainStatics(NamedTuple):
     apply_diffuse_render_regularization: bool
     frame: Tuple[int, int, int, int]  # Pn, Qn, PB, Pb
     warp_order: int = 3
+    # "matmul" (the two-pass scanline warp) or "gather" (the per-pixel
+    # gather warp, differentiated through index-add)
+    warp_impl: str = "matmul"
     # the matmul warp's pass order, a per-pose decision (warp_swap_for_pose):
     # the steps take the views of one (axis, flip, swap) bucket
     warp_swap: bool = False
@@ -722,11 +726,9 @@ def make_gnomonic_train_statics(
     if fused and qb == 0:
         raise ValueError("fused gnomonic training needs qb > 0 (qb=0 is the v2 "
                          "stripe pipeline, K5/K7)")
-    if warp_impl not in ("auto", "matmul"):
-        raise NotImplementedError(
-            f"gnomonic_warp_impl='{warp_impl}' (the per-pixel gather warp) is "
-            "not ported yet (ROADMAP.md, 'Later slices': the gather warp)"
-        )
+    if warp_impl not in ("auto", "matmul", "gather"):
+        raise ValueError(f"gnomonic_warp_impl must be 'auto', 'matmul' or 'gather', "
+                         f"got '{warp_impl}'")
     statics = statics_for_grid(
         voxel_grid, axis, flip,
         with_diffuse=apply_diffuse_render_regularization,
@@ -744,6 +746,7 @@ def make_gnomonic_train_statics(
         frame=gnomonic_frame(None, image_height, image_width, None, supersample,
                              statics),
         warp_order=int(warp_order),
+        warp_impl="matmul" if warp_impl == "auto" else str(warp_impl),
         warp_swap=bool(warp_swap),
         fused=qb > 0 if fused is None else bool(fused),
     )
@@ -802,7 +805,7 @@ def render_pose_from_slices(slices, rotation, origin, focal,
     return _warp_to_camera(
         state, geo.xr, geo.yr, rot, statics, tstat.height, tstat.width, foc,
         tstat.supersample, tstat.white_bkgd, warp_order=tstat.warp_order,
-        warp_swap=tstat.warp_swap, plain=plain,
+        warp_impl=tstat.warp_impl, warp_swap=tstat.warp_swap, plain=plain,
     )
 
 

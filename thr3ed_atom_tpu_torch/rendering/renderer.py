@@ -1,26 +1,46 @@
-"""Render configuration and the registry of render procedures.
+"""Render configuration, the exact renderer and the registry of render
+procedures.
 
 Counterpart of thr3ed_atom_tpu/rendering/renderer.py. ``SHVoxGridRenderConfig``
 carries every field of the JAX package's config, so a checkpoint's JSON written
 by either package loads in the other; the knobs of procedures that are not
-ported yet are kept and ignored. ``RENDER_PROCEDURES`` holds the procedures
-this port serves, the gnomonic shear-warp renderer, the bricked slab-march
-renderer and the plane-march renderer; a checkpoint naming another one is
-refused by ``get_render_procedure``.
+ported yet are kept and ignored. ``render_sh_voxel_grid`` is the exact ray
+marcher (the JAX package's default procedure and the oracle of its quality
+gates): sampler -> SH point processor -> accumulator over flat rays.
+``RENDER_PROCEDURES`` holds the procedures this port serves: the exact
+renderer, the gnomonic shear-warp renderer, the bricked slab-march renderer
+and the plane-march renderer; a checkpoint naming another one is refused by
+``get_render_procedure``.
 """
 import dataclasses
+from functools import partial
+from typing import Optional
 
+import torch
+
+from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
+from thr3ed_atom_tpu_torch.rendering.accumulate import (
+    DENSITY2OCCUPANCY,
+    TONE_MAPS,
+    accumulate_radiance_density_on_rays,
+)
 from thr3ed_atom_tpu_torch.rendering.bricked import render_sh_voxel_grid_bricked
 from thr3ed_atom_tpu_torch.rendering.gnomonic import render_sh_voxel_grid_gnomonic
+from thr3ed_atom_tpu_torch.rendering.interface import Rays, RenderOut, render
 from thr3ed_atom_tpu_torch.rendering.planes import render_sh_voxel_grid_planes
+from thr3ed_atom_tpu_torch.rendering.process import process_points_with_sh_voxel_grid
+from thr3ed_atom_tpu_torch.rendering.sample import (
+    sample_aabb_bound_uniform_points_on_rays,
+    sample_uniform_points_on_rays,
+)
 from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
 
 
 @dataclasses.dataclass(frozen=True)
 class SHVoxGridRenderConfig:
-    """Static render configuration, field for field the JAX package's. Only the
-    fields read by the gnomonic, bricked and plane-march procedures act in this
-    port; the rest are carried so that checkpoints round-trip."""
+    """Static render configuration, field for field the JAX package's. The
+    fields of the fast and hierarchical procedures do not act in this port;
+    they are carried so that checkpoints round-trip."""
 
     # probing config:
     num_samples_per_ray: int
@@ -66,10 +86,11 @@ class SHVoxGridRenderConfig:
     gnomonic_pos_per_cell: int = 0
     gnomonic_supersample: float = 1.25
     # final projective warp interpolation: 3 = separable Catmull-Rom (default),
-    # 1 = bilinear; 5 (prefiltered B-spline) is not ported yet
+    # 5 = prefiltered cubic B-spline, 1 = bilinear
     gnomonic_warp_order: int = 3
     # warp implementation: "matmul" (two-pass scanline warp,
-    # rendering/warp_matmul.py) or "auto" (= matmul); "gather" is not ported yet
+    # rendering/warp_matmul.py), "gather" (per-pixel tap gathers) or "auto"
+    # (= matmul)
     gnomonic_warp_impl: str = "auto"
     # early-exit threshold on transmittance (0 disables; the CUDA kernel exits
     # per texel tile, the JAX kernel per 128 x 128 block)
@@ -82,7 +103,63 @@ class SHVoxGridRenderConfig:
         return dataclasses.replace(self, **overrides)
 
 
+def render_sh_voxel_grid(
+    voxel_grid: VoxelGrid,
+    rays: Rays,
+    render_config: SHVoxGridRenderConfig,
+    generator: Optional[torch.Generator] = None,
+    *,
+    t_rand: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+) -> RenderOut:
+    """The exact renderer: sampler (AABB-bound with ``optimized_sampling``)
+    -> SH point processor -> accumulator over flat rays [N, 3], on the
+    grid's device, differentiable in the grid. Randomness is injected: the
+    stratified jitter's uniforms ``t_rand`` [N, S] and the density noise's
+    standard normals ``noise`` [N, S], or ``generator`` to draw them from
+    (jitter first, then noise)."""
+    if render_config.optimized_sampling:
+        sampler_function = partial(
+            sample_aabb_bound_uniform_points_on_rays,
+            aabb=voxel_grid.aabb,
+            generator=generator,
+            perturb=render_config.perturb_sampled_points,
+            t_rand=t_rand,
+        )
+    else:
+        sampler_function = partial(
+            sample_uniform_points_on_rays,
+            generator=generator,
+            perturb=render_config.perturb_sampled_points,
+            t_rand=t_rand,
+        )
+    point_processor_function = partial(
+        process_points_with_sh_voxel_grid,
+        voxel_grid=voxel_grid,
+        render_diffuse=render_config.render_diffuse,
+    )
+    accumulator_function = partial(
+        accumulate_radiance_density_on_rays,
+        generator=generator,
+        stochastic_density_noise_std=render_config.stochastic_density_noise_std,
+        density2occupancy=DENSITY2OCCUPANCY[render_config.density2occupancy],
+        radiance_hdr_tone_map=TONE_MAPS[render_config.radiance_hdr_tone_map],
+        white_bkgd=render_config.white_bkgd,
+        extra_debug_info=False,
+        noise=noise,
+    )
+    return render(
+        rays,
+        camera_bounds=render_config.camera_bounds,
+        num_samples=render_config.num_samples_per_ray,
+        sampler_fn=sampler_function,
+        point_processor_fn=point_processor_function,
+        accumulator_fn=accumulator_function,
+    )
+
+
 RENDER_PROCEDURES = {
+    "render_sh_voxel_grid": render_sh_voxel_grid,
     "render_sh_voxel_grid_gnomonic": render_sh_voxel_grid_gnomonic,
     "render_sh_voxel_grid_bricked": render_sh_voxel_grid_bricked,
     "render_sh_voxel_grid_planes": render_sh_voxel_grid_planes,
@@ -90,7 +167,6 @@ RENDER_PROCEDURES = {
 
 # the JAX package's other procedures: not ported yet
 _NOT_PORTED = (
-    "render_sh_voxel_grid",
     "render_sh_voxel_grid_fast",
     "render_sh_voxel_grid_hierarchical",
 )
@@ -102,7 +178,7 @@ def get_render_procedure(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"render procedure '{name}' is not ported yet (ROADMAP.md, "
-            "'Modules to port', items 3 and 8); only "
+            "'Modules to port', item 8); only "
             f"{sorted(RENDER_PROCEDURES)} are"
         )
     raise ValueError(f"unknown render procedure '{name}'")

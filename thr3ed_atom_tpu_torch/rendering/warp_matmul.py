@@ -15,7 +15,9 @@ backward is the adjoint resample ``resample_rows_adjoint`` (csrc/
 resample_rows_adjoint.cu on a CUDA tensor, ``resample_rows_adjoint_plain`` on
 a CPU one), so the whole warp carries the training loss's cotangent back to
 the composited state. The ringing clamp stays a PyTorch min/max, whose
-gradient splits at ties as the reference's ``jnp.clip`` does.
+gradient splits at ties as the reference's ``jnp.clip`` does. Order 5
+resamples each line's B-spline coefficients (``prefilter_last_axis``, an f32
+product with the prefilter's matrix) and clips to the line's own taps.
 """
 from __future__ import annotations
 
@@ -27,6 +29,12 @@ import torch
 
 from thr3ed_atom_tpu_torch import kernels
 from thr3ed_atom_tpu_torch.rendering.axes import _uv_axes
+from thr3ed_atom_tpu_torch.rendering.gnomonic import (
+    _clip_to_hull,
+    bspline_prefilter_axis0,
+    bspline_prefilter_matrix,
+    flush_subnormals,
+)
 
 F32 = torch.float32
 
@@ -211,11 +219,28 @@ def resample_rows_clamped(X, pos, order: int, plain: bool = False):
     hull of its two central taps, so empty regions stay exactly empty."""
     y3 = resample_rows(X, pos, order, True, plain=plain)
     y, t0, t1 = y3[:, 0], y3[:, 1], y3[:, 2]
-    # min/max, not clamp with tensor bounds: the gradient splits at ties as
-    # the reference's jnp.clip does (y = t0 = t1 -> 1/4, 3/8, 3/8), and ties
-    # fill the empty background
-    return torch.minimum(torch.maximum(y, torch.minimum(t0, t1)),
-                         torch.maximum(t0, t1))
+    return _clip_to_hull(y, torch.minimum(t0, t1), torch.maximum(t0, t1))
+
+
+def resample_rows_bspline(X, pos, plain: bool = False):
+    """Order 5 with its hull clamp: the row-prefiltered coefficients of X
+    resampled with the cubic B-spline, clipped to the hull of X's own two
+    central taps (an order-1 pass with ``taps``), as the reference's
+    order-5 branch does."""
+    y = flush_subnormals(resample_rows(prefilter_last_axis(X, plain), pos, 5, plain=plain))
+    t3 = resample_rows(X, pos, 1, True, plain=plain)
+    t0, t1 = t3[:, 1], t3[:, 2]
+    return _clip_to_hull(y, torch.minimum(t0, t1), torch.maximum(t0, t1))
+
+
+def prefilter_last_axis(x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The B-spline prefilter along the last axis (the reference's
+    ``_prefilter_last_axis``): x @ M^T with the line's [n, n] prefilter
+    matrix, f32, differentiable, subnormals flushed; ``plain`` runs the row
+    recursion."""
+    if plain:
+        return bspline_prefilter_axis0(x.movedim(-1, 0), plain=True).movedim(0, -1)
+    return flush_subnormals(x @ bspline_prefilter_matrix(x.shape[-1], x.device).t())
 
 
 # ------------------------------------------------------------------ geometry
@@ -317,12 +342,7 @@ def warp_state_matmul(state, xr, yr, rotation, statics, height: int, width: int,
     pixels. Returns [H, W, 8] f32 (colour rgb, acc, depth[, diffuse rgb],
     zero-padded). ``plain`` resamples with the plain versions on any device.
     Differentiable in ``state``."""
-    if warp_order == 5:
-        raise NotImplementedError(
-            "gnomonic_warp_order=5 needs the B-spline prefilter, not ported yet "
-            "(ROADMAP.md, 'Later slices': warp order 5)"
-        )
-    if warp_order not in (1, 3):
+    if warp_order not in (1, 3, 5):
         raise ValueError(f"gnomonic_warp_order must be 1, 3 or 5, got {warp_order}")
     nch = 8 if statics.with_diffuse else 5
     CH = 8
@@ -371,7 +391,13 @@ def warp_state_matmul(state, xr, yr, rotation, statics, height: int, width: int,
         ).reshape(Hp, 1, Wp)
 
     def one_pass(X, pos):
-        # order 3 clamps each pass's interpolant to its central-tap hull
+        # orders 3 / 5 clip each pass's interpolant to its central-tap hull
+        # (order 5: the reconstruction from the prefiltered line against the
+        # line's own taps); the second pass prefilters the zero-padded line,
+        # as the reference does: no tap reaches the pad, but the anticausal
+        # start reads the padded end
+        if warp_order == 5:
+            return resample_rows_bspline(X, pos.contiguous(), plain=plain)
         if warp_order == 3:
             return resample_rows_clamped(X, pos.contiguous(), 3, plain=plain)
         return resample_rows(X, pos.contiguous(), 1, plain=plain)

@@ -13,7 +13,10 @@ from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 
-from thr3ed_atom_tpu_torch.utils.constants import NUM_COORD_DIMENSIONS
+# the JAX package keeps it in rendering/rays.py, as the port does
+from thr3ed_atom_tpu_torch.rendering.rays import (  # noqa: F401
+    compute_expected_density_scale_for_relu_field_grid,
+)
 from thr3ed_atom_tpu_torch.utils.logging import log
 
 
@@ -75,13 +78,3 @@ def log_config_to_disk(args: Dict[str, Any], output_dir: Path,
         else:
             lines.append(f"{key}: {_yaml_scalar(value)}")
     config_file.write_text("\n".join(lines) + "\n")
-
-
-def compute_expected_density_scale_for_relu_field_grid(
-    grid_world_size: Tuple[float, float, float]
-) -> float:
-    """Heuristic density scale for ReLU-field grids (the JAX package keeps it
-    in rendering/rays.py)."""
-    diagonal_norm = float(np.sqrt(np.sum([extent**2 for extent in grid_world_size])))
-    percent_density_scale, constant_grid_norm = 100.0, float(np.sqrt(3.0**3))
-    return ((constant_grid_norm * percent_density_scale) / diagonal_norm) / NUM_COORD_DIMENSIONS
