@@ -104,7 +104,25 @@ version on the card at the main paths' shapes:
        the card against the CPU on one pair;
   24.  timings: the exact render a pose, orders 3 and 5 and both warp forms a
        gnomonic pose, the B-spline prefilter alone (both passes' operands,
-       beside its row recursion) and LPIPS at 400 x 400.
+       beside its row recursion) and LPIPS at 400 x 400;
+  25.  the fast two-phase renderer's gates (fast top-32 > 25 dB, top-64 >
+       31 dB against the exact render at 512 samples a ray; the
+       hierarchical render's dB beside them, no gate), the fast and
+       hierarchical renders on the card against the CPU on phase 21's crop,
+       and flat rays through the gnomonic, bricked and planes procedures
+       equal to the fast render;
+  26.  one ray-batch train step (2048 rays x 512 samples, top 64 and K = S)
+       through the fast and the hierarchical renderers, card against CPU
+       with the same draws (fast: loss rtol 1e-5, gradient cosine > 0.99999;
+       hierarchical: 5e-5, 0.99995);
+  27.  five ray-batch steps at the CLI's full width (256^3, 16384 rays x 512
+       samples, top 64, packed f32 features): the loss on a fixed batch
+       falls; peak memory, ms a step and rays/s, and a step's split
+       (packing forward and backward, forward, backward, Adam);
+  28.  the training CLI in-process through the fast renderer, the
+       hierarchical renderer, and a softplus field routed from the gnomonic
+       default to the fast renderer (64^3 then 128^3, 4 steps a stage): the
+       checkpoints load in the port, the held-out test with LPIPS ran.
 The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21 and 22, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
@@ -1682,6 +1700,347 @@ def warp_options_phases(torch, port, workdir, *, scene, view, dev) -> dict:
     return out
 
 
+# the reference's gates of the fast renderer (QUALITY_GATES_r05.json), against
+# the exact render at 512 samples a ray
+FAST_GATES_DB = {"fast_top32": 25.0, "fast_top64": 31.0}
+STEP_CHECK_RAYS = 2048  # phase 26: the ray-batch step held card vs CPU
+FULL_GRID, FULL_RAYS, FULL_STEPS = 256, 16384, 5  # phase 27: the CLI's defaults
+FAST, HIER = "render_sh_voxel_grid_fast", "render_sh_voxel_grid_hierarchical"
+
+
+def cuda_ms(torch, fn):
+    """(fn()'s result, its device ms between two CUDA events)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def explicit_render_draws(torch, procedure, config, n, gen, dev):
+    """A render's draws for ``n`` rays from the CPU generator ``gen``: the
+    jitter, the hierarchical procedure's fine uniforms, the noise (only
+    those the config uses), moved to ``dev``."""
+    from thr3ed_atom_tpu_torch.rendering.hierarchical import U_MAX, hierarchical_budget
+
+    S = config.num_samples_per_ray
+    sc, sf = hierarchical_budget(S) if procedure == HIER else (S, 0)
+    draws = {}
+    if config.perturb_sampled_points:
+        draws["t_rand"] = torch.rand((n, sc), generator=gen)
+        if sf:
+            draws["u"] = torch.rand((n, sf), generator=gen) * U_MAX
+    if config.stochastic_density_noise_std > 0.0:
+        draws["noise"] = torch.randn((n, sc + sf), generator=gen)
+    return {k: v.to(dev) for k, v in draws.items()}
+
+
+def ray_batch_phases(torch, port, workdir, *, scene, view, dev) -> dict:
+    """Phases 25-28 (this slice's paths, no hand-written kernel on them):
+    the fast and hierarchical renders against the exact render and against
+    the CPU, flat rays through the pose-structured procedures, one ray-batch
+    step card vs CPU, five steps at the CLI's full width, and the training
+    CLI through the ray-batch procedures. ``scene`` is the blob model of
+    phase 5, ``view`` phase 8's first step (its targets and poses). Returns
+    what the summary prints."""
+    vm, camera, cli = port["vm"], port["camera"], port["cli"]
+    from thr3ed_atom_tpu_torch.modules import trainer
+    from thr3ed_atom_tpu_torch.rendering import fast_renderer as fast
+    from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
+    from thr3ed_atom_tpu_torch.rendering.renderer import RENDER_PROCEDURES
+
+    grid, config, intr = scene.grid, scene.config, scene.intr
+    out = {}
+
+    # ---- phase 25: the fast and hierarchical renders. The reference's gates
+    # on tools/run_quality_gates.py's scene and pose: fast top-32 and top-64
+    # against the exact render at 512 samples a ray (the hierarchical render
+    # beside them, no gate), each through VolumetricModel.render; on the
+    # central 64 x 64 crop (4096 rays) the card against the CPU, and flat
+    # rays through the gnomonic, bricked and planes procedures equal to the
+    # fast renderer's
+    gate_pose = camera.pose_spherical(*GATE_POSE)
+    cfg512 = config.replace(num_samples_per_ray=512)
+    exact = vm.VolumetricModel(grid, "render_sh_voxel_grid",
+                               cfg512.replace(parallel_rays_chunk_size=8192), device=dev)
+    ref, exact_ms = cuda_ms(torch, lambda: exact.render(gate_pose, intr).colour)
+    del exact
+    renders = {"fast_top32": (FAST, 32), "fast_top64": (FAST, 64),
+               "hierarchical_top64": (HIER, 64)}
+    db, ms25 = {}, {"exact512_ms_pose": exact_ms}
+    for name, (procedure, k) in renders.items():
+        model = vm.VolumetricModel(grid, procedure, cfg512.replace(fast_topk=k), device=dev)
+        img, first_ms = cuda_ms(torch, lambda: model.render(gate_pose, intr).colour)
+        check(img.shape == (IMAGE_SIZE, IMAGE_SIZE, 3) and bool(torch.isfinite(img).all()),
+              f"{name}: render not finite")
+        db[name] = psnr(img, ref)
+        ms25[f"{name}_ms_pose_with_packing"] = first_ms
+        ms25[f"{name}_ms_pose"] = time_ms(torch, lambda: model.render(gate_pose, intr), 3)
+        if name == "fast_top64":
+            _, dev_ms, prof25 = device_profile(torch, lambda: model.render(gate_pose, intr), 1,
+                                               "pose", top_n=8)
+            ms25["fast_top64_profiled_device_ms_pose"] = dev_ms
+        del model
+    print(f"# fast renderer gates (PSNR vs the exact render at 512 samples, pose {GATE_POSE}): "
+          + ", ".join(f"{k_} {v:.2f} dB" + (f" (gate {FAST_GATES_DB[k_]})"
+                                            if k_ in FAST_GATES_DB else " (no gate)")
+                      for k_, v in db.items())
+          + f"; CUDA-event ms a pose {json.dumps(ms25)}; fast top-64 pose under "
+          f"torch.profiler: {prof25}", flush=True)
+    failed = {k_: db[k_] for k_, gate in FAST_GATES_DB.items() if not db[k_] > gate}
+    check(not failed, f"fast renderer gates failed: {failed}")
+    out.update(gates_db=db, render_ms=ms25)
+
+    flat = rays_mod.flatten_rays(rays_mod.cast_rays(intr, gate_pose, dev))
+    lo = (IMAGE_SIZE - EXACT_CROP) // 2
+    rows = torch.arange(lo, lo + EXACT_CROP, device=dev)
+    idx = (rows[:, None] * IMAGE_SIZE + rows[None, :]).reshape(-1)
+    crop = rays_mod.Rays(flat.origins[idx], flat.directions[idx])
+    crop_cpu = rays_mod.Rays(crop.origins.cpu(), crop.directions.cpu())
+    cpu_grid = port["voxel_grid_from_numpy"](scene.d, scene.f, scene.grid_config, device="cpu")
+    cfg64 = cfg512.replace(fast_topk=64)
+    crop_err = {}
+    # colour bounds: the hierarchical samples crowd where the weight is, so
+    # many weights nearly tie at its top-64 cut, and an ulp of exp or of the
+    # cdf's sums (the card's and the CPU's differ) moves a sample across it
+    for name, procedure, colour_bound in (("fast", FAST, 1e-4), ("hierarchical", HIER, 2e-3)):
+        fn = RENDER_PROCEDURES[procedure]
+        got, want = fn(grid, crop, cfg64), fn(cpu_grid, crop_cpu, cfg64)
+        err = {k_: max_abs(a.cpu(), b) for k_, a, b in (
+            ("colour", got.colour, want.colour), ("depth", got.depth, want.depth),
+            ("acc", got.extra["accumulated_weight"], want.extra["accumulated_weight"]))}
+        check(err["colour"] <= colour_bound and err["acc"] <= 1e-4 and err["depth"] <= 1e-3
+              and float(want.extra["accumulated_weight"].max()) > 0.5,
+              f"{name} render card vs CPU on the crop: {err}")
+        crop_err[name] = err
+    want = fast.render_sh_voxel_grid_fast(grid, crop, cfg64)
+    for procedure in ("render_sh_voxel_grid_gnomonic", "render_sh_voxel_grid_bricked",
+                      "render_sh_voxel_grid_planes"):
+        got = RENDER_PROCEDURES[procedure](grid, crop, cfg64)
+        check(torch.equal(got.colour, want.colour) and torch.equal(got.depth, want.depth),
+              f"flat rays through {procedure} differ from the fast renderer's")
+    print(f"# fast / hierarchical renders, card vs CPU on the {EXACT_CROP} x {EXACT_CROP} crop "
+          f"(512 samples, top 64; bounds colour 1e-4 / 2e-3, acc 1e-4, depth 1e-3): max-abs "
+          f"{crop_err}; "
+          "flat rays through gnomonic, bricked and planes equal the fast render", flush=True)
+    out["crop_max_abs"] = crop_err
+    del cpu_grid, want, got, crop, crop_cpu, flat, ref
+
+    # ---- phase 26: one ray-batch step (2048 rays x 512 samples, the
+    # diffuse regularization, jitter) from phase 8's start grid towards its
+    # targets, on the card against the same step on the CPU with the same
+    # explicit draws, through the fast and the hierarchical procedures, at
+    # top 64 and at K = S (no top-K cut)
+    targets = view.targets
+    poses = torch.as_tensor(np.concatenate([view.rots, view.orgs[:, :, None]], -1),
+                            dtype=torch.float32)
+    step_cfg = cfg64.replace(perturb_sampled_points=True)
+    steps26 = {}
+    # bounds (loss rtol, gradient cosine): the card's and the CPU's expf differ
+    # by an ulp, which 1 - exp(-sigma delta) turns into ~1e-5 of a small
+    # alpha (the K = S readings show it without a top-K cut); the
+    # hierarchical render also places its fine samples from those weights,
+    # and its top-64 cut meets near ties
+    step_bounds = {FAST: (1e-5, 0.99999), HIER: (5e-5, 0.99995)}
+    for procedure in (FAST, HIER):
+        for k in (64, 512):
+            cfg_k = step_cfg.replace(fast_topk=k)
+            statics = trainer.TrainStepStatics(
+                render_config=cfg_k, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+                focal=intr.focal, ray_batch_size=STEP_CHECK_RAYS, render_procedure=procedure)
+            gen = torch.Generator().manual_seed(26)
+            img_idx = torch.randint(0, len(targets), (STEP_CHECK_RAYS,), generator=gen)
+            pix_idx = torch.randint(0, IMAGE_SIZE * IMAGE_SIZE, (STEP_CHECK_RAYS,),
+                                    generator=gen)
+            spec = explicit_render_draws(torch, procedure, cfg_k, STEP_CHECK_RAYS, gen, "cpu")
+            losses, grads, step_ms = [], [], {}
+            for d_ in ("cpu", dev):
+                g = view.init_grid().to(d_)
+                opt, sched = port["trainer"].make_gnomonic_optimizer(g, 0.03)
+                draws = trainer.RayBatchDraws(img_idx.to(d_), pix_idx.to(d_),
+                                              {k_: v.to(d_) for k_, v in spec.items()})
+                t0 = time.perf_counter()
+                m = trainer.ray_batch_train_step(statics, opt, g, targets.to(d_),
+                                                 poses.to(d_), draws=draws, scheduler=sched)
+                losses.append(float(m["total_loss"]))
+                step_ms[str(d_)] = (time.perf_counter() - t0) * 1e3
+                grads.append((g.densities.grad.cpu(), g.features.grad.cpu()))
+                del g, opt, sched
+            cos = [cosine(a, b) for a, b in zip(grads[1], grads[0])]
+            err = [max_abs(a, b) for a, b in zip(grads[1], grads[0])]
+            scale = [float(b.abs().max()) for b in grads[0]]
+            rtol, min_cos = step_bounds[procedure]
+            rel = abs(losses[1] - losses[0]) / losses[0]
+            check(rel <= rtol and min(cos) > min_cos
+                  and all(bool(torch.isfinite(a).all()) for a in grads[1]),
+                  f"{procedure} top {k} step card vs CPU: losses {losses}, cosines {cos}")
+            steps26[f"{procedure}_top{k}"] = dict(
+                loss=losses[1], cpu_loss=losses[0], loss_rel_diff=rel, cosines=cos,
+                max_abs=err, grad_scale=scale, host_ms_first_step=step_ms)
+            print(f"# ray-batch step through {procedure} ({STEP_CHECK_RAYS} rays x 512 samples, "
+                  f"top {k}), card vs CPU (bounds: loss rtol {rtol}, cosine > {min_cos}): loss "
+                  f"{losses[1]:.7f} / {losses[0]:.7f} (relative {rel:.3g}), gradient cosines "
+                  f"{cos}, max-abs {err} of {scale}; host ms {step_ms}", flush=True)
+            del grads
+    out["step_card_vs_cpu"] = steps26
+
+    # ---- phase 27: the CLI's full width. Five ray-batch steps through the
+    # fast renderer at its defaults: a 256^3 SH-degree-2 grid from
+    # uniform(-1, 1) (the blob scene's box), 16384 rays of 512 samples, top
+    # 64, packed f32 features, diffuse regularization, towards phase 8's
+    # targets. The loss on a fixed batch falls; peak memory, ms a step (CUDA
+    # events), rays/s and the split of a step
+    torch.cuda.empty_cache()
+    g27 = torch.Generator(device=dev).manual_seed(27)
+    shape = (FULL_GRID,) * 3
+    half = tuple(v * GRID_SIZE / FULL_GRID for v in scene.grid_config["voxel_size"])
+    big = port["VoxelGrid"](
+        torch.rand(shape + (1,), generator=g27, device=dev) * 2.0 - 1.0,
+        torch.rand(shape + (27,), generator=g27, device=dev) * 2.0 - 1.0,
+        voxel_size=half, grid_location=scene.grid_config["grid_location"],
+        density_preactivation="identity", density_postactivation="relu")
+    statics = trainer.TrainStepStatics(
+        render_config=step_cfg, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+        focal=intr.focal, ray_batch_size=FULL_RAYS, render_procedure=FAST)
+    poses_dev = poses.to(dev)
+    gen_eval = torch.Generator().manual_seed(270)
+    fixed = trainer.RayBatchDraws(
+        torch.randint(0, len(targets), (FULL_RAYS,), generator=gen_eval).to(dev),
+        torch.randint(0, IMAGE_SIZE * IMAGE_SIZE, (FULL_RAYS,), generator=gen_eval).to(dev),
+        explicit_render_draws(torch, FAST, step_cfg, FULL_RAYS, gen_eval, dev))
+
+    def fixed_loss():
+        with torch.no_grad():
+            return float(trainer.ray_batch_loss(statics, big, targets, poses_dev, fixed)[0])
+
+    loss_before = fixed_loss()
+    opt, sched = port["trainer"].make_gnomonic_optimizer(big, 0.03)
+    step_gen = torch.Generator(device=dev).manual_seed(271)
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9  # the grid and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_losses = [], []
+    for _ in range(FULL_STEPS):
+        m, ms_ = cuda_ms(torch, lambda: trainer.ray_batch_train_step(
+            statics, opt, big, targets, poses_dev, step_gen, scheduler=sched))
+        step_ms.append(ms_)
+        step_losses.append(float(m["total_loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_after = fixed_loss()
+    check(loss_after < 0.99 * loss_before and all(np.isfinite(step_losses)),
+          f"full-width steps: fixed-batch loss {loss_before} -> {loss_after}, "
+          f"step losses {step_losses}")
+    ms_step = float(np.mean(step_ms[1:]))
+
+    # the split of one more step, CUDA events between its parts; the packing's
+    # forward and its backward alone (its gradient tables zero) beside it
+    parts = {}
+    opt.zero_grad(set_to_none=True)
+    with big.trainable():
+        tables, parts["pack_forward"] = cuda_ms(torch, lambda: fast.prepare_for_config(
+            big, step_cfg))
+        zeros = [torch.zeros_like(t_) for t_ in tables]
+        _, parts["pack_backward"] = cuda_ms(torch, lambda: torch.autograd.backward(
+            tables, zeros))
+        del tables, zeros
+        opt.zero_grad(set_to_none=True)
+        draws = trainer.draw_ray_batch(step_gen, statics, len(targets))
+        (loss, _), parts["forward"] = cuda_ms(torch, lambda: trainer.ray_batch_loss(
+            statics, big, targets, poses_dev, draws, step_gen))
+        _, parts["backward"] = cuda_ms(torch, lambda: loss.backward())
+        _, parts["adam"] = cuda_ms(torch, opt.step)
+    del loss
+    _, prof_ms, prof = device_profile(torch, lambda: trainer.ray_batch_train_step(
+        statics, opt, big, targets, poses_dev, step_gen, scheduler=sched), 1, "step", top_n=8)
+    out["full_width"] = dict(
+        grid=FULL_GRID, rays=FULL_RAYS, samples=512, topk=64, step_ms=step_ms,
+        ms_per_step=ms_step, rays_per_sec=FULL_RAYS / ms_step * 1e3, peak_gb=peak_gb,
+        allocated_before_gb=base_gb,
+        step_losses=step_losses, fixed_batch_loss=[loss_before, loss_after], split_ms=parts,
+        profiled_device_ms=prof_ms)
+    print(f"# full width ({FULL_GRID}^3, {FULL_RAYS} rays x 512 samples, top 64, packed f32; "
+          f"{card_line()}): ms/step (CUDA events) {[round(v, 3) for v in step_ms]}, steps 2-"
+          f"{FULL_STEPS} {ms_step:.3f} ms = {FULL_RAYS / ms_step * 1e3:.0f} rays/s; peak memory "
+          f"{peak_gb:.2f} GB ({base_gb:.2f} GB allocated before the first step); losses "
+          f"{step_losses}; fixed-batch loss {loss_before:.6f} -> "
+          f"{loss_after:.6f}; split (ms) {json.dumps(parts)}; under torch.profiler "
+          f"{prof_ms:.3f} device ms/step, {prof}", flush=True)
+    del big, opt, sched, poses_dev, fixed
+    torch.cuda.empty_cache()
+
+    # ---- phase 28: the training CLI in-process through the ray-batch
+    # procedures on phase 12's dataset (64^3 then 128^3, 4 steps a stage,
+    # the CLI's defaults otherwise): the fast renderer, the hierarchical
+    # renderer, and a softplus field under the default gnomonic procedure,
+    # which routes to the fast renderer. Each run's checkpoints load in the
+    # port; its held-out test ran through the fast (or hierarchical) render
+    # with LPIPS
+    data = workdir / "blob_views"
+    original_step = trainer.ray_batch_train_step
+    cli28 = {}
+    for label, extra, procedure, post in (
+            ("fast", ["--render_procedure", FAST], FAST, "relu"),
+            ("hierarchical", ["--render_procedure", HIER], HIER, "relu"),
+            ("softplus", ["--use_relu_field", "false", "--use_softplus_field", "true"], FAST,
+             "softplus")):
+        steps = []
+
+        def timed(statics_, optimizer, grid_, *args, **kw):
+            m_, ms_ = cuda_ms(torch, lambda: original_step(statics_, optimizer, grid_, *args,
+                                                           **kw))
+            steps.append((grid_.grid_dims[0], ms_, float(m_["total_loss"])))
+            return m_
+
+        out_dir = workdir / f"cli_{label}"
+        argv = ["-d", str(data), "-o", str(out_dir), "--grid_dims", *[str(CLI_GRID)] * 3,
+                "--num_stages", "2", "--num_iterations_per_stage", str(CLI_STEPS),
+                "--save_frequency", "2", "--test_frequency", str(CLI_STEPS),
+                "--feedback_frequency", str(CLI_STEPS), "--summary_frequency", "1"] + extra
+        trainer.ray_batch_train_step = timed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            trained = cli.main(argv)
+        finally:
+            trainer.ray_batch_train_step = original_step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        g = trained.thre3d_repr
+        check(trained.render_procedure_name == procedure and g.density_postactivation == post
+              and g.grid_dims == (CLI_GRID,) * 3 and len(steps) == 2 * CLI_STEPS
+              and all(np.isfinite(x[2]) for x in steps)
+              and all(bool(torch.isfinite(t_).all()) for t_ in (g.densities, g.features)),
+              f"CLI {label}: {trained.render_procedure_name}, {g.density_postactivation}, "
+              f"{g.grid_dims}, steps {steps}")
+        loaded, _ = vm.create_volumetric_model_from_saved_model(
+            out_dir / "saved_models" / "model_final", device=dev)
+        check(loaded.render_procedure_name == procedure
+              and torch.equal(loaded.thre3d_repr.features, g.features.detach()),
+              f"CLI {label}: the final checkpoint does not load back")
+        summaries = [json.loads(line) for line in
+                     (out_dir / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+        tests = {s["name"]: round(s["value"], 4) for s in summaries
+                 if s["name"].startswith("TEST_SET") and s["step"] == 2 * CLI_STEPS}
+        check(tests.get("TEST_SET_PSNR", 0) > 0 and len(tests) == 2,
+              f"CLI {label}: held-out results {tests}")
+        ms = {}
+        for dims, t_, _ in steps:
+            ms.setdefault(f"{dims}^3", []).append(t_)
+        cli28[label] = dict(wall_s=wall, peak_gb=peak, tests=tests,
+                            ms_per_step={k_: round(float(np.mean(v[1:])), 3)
+                                         for k_, v in ms.items()},
+                            losses=[round(x[2], 5) for x in steps])
+        print(f"# CLI {label} ({procedure}, {post} field): {wall:.1f} s in main(); ms/step per "
+              f"stage (CUDA events, steps 2-{CLI_STEPS}) {cli28[label]['ms_per_step']}; losses "
+              f"{cli28[label]['losses']}; held-out {tests}; peak memory {peak:.2f} GB",
+              flush=True)
+        del trained, loaded
+    out["cli"] = cli28
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3087,9 +3446,9 @@ def run(torch, workdir: Path) -> int:
         planes_phases(torch, port, workdir, scene=scene, grid=grid, d=d, f=f,
                       grid_config=grid_config, config=config, intr=intr,
                       render_poses=render_poses, axis=axis, flip=flip, gen=gen, dev=dev))
-    new_paths = warp_options_phases(
-        torch, port, workdir, scene=scene, dev=dev,
-        view=TrainingView(init_grid, targets, rots, orgs, picks[0], phases[0], (ax, fl, sw)))
+    view = TrainingView(init_grid, targets, rots, orgs, picks[0], phases[0], (ax, fl, sw))
+    new_paths = warp_options_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
+    ray_paths = ray_batch_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -3205,7 +3564,10 @@ def run(torch, workdir: Path) -> int:
           f"CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
           f"{cli_runs[0]['ms_per_step']}, bricked {ms_step_b}; render CLI {wall19:.2f} s; "
           f"exact render {new_paths['timings']['exact_render_ms_pose']:.1f} ms/pose; quality "
-          f"gates {new_paths['gates_db']}; total {time.perf_counter() - t_start:.1f} s")
+          f"gates {new_paths['gates_db']}; fast renderer gates {ray_paths['gates_db']}; "
+          f"full-width ray-batch step {ray_paths['full_width']['ms_per_step']:.3f} ms "
+          f"(peak {ray_paths['full_width']['peak_gb']:.2f} GB); total "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -232,10 +232,11 @@ def test_staircase_adam_matches_optax():
 def test_out_of_slice_paths_raise_and_psnr(tmp_path):
     """What the port still lacks raises, naming it: fused=True with qb = 0,
     an unknown warp form (the gather warp is ported), the mesh step, the
-    stage loop on another procedure
-    (the fast renderer) or on a device mesh, and image files other than
-    8-bit PNGs; fused=False with qb > 0 is the v2 pipeline with the q-split
-    kernels (K6 / K8); mse2psnr matches the reference's definition."""
+    stage loop on a device mesh (through any procedure), and image files
+    other than 8-bit PNGs; the stage loop through the fast renderer trains
+    (ray batches: one stage of two steps writes its checkpoints); fused=False
+    with qb > 0 is the v2 pipeline with the q-split kernels (K6 / K8);
+    mse2psnr matches the reference's definition."""
     _, tgrid = _grids()
     kw = dict(image_height=H, image_width=W, white_bkgd=True)
     ts = gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, fused=False)
@@ -253,12 +254,28 @@ def test_out_of_slice_paths_raise_and_psnr(tmp_path):
     class OtherProcedure:
         render_procedure_name = "render_sh_voxel_grid_fast"
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None, tmp_path)
-    OtherProcedure.render_procedure_name = "render_sh_voxel_grid_gnomonic"
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None, tmp_path,
-                                                             use_mesh=True)
+    for name in ("render_sh_voxel_grid_fast", "render_sh_voxel_grid_gnomonic"):
+        OtherProcedure.render_procedure_name = name
+        with pytest.raises(NotImplementedError, match="multi-GPU"):
+            trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None,
+                                                                 tmp_path, use_mesh=True)
+    from test_torch_trainer import _write_dataset
+    from thr3ed_atom_tpu_torch.data.dataset import PosedImagesDataset
+    from thr3ed_atom_tpu_torch.modules.volumetric_model import VolumetricModel
+    from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
+    from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
+
+    data = _write_dataset(tmp_path / "data", n_train=2, n_test=1, size=16)
+    fast_model = VolumetricModel(
+        tgrid, "render_sh_voxel_grid_fast",
+        SHVoxGridRenderConfig(num_samples_per_ray=16, camera_bounds=CameraBounds(1.5, 4.5),
+                              fast_topk=8), device="cpu")
+    trained = trainer.train_sh_vox_grid_vol_mod_with_posed_images(
+        fast_model, PosedImagesDataset(data / "train", data / "train_camera_params.json"),
+        tmp_path / "out", ray_batch_size=64, num_stages=1, num_iterations_per_stage=2,
+        fast_debug_mode=True)
+    assert trained.render_procedure_name == "render_sh_voxel_grid_fast"
+    assert (tmp_path / "out" / "saved_models" / "model_stage_1_iter_2_opt.npz").exists()
     from thr3ed_atom_tpu_torch.data.png import read_png
 
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a png")

@@ -1894,3 +1894,167 @@ def test_train_step_warp_options_match_plain(cuda, impl, order):
     assert losses[0] == pytest.approx(losses[1], rel=1e-5)
     for a, b in zip(*grads):
         assert bool(torch.isfinite(a).all()) and _cosine(a, b) > 0.99999
+
+
+# --------------------------------------------------------- ray-batch procedures
+
+
+def _ray_batch_rays(n=4096, seed=0, device="cpu"):
+    """Flat rays of a 64 x 64 view of ``_grid``'s scene (pose (140, -30,
+    3.5)), the first 8 turned away from the box (they miss it)."""
+    from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
+    from thr3ed_atom_tpu_torch.utils.camera import CameraIntrinsics
+
+    flat = rays_mod.flatten_rays(rays_mod.cast_rays(
+        CameraIntrinsics(64, 64, 70.0), pose_spherical(140.0, -30.0, 3.5), device="cpu"))
+    idx = torch.from_numpy(np.random.default_rng(seed).permutation(len(flat))[:n])
+    o, d = flat.origins[idx].clone(), flat.directions[idx].clone()
+    d[:8] = -d[:8]
+    return rays_mod.Rays(o.to(device), d.to(device))
+
+
+def _ray_batch_config(**kw):
+    from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig
+    from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
+
+    return SHVoxGridRenderConfig(num_samples_per_ray=128, camera_bounds=CameraBounds(1.0, 6.0),
+                                 white_bkgd=True, fast_topk=32, **kw)
+
+
+def _render_draws_np(procedure, config, n, seed):
+    """Explicit draws (numpy, from a seed) for a render of ``n`` rays."""
+    from thr3ed_atom_tpu_torch.rendering.hierarchical import hierarchical_budget
+
+    rng = np.random.default_rng(seed)
+    S = config.num_samples_per_ray
+    if procedure.endswith("hierarchical"):
+        sc, sf = hierarchical_budget(S)
+        return dict(t_rand=rng.uniform(size=(n, sc)), u=rng.uniform(0, 1 - 1e-6, (n, sf)),
+                    noise=rng.normal(size=(n, sc + sf)))
+    return dict(t_rand=rng.uniform(size=(n, S)), noise=rng.normal(size=(n, S)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("procedure", ["render_sh_voxel_grid_fast",
+                                       "render_sh_voxel_grid_hierarchical"])
+@pytest.mark.parametrize("cfg", [
+    dict(perturb_sampled_points=False),
+    dict(perturb_sampled_points=True, optimized_sampling=True, stochastic_density_noise_std=1.0,
+         also_render_diffuse=True),
+    dict(perturb_sampled_points=False, fast_bf16_features=True),
+    dict(perturb_sampled_points=False, fast_pack_features=False),
+], ids=["plain", "perturbed_noise_diffuse", "bf16_tables", "unpacked"])
+def test_fast_and_hierarchical_renders_on_the_card(cuda, procedure, cfg):
+    """The fast and hierarchical renders (4096 rays, 128 samples, top 32)
+    of a 32^3 relu scene on the card against the same function on the CPU,
+    fed the same draws, and the gradient of a seeded linear loss on the
+    outputs with respect to the grid: colour and acc within 1e-4, depth
+    within 1e-3 (exp and the cumsum round differently on the card; a sample
+    whose weight nearly ties another may be selected on one side only), the
+    rays that miss the box empty on both; gradient cosine > 0.99999 (the
+    table gradients sum by f32 atomics on the card, in varying order)."""
+    from thr3ed_atom_tpu_torch.rendering.renderer import RENDER_PROCEDURES
+
+    fn = RENDER_PROCEDURES[procedure]
+    config = _ray_batch_config(**cfg)
+    draws = _render_draws_np(procedure, config, 4096, seed=3)
+    rng = np.random.default_rng(4)
+    gc = torch.from_numpy(rng.normal(size=(4096, 8)).astype(np.float32))
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        gn._strict_f32()
+        grid = _grid(32, device=dev)
+        rays = _ray_batch_rays(device=dev)
+        kw = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in draws.items()}
+        with grid.trainable():
+            out = fn(grid, rays, config, **kw)
+            parts = [out.colour, out.depth, out.extra["accumulated_weight"],
+                     out.extra.get("diffuse_colour", out.colour)]
+            flat = torch.cat(parts, -1)
+            (flat * gc.to(dev)).sum().backward()
+        outs.append(flat.detach().cpu())
+        grads.append((grid.densities.grad.cpu(), grid.features.grad.cpu()))
+    torch.cuda.synchronize()
+    err = (outs[0] - outs[1]).abs()
+    assert float(err[:, [0, 1, 2, 4, 5, 6, 7]].max()) <= 1e-4 and float(err[:, 3].max()) <= 1e-3
+    if not cfg.get("stochastic_density_noise_std"):
+        assert float(outs[1][:8, 4].abs().max()) == 0.0
+    assert float(outs[1][:, 4].max()) > 0.5
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(b).all()) and _cosine(a, b) > 0.99999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("procedure", ["render_sh_voxel_grid_fast", "render_sh_voxel_grid",
+                                       "render_sh_voxel_grid_hierarchical"])
+def test_ray_batch_step_gradient_on_the_card(cuda, procedure):
+    """One ray-batch train step (1024 rays, 128 samples, top 32, the diffuse
+    regularization: fused, or the exact procedure's second render) on the
+    card against the same step on the CPU with the same draws: the losses
+    within rtol 1e-5, the grid gradients cosine > 0.99999."""
+    from thr3ed_atom_tpu_torch.modules import trainer
+
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.uniform(0, 1, (3, 48, 48, 3)).astype(np.float32))
+    poses = torch.from_numpy(np.stack([np.concatenate(
+        [np.asarray(p.rotation), np.asarray(p.translation)], 1) for p in (
+            pose_spherical(40.0 + 60.0 * i, -30.0, 3.5) for i in range(3))]).astype(np.float32))
+    statics = trainer.TrainStepStatics(
+        render_config=_ray_batch_config(perturb_sampled_points=True), image_height=48,
+        image_width=48, focal=52.0, ray_batch_size=1024, render_procedure=procedure)
+    spec = _render_draws_np(procedure, statics.render_config, 1024, seed=7)
+    diff = _render_draws_np(procedure, statics.render_config, 1024, seed=8)
+    spec.pop("noise"), diff.pop("noise")
+    img, pix = rng.integers(0, 3, 1024), rng.integers(0, 48 * 48, 1024)
+    losses, grads = [], []
+    for dev in ("cpu", cuda):
+        draws = trainer.RayBatchDraws(
+            torch.from_numpy(img).to(dev), torch.from_numpy(pix).to(dev),
+            {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in spec.items()},
+            {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in diff.items()})
+        grid = _grid(32, device=dev)
+        opt, sched = make_gnomonic_optimizer(grid)
+        m = trainer.ray_batch_train_step(statics, opt, grid, images.to(dev), poses.to(dev),
+                                         draws=draws, scheduler=sched)
+        losses.append(float(m["total_loss"]))
+        grads.append((grid.densities.grad.cpu(), grid.features.grad.cpu()))
+    torch.cuda.synchronize()
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(b).all()) and _cosine(a, b) > 0.99999
+
+
+@pytest.mark.gpu
+def test_prepared_cache_after_an_in_place_update_on_the_card(cuda, monkeypatch):
+    """A fast model on the card: the packed tables are built once for all
+    chunks and renders; an Adam step (the card's foreach update, in place)
+    moves the grid's version counters, so the next render packs anew and
+    equals a fresh model's render of the updated grid."""
+    from thr3ed_atom_tpu_torch.modules.volumetric_model import VolumetricModel
+    from thr3ed_atom_tpu_torch.rendering import fast_renderer as fast
+    from thr3ed_atom_tpu_torch.rendering import renderer  # noqa: F401 (sets .prepare)
+    from thr3ed_atom_tpu_torch.utils.camera import CameraIntrinsics
+
+    calls = []
+    original = fast.prepare_for_config
+    monkeypatch.setattr(fast.render_sh_voxel_grid_fast, "prepare",
+                        lambda g, c: calls.append(1) or original(g, c))
+    grid = _grid(32, device=cuda)
+    config = _ray_batch_config(perturb_sampled_points=False, parallel_rays_chunk_size=1024)
+    model = VolumetricModel(grid, "render_sh_voxel_grid_fast", config, device=cuda)
+    pose, intr = pose_spherical(140.0, -30.0, 3.5), CameraIntrinsics(64, 64, 70.0)
+    first = model.render(pose, intr)
+    model.render(pose, intr)
+    assert len(calls) == 1
+    opt, _ = make_gnomonic_optimizer(grid)
+    with grid.trainable():
+        model.render_rays(_ray_batch_rays(device=cuda), perturb_sampled_points=False
+                          ).colour.mean().backward()
+    opt.step()
+    after = model.render(pose, intr)
+    assert len(calls) == 2
+    fresh = VolumetricModel(grid, "render_sh_voxel_grid_fast", config, device=cuda).render(
+        pose, intr)
+    torch.cuda.synchronize()
+    assert torch.equal(after.colour, fresh.colour) and not torch.equal(after.colour,
+                                                                      first.colour)

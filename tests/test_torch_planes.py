@@ -258,7 +258,8 @@ def test_volumetric_model_and_checkpoints_both_ways(tmp_path):
     """VolumetricModel with the planes procedure: render_poses (a per-pose
     loop sharing each variant's repack) equals render per pose and the JAX
     model's render within the render bound; a checkpoint the port writes
-    loads in the JAX package with the procedure's name, and the reverse."""
+    loads in the JAX package with the procedure's name, and the reverse;
+    flat ray batches through the procedure equal the fast renderer's."""
     jgrid, tgrid = _grids(post="relu")
     jc, tc = _configs(white_bkgd=True)
     tmodel = vm.VolumetricModel(tgrid, PROC, tc, device="cpu")
@@ -281,5 +282,12 @@ def test_volumetric_model_and_checkpoints_both_ways(tmp_path):
     assert loaded.render_procedure_name == PROC
     again = loaded.render(poses[0], intr)
     np.testing.assert_array_equal(again.colour.numpy(), out.colour[0].numpy())
-    with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
-        loaded.render_procedure(loaded.thre3d_repr, None, loaded.render_config)
+    # flat ray batches go to the fast renderer, as the JAX package routes them
+    from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
+    from thr3ed_atom_tpu_torch.rendering.fast_renderer import render_sh_voxel_grid_fast
+
+    flat = rays_mod.flatten_rays(rays_mod.cast_rays(intr, poses[0], device="cpu"))
+    config = loaded.render_config.replace(perturb_sampled_points=False)
+    torch.testing.assert_close(
+        loaded.render_procedure(loaded.thre3d_repr, flat, config).colour,
+        render_sh_voxel_grid_fast(loaded.thre3d_repr, flat, config).colour, rtol=0, atol=0)

@@ -233,8 +233,10 @@ def test_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
     config.yml, the JAX package's checkpoint names with their _opt.npz, the
     summaries under the JAX package's scalar names, feedback PNGs and a
     model_final that create_volumetric_model_from_saved_model of the JAX
-    package loads with the same arrays; procedures and modes the port lacks
-    raise."""
+    package loads with the same arrays; the fast renderer, SH degree 4 and
+    softplus fields train through ray batches (the last two routed to the
+    fast renderer, as the JAX CLI routes them) into checkpoints the JAX
+    package loads; --use_mesh true raises."""
     data = _write_dataset(tmp_path / "data")
     out = tmp_path / "out"
     args = ["-d", str(data), "-o", str(out), "--grid_dims", "16", "16", "16",
@@ -266,10 +268,22 @@ def test_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
         np.testing.assert_array_equal(np.asarray(getattr(jmodel.thre3d_repr, fld)),
                                       getattr(model.thre3d_repr, fld).detach().numpy())
     assert jmodel.render_config.gnomonic_qb == 128 and "hemispherical_radius" in extra
-    for bad in (["--render_procedure", "render_sh_voxel_grid_fast"], ["--sh_degree", "4"],
-                ["--use_softplus_field", "true"], ["--use_mesh", "true"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(args + bad, device="cpu")
+    # the fast renderer, SH degree 4 and softplus fields (both routed from the
+    # gnomonic default to the fast renderer) train through ray batches
+    ray_args = ["--ray_batch_size", "128", "--train_num_samples_per_ray", "16",
+                "--fast_topk", "8", "--fast_debug_mode", "true"]
+    for i, extra in enumerate((["--render_procedure", "render_sh_voxel_grid_fast"],
+                               ["--sh_degree", "4"], ["--use_softplus_field", "true"])):
+        run_args = args[:3] + [str(tmp_path / f"out_{i}")] + args[4:] + ray_args + extra
+        fast_model = cli.main(run_args, device="cpu")
+        assert fast_model.render_procedure_name == "render_sh_voxel_grid_fast"
+        assert fast_model.thre3d_repr.grid_dims == (16, 16, 16)
+        assert fast_model.thre3d_repr.num_features == (75 if "--sh_degree" in extra else 27)
+        jfast, _ = vm_jax.create_volumetric_model_from_saved_model(
+            tmp_path / f"out_{i}" / "saved_models" / "model_final")
+        assert jfast.render_procedure_name == "render_sh_voxel_grid_fast"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(args + ["--use_mesh", "true"], device="cpu")
 
 
 def _relu_config():
@@ -448,7 +462,8 @@ def test_bricked_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
     views (2 tiles a step), feedback renders and a held-out test through the
     bricked render, checkpoints that the JAX package loads with the bricked
     procedure and the same arrays; SH degree 3 is routed to the gnomonic
-    procedure, as the JAX CLI routes it."""
+    procedure and softplus fields to the fast renderer, as the JAX CLI
+    routes them."""
     data = _write_dataset(tmp_path / "data", size=32)
     out = tmp_path / "out"
     args = ["-d", str(data), "-o", str(out), "--grid_dims", "16", "16", "16",
@@ -475,5 +490,4 @@ def test_bricked_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
                                       getattr(model.thre3d_repr, fld).detach().numpy())
     assert cli.resolve_render_procedure(BRICKED, 3, False) == PROC
     assert cli.resolve_render_procedure(BRICKED, 2, False) == BRICKED
-    with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
-        cli.resolve_render_procedure(BRICKED, 2, True)
+    assert cli.resolve_render_procedure(BRICKED, 2, True) == "render_sh_voxel_grid_fast"

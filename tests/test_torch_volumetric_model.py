@@ -1,8 +1,9 @@
 """The PyTorch port's serving slice end to end against the JAX package:
 VolumetricModel.render_poses through the gnomonic procedure, checkpoints in
 both directions, the camera-path panels, the warp options (order 5, the
-gather warp) against the JAX model, and the procedures outside the port,
-which must raise rather than fall back."""
+gather warp) against the JAX model, and the other procedures: the exact,
+fast and hierarchical renderers, and flat ray batches through the
+pose-structured procedures, routed to the fast renderer."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -186,22 +187,33 @@ def test_outside_the_slice_raises(override):
 
 
 def test_other_procedures_and_flat_rays_raise():
-    """Procedures the port has not got (fast, hierarchical) raise naming
-    ROADMAP.md; the exact renderer is ported and constructs; flat ray
-    batches through the gnomonic, bricked and planes procedures raise naming
-    the fast renderer, where the JAX package would route them."""
+    """Every procedure of the JAX package is ported and constructs: the
+    exact, fast and hierarchical renderers render a pose (finite, the object
+    in view); an unknown procedure raises. Flat ray batches through the
+    gnomonic, bricked and planes procedures no longer raise: each equals the
+    fast renderer's render of the same rays, where the JAX package routes
+    them."""
+    from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
+    from thr3ed_atom_tpu_torch.rendering.fast_renderer import render_sh_voxel_grid_fast
+
     _, tmodel = _models()
-    exact = vm.VolumetricModel(tmodel.thre3d_repr, "render_sh_voxel_grid",
-                               tmodel.render_config, device="cpu")
-    assert exact.render_procedure_name == "render_sh_voxel_grid"
-    for name in ("render_sh_voxel_grid_fast", "render_sh_voxel_grid_hierarchical"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.render_procedure(tmodel.thre3d_repr, None, tmodel.render_config)
-    for name in ("render_sh_voxel_grid_bricked", "render_sh_voxel_grid_planes"):
+    pose, intr = pose_spherical(140.0, -30.0, 3.5), CameraIntrinsics(16, 16, 18.0)
+    for name in ("render_sh_voxel_grid", "render_sh_voxel_grid_fast",
+                 "render_sh_voxel_grid_hierarchical"):
         other = vm.VolumetricModel(tmodel.thre3d_repr, name, tmodel.render_config,
                                    device="cpu")
-        with pytest.raises(NotImplementedError, match="render_sh_voxel_grid_fast"):
-            other.render_procedure(other.thre3d_repr, None, other.render_config)
+        assert other.render_procedure_name == name
+        out = other.render(pose, intr)
+        assert out.colour.shape == (16, 16, 3) and bool(torch.isfinite(out.colour).all())
+        assert float(out.extra["accumulated_weight"].max()) > 0.5
+    with pytest.raises(ValueError, match="unknown render procedure"):
+        vm.VolumetricModel(tmodel.thre3d_repr, "render_sh_voxel_grid_nerf",
+                           tmodel.render_config, device="cpu")
+    flat = rays_mod.flatten_rays(rays_mod.cast_rays(intr, pose, device="cpu"))
+    config = tmodel.render_config.replace(perturb_sampled_points=False)
+    want = render_sh_voxel_grid_fast(tmodel.thre3d_repr, flat, config)
+    for name in (PROC, "render_sh_voxel_grid_bricked", "render_sh_voxel_grid_planes"):
+        other = vm.VolumetricModel(tmodel.thre3d_repr, name, config, device="cpu")
+        got = other.render_procedure(other.thre3d_repr, flat, other.render_config)
+        torch.testing.assert_close(got.colour, want.colour, rtol=0, atol=0)
+        torch.testing.assert_close(got.depth, want.depth, rtol=0, atol=0)

@@ -5,12 +5,13 @@ camera path on the CUDA card, write a video.
 
 The JAX package's apps/render_sh_voxel_grid.py with the same option names and
 defaults (argparse instead of click). It loads a checkpoint written by either
-package (``<model>.npz`` / ``<model>.json``) whose procedure the port serves
-(exact, gnomonic, bricked, planes), renders the colour | depth | inverted-acc panels
-of every pose and writes ``rendered_video.gif`` in the output directory: the
-GIF the JAX package writes when it has no mp4 backend (the port has none).
-``main(argv, device="cpu")`` runs on the CPU through the kernels' plain
-versions (tests); without ``device`` everything runs on the card.
+package (``<model>.npz`` / ``<model>.json``) with any of its procedures
+(exact, fast, hierarchical, gnomonic, bricked, planes), renders the colour |
+depth | inverted-acc panels of every pose and writes ``rendered_video.gif``
+in the output directory: the GIF the JAX package writes when it has no
+mp4 backend (the port has none). ``main(argv, device="cpu")`` runs on the
+CPU through the kernels' plain versions (tests); without ``device``
+everything runs on the card.
 """
 from __future__ import annotations
 

@@ -9,10 +9,13 @@ yes/no, on/off). It reads the same dataset layout and writes checkpoints that
 either package loads. ``main(argv, device="cpu")`` runs on the CPU through the
 kernels' plain versions (tests); without ``device`` everything runs on the card.
 
-The gnomonic and bricked procedures train here (``--render_procedure
-render_sh_voxel_grid_bricked`` runs the tile-based slab-march step); other
-procedures, SH degree > 3, softplus fields and ``--use_mesh true`` raise
-NotImplementedError naming their ROADMAP.md items.
+Every procedure of the option trains here: the gnomonic default's
+whole-pose steps, ``render_sh_voxel_grid_bricked``'s tile-based slab-march
+steps, and ray-batch steps through ``render_sh_voxel_grid_fast``,
+``render_sh_voxel_grid`` and ``render_sh_voxel_grid_hierarchical``. What a
+kernel cannot take is routed as the JAX package routes it (softplus fields
+and SH degree 4 to the fast renderer; ``resolve_render_procedure``).
+``--use_mesh true`` raises NotImplementedError (ROADMAP.md, item 9).
 """
 from __future__ import annotations
 
@@ -47,37 +50,29 @@ PROCEDURES = ("render_sh_voxel_grid_gnomonic", "render_sh_voxel_grid_bricked",
 
 def resolve_render_procedure(render_procedure: str, sh_degree: int,
                              use_softplus_field: bool) -> str:
-    """The procedure to train through, routed as the JAX package routes it:
-    bricked with SH degree > 2 goes to gnomonic; what neither kernel takes
-    (softplus fields, SH degree > 3) goes to the fast renderer there, which
-    the port has not got, so it raises; so does every other procedure."""
+    """The procedure to train through, routed around the kernels' limits as
+    the JAX package routes it: the march kernels take identity / relu
+    density postactivations only, the slab march (bricked) SH degree <= 2
+    and the gnomonic pipeline SH degree <= 3. Bricked with softplus fields
+    goes to the fast renderer; bricked with SH degree > 2 goes to gnomonic;
+    gnomonic with softplus fields or SH degree > 3 goes to the fast
+    renderer. Each switch is logged."""
     if render_procedure == "render_sh_voxel_grid_bricked" and (
             sh_degree > 2 or use_softplus_field):
-        if not use_softplus_field:
-            log.info("bricked renderer supports sh_degree <= 2; using the gnomonic "
-                     "shear-warp procedure for sh_degree 3+")
-            render_procedure = "render_sh_voxel_grid_gnomonic"
-        else:
-            raise NotImplementedError(
-                "the bricked renderer does not take softplus fields; the JAX package "
-                "falls back to render_sh_voxel_grid_fast, which is not ported "
-                "(ROADMAP.md, 'Modules to port', item 8)"
-            )
-    if render_procedure not in ("render_sh_voxel_grid_gnomonic",
-                                "render_sh_voxel_grid_bricked"):
-        raise NotImplementedError(
-            f"training through '{render_procedure}' is not ported: ray-batch training "
-            "(ROADMAP.md, 'Modules to port', items 2 + 3, the next slice) and the fast "
-            "and hierarchical procedures (item 8) come later"
-        )
+        if use_softplus_field:
+            log.info("bricked renderer does not support softplus fields; "
+                     "falling back to render_sh_voxel_grid_fast")
+            return "render_sh_voxel_grid_fast"
+        log.info("bricked renderer supports sh_degree <= 2; using the gnomonic "
+                 "shear-warp procedure for sh_degree 3+")
+        render_procedure = "render_sh_voxel_grid_gnomonic"
     if render_procedure == "render_sh_voxel_grid_gnomonic" and (
             sh_degree > 3 or use_softplus_field):
-        reason = "softplus fields" if use_softplus_field else f"sh_degree {sh_degree}"
-        raise NotImplementedError(
-            f"the gnomonic renderer does not take {reason}; the JAX package falls back "
-            "to render_sh_voxel_grid_fast, which is not ported (ROADMAP.md, 'Modules to "
-            "port', item 8)"
-        )
+        reason = ("softplus fields" if use_softplus_field
+                  else f"sh_degree {sh_degree} (supports <= 3)")
+        log.info(f"gnomonic renderer does not support {reason}; "
+                 "falling back to render_sh_voxel_grid_fast")
+        return "render_sh_voxel_grid_fast"
     return render_procedure
 
 
@@ -200,6 +195,11 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> VolumetricModel:
     if config["use_relu_field"]:
         activations = dict(
             density_preactivation="identity", density_postactivation="relu",
+            expected_density_scale=compute_expected_density_scale_for_relu_field_grid(
+                config["grid_world_size"]))
+    elif config["use_softplus_field"]:
+        activations = dict(
+            density_preactivation="identity", density_postactivation="softplus",
             expected_density_scale=compute_expected_density_scale_for_relu_field_grid(
                 config["grid_world_size"]))
     else:

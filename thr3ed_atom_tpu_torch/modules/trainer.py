@@ -1,6 +1,5 @@
 """Coarse-to-fine reconstruction trainer for SH voxel grids from posed images
-(counterpart of thr3ed_atom_tpu/modules/trainer.py, gnomonic and bricked
-procedures).
+(counterpart of thr3ed_atom_tpu/modules/trainer.py).
 
 Each stage trains the grid with Adam (b1 0.9, b2 0.999, eps 1e-8) at the
 stage's learning rate ``learning_rate * stagewise_lr_decay_gamma ** (stage -
@@ -11,7 +10,12 @@ exponential_decay with staircase=True). A step takes at least
 bucket (rendering/gnomonic_train.py gnomonic_train_step_multi); with the
 bricked procedure a step takes ``ray_batch_size // tile_px^2`` pixel tiles of
 the views of one (march axis, flip) bucket (modules/bricked_trainer.py
-bricked_train_step); between stages the grid grows by trilinear resize.
+bricked_train_step); every other procedure (the fast two-phase renderer,
+the exact one, the hierarchical one; planes through its flat-ray route to
+the fast renderer) takes a ray batch: ``ray_batch_size`` (image, pixel) pairs
+drawn uniformly over the stage's views, rendered through the procedure
+(``ray_batch_train_step``). Between stages the grid grows by trilinear
+resize.
 
 The loop is the JAX package's: the per-stage downsampled datasets, the
 uniform(-1, 1) re-initialization at the smallest stage, resume from a
@@ -24,16 +28,17 @@ package's format (optax's state leaves ``leaf_0 .. leaf_5``), so either
 package resumes from the other's. Summaries are JSON lines in
 ``training_logs/summaries.jsonl`` under the JAX package's scalar names.
 
-Out of this module (each raises NotImplementedError): ray-batch training
-(the exact, fast and hierarchical procedures) and the device mesh.
+Out of this module: the device mesh (``use_mesh`` raises
+NotImplementedError).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from datetime import timedelta
 from pathlib import Path
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +53,18 @@ from thr3ed_atom_tpu_torch.modules.volumetric_model import (
     VolumetricModel,
     create_volumetric_model_from_saved_model,
 )
+from thr3ed_atom_tpu_torch.rendering.gnomonic import _strict_f32
+from thr3ed_atom_tpu_torch.rendering.interface import Rays
+from thr3ed_atom_tpu_torch.rendering.renderer import SHVoxGridRenderConfig, get_render_procedure
 from thr3ed_atom_tpu_torch.utils.camera import CameraPose, to8b
 from thr3ed_atom_tpu_torch.utils.constants import (
     CAMERA_BOUNDS,
     CAMERA_INTRINSICS,
+    EXTRA_DIFFUSE_COLOUR,
     HEMISPHERICAL_RADIUS,
 )
 from thr3ed_atom_tpu_torch.utils.logging import log
+from thr3ed_atom_tpu_torch.utils.metrics import mse2psnr
 from thr3ed_atom_tpu_torch.utils.misc import compute_thre3d_grid_sizes
 from thr3ed_atom_tpu_torch.utils.profiling import ThroughputMeter
 
@@ -63,6 +73,8 @@ from thr3ed_atom_tpu_torch.utils.profiling import ThroughputMeter
 _GN_MIN_POSES_PER_STEP = 4
 _GNOMONIC = "render_sh_voxel_grid_gnomonic"
 _BRICKED = "render_sh_voxel_grid_bricked"
+_EXACT = "render_sh_voxel_grid"
+F32 = torch.float32
 
 
 def staircase_exponential_decay(transition_steps: int,
@@ -91,6 +103,148 @@ def make_gnomonic_optimizer(
         staircase_exponential_decay(lr_decay_steps_per_stage, lr_decay_gamma_per_stage),
     )
     return optimizer, scheduler
+
+
+# -------------------------------------------------------------------- ray-batch step
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepStatics:
+    """What the ray-batch step is built for: the render config, the stage's
+    image size and focal, the batch size, the diffuse regularization and the
+    procedure to differentiate through."""
+
+    render_config: SHVoxGridRenderConfig
+    image_height: int
+    image_width: int
+    focal: float
+    ray_batch_size: int
+    apply_diffuse_render_regularization: bool = True
+    render_procedure: str = "render_sh_voxel_grid_fast"
+
+
+class RayBatchDraws(NamedTuple):
+    """One step's random draws: image and pixel indices [B] (int64), and
+    optionally the renders' own draws as keyword arguments of the procedure
+    (``t_rand``, ``noise``; hierarchical also ``u``) for the specular render
+    and for the separate diffuse render; None lets a render draw from the
+    step's generator."""
+
+    img_idx: torch.Tensor
+    pix_idx: torch.Tensor
+    specular: Optional[Dict[str, torch.Tensor]] = None
+    diffuse: Optional[Dict[str, torch.Tensor]] = None
+
+
+def draw_ray_batch(generator: torch.Generator, statics: TrainStepStatics,
+                   num_images: int) -> RayBatchDraws:
+    """The step's (image, pixel) indices, uniform over ``num_images`` views
+    of the stage and every pixel, from ``generator``; the renders draw
+    their jitter and noise from the same generator afterwards. The JAX
+    package draws them from its step key."""
+    batch, dev = statics.ray_batch_size, generator.device
+    img_idx = torch.randint(0, num_images, (batch,), generator=generator, device=dev)
+    pix_idx = torch.randint(0, statics.image_height * statics.image_width, (batch,),
+                            generator=generator, device=dev)
+    return RayBatchDraws(img_idx, pix_idx)
+
+
+def sample_ray_pixel_batch(images: torch.Tensor, poses: torch.Tensor,
+                           statics: TrainStepStatics, img_idx: torch.Tensor,
+                           pix_idx: torch.Tensor) -> Tuple[Rays, torch.Tensor]:
+    """The rays and target pixels of the (image, pixel) pairs ``img_idx``,
+    ``pix_idx`` ([B]): ``images`` [N, H, W, 3], ``poses`` [N, 3, 4] on one
+    device. Pinhole directions through the pixel centres, the camera
+    looking down -z, divided by the focal as the JAX package's jitted step
+    divides by a constant (a product with its f32 reciprocal), rotated into
+    world space in f32 (``rotate_f32``)."""
+    height, width = statics.image_height, statics.image_width
+    dev = images.device
+    img_idx, pix_idx = img_idx.to(dev).long(), pix_idx.to(dev).long()
+    py, px = pix_idx // width, pix_idx % width
+    pixels = images[img_idx, py, px]  # [B, 3]
+    inv_focal = (torch.tensor(1.0, dtype=F32) / torch.tensor(float(statics.focal), dtype=F32)
+                 ).to(dev)
+    x = px.to(F32) + 0.5
+    y = py.to(F32) + 0.5
+    dirs_cam = torch.stack([(x - width * 0.5) * inv_focal, -(y - height * 0.5) * inv_focal,
+                            -torch.ones_like(x)], dim=-1)  # [B, 3]
+    pose = poses.to(device=dev, dtype=F32)[img_idx]  # [B, 3, 4]
+    return Rays(origins=pose[:, :, 3], directions=rotate_f32(pose[:, :, :3], dirs_cam)
+                ), pixels.to(F32)
+
+
+def rotate_f32(rotations: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
+    """``rotations`` [B, 3, 3] times ``vectors`` [B, 3] in f32, rounded as
+    the JAX package's f32 dot rounds a 3-term row: the fused multiply-add
+    chain fma(r2, v2, fma(r1, v1, r0 v0)). Each f32 product is exact in f64,
+    so the chain is f64 sums rounded to f32 after each term (the same
+    digits on the CPU and the card)."""
+    r, v = rotations.double(), vectors.double()[:, None, :]
+    acc = (r[..., 0] * v[..., 0]).float()
+    for j in (1, 2):
+        acc = (acc.double() + r[..., j] * v[..., j]).float()
+    return acc
+
+
+def ray_batch_loss(statics: TrainStepStatics, grid: VoxelGrid, images: torch.Tensor,
+                   poses: torch.Tensor, draws: RayBatchDraws,
+                   generator: Optional[torch.Generator] = None):
+    """The step's objective on the batch of ``draws``, differentiable in
+    the grid: specular L1 plus, with the diffuse regularization, diffuse L1.
+    The diffuse colour comes from the specular render's own samples, weights
+    and gathered rows (``also_render_diffuse``), except through the exact
+    procedure, which has no such output and renders a second time with
+    ``render_diffuse``. Returns (total, metrics: the losses and their
+    MSE-based PSNRs)."""
+    rays, pixels = sample_ray_pixel_batch(images, poses, statics, draws.img_idx,
+                                          draws.pix_idx)
+    procedure = get_render_procedure(statics.render_procedure)
+    fuse_diffuse = (statics.apply_diffuse_render_regularization
+                    and statics.render_procedure != _EXACT)
+    specular_config = statics.render_config.replace(also_render_diffuse=fuse_diffuse)
+    specular = procedure(grid, rays, specular_config, generator, **(draws.specular or {}))
+    specular_loss = torch.mean(torch.abs(specular.colour - pixels))
+    total = specular_loss
+    aux = {"specular_loss": specular_loss,
+           "specular_psnr": mse2psnr(torch.mean((specular.colour - pixels) ** 2))}
+    if statics.apply_diffuse_render_regularization:
+        if fuse_diffuse:
+            diffuse_colour = specular.extra[EXTRA_DIFFUSE_COLOUR]
+        else:
+            diffuse_colour = procedure(grid, rays,
+                                       statics.render_config.replace(render_diffuse=True),
+                                       generator, **(draws.diffuse or {})).colour
+        diffuse_loss = torch.mean(torch.abs(diffuse_colour - pixels))
+        total = total + diffuse_loss
+        aux["diffuse_loss"] = diffuse_loss
+        aux["diffuse_psnr"] = mse2psnr(torch.mean((diffuse_colour - pixels) ** 2))
+    aux["total_loss"] = total
+    return total, aux
+
+
+def ray_batch_train_step(statics: TrainStepStatics, optimizer: torch.optim.Optimizer,
+                         grid: VoxelGrid, images: torch.Tensor, poses: torch.Tensor,
+                         generator: Optional[torch.Generator] = None, *,
+                         draws: Optional[RayBatchDraws] = None, scheduler=None
+                         ) -> Dict[str, torch.Tensor]:
+    """One optimization step on a ray batch (the JAX package's
+    ``_train_step``): the objective's gradient with respect to the grid's
+    densities and features, then ``optimizer.step()`` (and
+    ``scheduler.step()``) in place. The batch is ``draws``, else
+    ``draw_ray_batch(generator, ...)``. Returns the metrics (0-d
+    tensors)."""
+    _strict_f32()
+    if draws is None:
+        draws = draw_ray_batch(generator, statics, images.shape[0])
+    optimizer.zero_grad(set_to_none=True)
+    with grid.trainable():
+        loss, aux = ray_batch_loss(statics, grid, images, poses, draws, generator)
+        loss.backward()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+    return {k: v.detach() for k, v in aux.items()}
 
 
 # --------------------------------------------------------------- optimizer checkpoints
@@ -244,12 +398,14 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     gnomonic_poses_per_step: int = 0,
 ) -> VolumetricModel:
     """Coarse-to-fine training loop: per stage a fresh Adam at the stage's
-    learning rate with the in-stage staircase decay, whole-pose gnomonic steps
-    or tile-based bricked steps, periodic summaries / feedback renders /
-    held-out tests / checkpoints; between stages 2x trilinear grid growth.
-    Runs on ``vol_mod``'s device; ``seed`` drives the pose picker (numpy, as
-    the JAX package) and a ``torch.Generator`` for the initial grid, the
-    phase jitter and the bricked step's tiles and slab offset."""
+    learning rate with the in-stage staircase decay, whole-pose gnomonic steps,
+    tile-based bricked steps or ray-batch steps (every other procedure),
+    periodic summaries / feedback renders / held-out tests / checkpoints;
+    between stages 2x trilinear grid growth. Runs on ``vol_mod``'s device;
+    ``seed`` drives the pose picker (numpy, as the JAX package) and a
+    ``torch.Generator`` for the initial grid, the phase jitter, the bricked
+    step's tiles and slab offset, and the ray batches and their renders'
+    jitter and noise."""
     from thr3ed_atom_tpu_torch.modules import bricked_trainer
     from thr3ed_atom_tpu_torch.modules.tester import (
         test_sh_vox_grid_vol_mod_with_posed_images,
@@ -265,14 +421,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         visualize_sh_vox_grid_vol_mod_rendered_feedback,
     )
 
-    if vol_mod.render_procedure_name not in (_GNOMONIC, _BRICKED):
-        raise NotImplementedError(
-            f"training through '{vol_mod.render_procedure_name}' is not ported: "
-            "ray-batch training (ROADMAP.md, 'Modules to port', items 2 + 3, the next "
-            "slice, with item 8's fast procedure) comes later; the port trains the "
-            "gnomonic and bricked procedures"
-        )
     bricked = vol_mod.render_procedure_name == _BRICKED
+    ray_batch = vol_mod.render_procedure_name not in (_GNOMONIC, _BRICKED)
     if use_mesh:
         raise NotImplementedError(
             "the device mesh (use_mesh) is not ported (ROADMAP.md, 'Modules to port', "
@@ -390,21 +540,34 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 log.info("optimizer checkpoint incompatible; starting a fresh Adam")
 
         # gnomonic: whole-pose steps over views of one (axis, flip, warp swap)
-        # bucket; bricked: tiles of the views of one (axis, flip) bucket
-        buckets, weights = _pose_buckets(poses_np, intr.height, intr.width, intr.focal,
-                                         with_swap=not bricked)
+        # bucket; bricked: tiles of the views of one (axis, flip) bucket;
+        # ray batches: pixels of every view, on the device with their poses
+        if ray_batch:
+            buckets, weights = {}, None
+        else:
+            buckets, weights = _pose_buckets(poses_np, intr.height, intr.width, intr.focal,
+                                             with_swap=not bricked)
         variants = list(buckets)
         pose_picker = np.random.default_rng(seed + stage)
         tstats = {}
         pose_rays = intr.height * intr.width
-        if bricked:
+        if ray_batch:
+            poses_per_step = 0
+            poses_dev = torch.as_tensor(poses_np, dtype=torch.float32).to(dev)
+            ray_statics = TrainStepStatics(
+                render_config=render_config, image_height=intr.height, image_width=intr.width,
+                focal=intr.focal, ray_batch_size=ray_batch_size,
+                apply_diffuse_render_regularization=apply_diffuse_render_regularization,
+                render_procedure=vol_mod.render_procedure_name)
+        elif bricked:
             poses_per_step = 1
             poses_dev = torch.as_tensor(poses_np, dtype=torch.float32).to(dev)
         elif gnomonic_poses_per_step > 0:
             poses_per_step = gnomonic_poses_per_step
         else:
             poses_per_step = max(_GN_MIN_POSES_PER_STEP, round(ray_batch_size / pose_rays))
-        rays_per_step = ray_batch_size if bricked else pose_rays * poses_per_step
+        rays_per_step = (ray_batch_size if bricked or ray_batch
+                         else pose_rays * poses_per_step)
         if poses_per_step > 1:
             log.info(f"gnomonic whole-pose steps accumulate {poses_per_step} poses/step "
                      f"({pose_rays} rays/pose vs ray_batch_size {ray_batch_size})")
@@ -417,9 +580,13 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         last_time = time.perf_counter()
         first = start_iteration if stage == start_stage else 1
         for stage_iteration in range(first, num_iterations_per_stage + 1):
-            variant = variants[int(pose_picker.choice(len(variants), p=weights))]
-            tstat = tstats.get(variant)
-            if bricked:
+            if not ray_batch:
+                variant = variants[int(pose_picker.choice(len(variants), p=weights))]
+                tstat = tstats.get(variant)
+            if ray_batch:
+                metrics = ray_batch_train_step(ray_statics, optimizer, grid, images, poses_dev,
+                                               generator, scheduler=scheduler)
+            elif bricked:
                 if tstat is None:
                     # occupancy skipping stays off in training (the config's
                     # threshold is for renders)

@@ -2,8 +2,11 @@
 
 Counterpart of thr3ed_atom_tpu/modules/volumetric_model.py. The default
 procedure is the JAX package's, the exact renderer ``render_sh_voxel_grid``:
-``render_rays`` renders flat rays through it, and ``render`` casts a pose's
-rays and renders them in chunks of ``parallel_rays_chunk_size``. The
+``render_rays`` renders flat rays through the procedure, and ``render``
+casts a pose's rays and renders them in chunks of
+``parallel_rays_chunk_size``. A procedure with a ``prepare`` hook (fast,
+hierarchical: the cell-packed tables) has its per-grid tables built once and
+cached until the grid's tensors change (``_get_prepared``). The
 pose-structured procedures (gnomonic, bricked, planes) render whole poses
 through their ``render_image`` / ``render_poses``. Checkpoints keep the JAX
 package's format: <path>.npz holds the arrays, <path>.json the grid config,
@@ -59,12 +62,13 @@ class VolumetricModel:
         render_config: Optional[SHVoxGridRenderConfig] = None,
         device=None,
     ) -> None:
-        get_render_procedure(render_procedure)  # raises for unported procedures
+        get_render_procedure(render_procedure)  # raises for unknown procedures
         self.device = resolve_device(device)
         self._thre3d_repr = thre3d_repr.to(self.device)
         self._render_procedure_name = render_procedure
         self._render_config = render_config
         self._image_render_cache: dict = {}
+        self._prepared_cache: Optional[tuple] = None
 
     @property
     def thre3d_repr(self) -> VoxelGrid:
@@ -72,9 +76,9 @@ class VolumetricModel:
 
     @thre3d_repr.setter
     def thre3d_repr(self, grid: VoxelGrid) -> None:
-        """Adopt ``grid`` (moved to the model's device); drops the render cache."""
+        """Adopt ``grid`` (moved to the model's device); drops the render caches."""
         self._thre3d_repr = grid.to(self.device)
-        self._image_render_cache.clear()
+        self.drop_prepared_cache()
 
     @property
     def render_procedure(self):
@@ -93,14 +97,48 @@ class VolumetricModel:
         overrides.setdefault("perturb_sampled_points", False)
         return self._render_config.replace(**overrides)
 
+    def _get_prepared(self, config):
+        """The procedure's per-grid precomputation (the fast and hierarchical
+        procedures' packed tables) for ``config``, cached across render calls;
+        None for a procedure without a ``prepare`` hook, and while gradients
+        flow into the grid (a differentiable render packs its own tables).
+        The cache holds while the grid's tensors are the same objects at the
+        same version counters: an in-place update (an optimizer step) bumps
+        a counter and invalidates it, as does a new grid or
+        ``drop_prepared_cache``."""
+        prepare = getattr(self.render_procedure, "prepare", None)
+        grid = self._thre3d_repr
+        if prepare is None or (torch.is_grad_enabled() and (
+                grid.densities.requires_grad or grid.features.requires_grad)):
+            return None
+        stamp = (grid.densities._version, grid.features._version,
+                 config.fast_bf16_features, config.fast_pack_features)
+        cache = self._prepared_cache
+        if (cache is not None and cache[0] is grid.densities and cache[1] is grid.features
+                and cache[2] == stamp):
+            return cache[3]
+        self._prepared_cache = None  # free the old tables before packing new ones
+        with torch.no_grad():
+            prepared = prepare(grid, config)
+        self._prepared_cache = (grid.densities, grid.features, stamp, prepared)
+        return prepared
+
+    def _call_procedure(self, rays: Rays, config, generator) -> RenderOut:
+        prepared = self._get_prepared(config)
+        if prepared is None:
+            return self.render_procedure(self._thre3d_repr, rays, config, generator)
+        return self.render_procedure(self._thre3d_repr, rays, config, generator,
+                                     prepared=prepared)
+
     def render_rays(self, rays: Rays, generator: Optional[torch.Generator] = None,
                     **config_overrides) -> RenderOut:
-        """Differentiable render of flat rays [N, 3] (on the model's device)
-        through the procedure, with optional per-call config overrides;
-        ``generator`` draws the jitter and the density noise."""
+        """Render of flat rays [N, 3] (on the model's device) through the
+        procedure, with optional per-call config overrides, differentiable
+        while the grid is ``trainable()``; ``generator`` draws the jitter and
+        the density noise."""
         config = (self._render_config.replace(**config_overrides) if config_overrides
                   else self._render_config)
-        return self.render_procedure(self._thre3d_repr, rays, config, generator)
+        return self._call_procedure(rays, config, generator)
 
     def render(self, camera_pose: CameraPose, camera_intrinsics: CameraIntrinsics,
                parallel_rays_chunk_size: Optional[int] = None,
@@ -111,7 +149,8 @@ class VolumetricModel:
         ``generator`` to change that. A procedure without ``render_image``
         renders the pose's rays in chunks of ``parallel_rays_chunk_size``
         (default: the config's), each chunk drawing from ``generator`` in
-        turn."""
+        turn, with the procedure's prepared tables built once for all
+        chunks."""
         config = self._config(config_overrides)
         image_fn = getattr(self.render_procedure, "render_image", None)
         if image_fn is not None:
@@ -120,8 +159,7 @@ class VolumetricModel:
         chunk_size = (parallel_rays_chunk_size if parallel_rays_chunk_size is not None
                       else config.parallel_rays_chunk_size)
         flat_rays = flatten_rays(cast_rays(camera_intrinsics, camera_pose, self.device))
-        chunks = [self.render_procedure(self._thre3d_repr, flat_rays[start:start + chunk_size],
-                                        config, generator)
+        chunks = [self._call_procedure(flat_rays[start:start + chunk_size], config, generator)
                   for start in range(0, len(flat_rays), chunk_size)]
         return reshape_rendered_output(collate_rendered_output(chunks), camera_intrinsics)
 
@@ -143,7 +181,11 @@ class VolumetricModel:
         )
 
     def drop_prepared_cache(self) -> None:
-        """Free the cached repacked grids of every march variant."""
+        """Free the cached per-grid tables: the packed tables of the fast and
+        hierarchical procedures and the repacked grids of every march
+        variant (at 256^3 the packed f32 feature table alone is 14.7 GB; the
+        trainer drops them after each feedback render and held-out test)."""
+        self._prepared_cache = None
         self._image_render_cache.clear()
 
     # ------------------------------------------------------------------ io

@@ -19,9 +19,8 @@ Counterpart of thr3ed_atom_tpu/rendering/bricked.py. Per pose:
      launch; the tiles are cropped back to the image, with the white
      background and disparity.
 
-Flat ray batches are not served here: the JAX package routes them to its
-fast two-phase renderer, which is not ported (ROADMAP.md, 'Modules to port',
-item 8).
+Flat ray batches through the procedure object go to the fast two-phase
+renderer (rendering/fast_renderer.py), as the JAX package routes them.
 """
 from __future__ import annotations
 
@@ -45,6 +44,7 @@ from thr3ed_atom_tpu_torch.ops.slab_march import (
 )
 from thr3ed_atom_tpu_torch.rendering.axes import _uv_axes, dominant_axis_for_pose
 from thr3ed_atom_tpu_torch.rendering.gnomonic import _div, _ybasis_rows
+from thr3ed_atom_tpu_torch.rendering.fast_renderer import FlatRaysToFast
 from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
 from thr3ed_atom_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
@@ -541,21 +541,16 @@ def render_poses_bricked(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics,
                           for pose in camera_poses])
 
 
-class _BrickedProcedure:
+class _BrickedProcedure(FlatRaysToFast):
     """RENDER_PROCEDURES entry: the slab march is pose-structured, so
     VolumetricModel renders whole poses through ``render_image`` /
-    ``render_poses``, and the tile-based trainer drives the kernel itself."""
+    ``render_poses``, and the tile-based trainer drives the kernel itself;
+    flat ray batches go to the fast renderer."""
 
+    name = "render_sh_voxel_grid_bricked"
+    pipeline = "slab-march kernel"
     render_image = staticmethod(render_image_bricked)
     render_poses = staticmethod(render_poses_bricked)
-
-    def __call__(self, voxel_grid, rays, render_config, key=None, prepared=None):
-        raise NotImplementedError(
-            "render_sh_voxel_grid_bricked serves whole poses only; the JAX package "
-            "routes flat ray batches to the fast two-phase renderer "
-            "(render_sh_voxel_grid_fast), not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 8)"
-        )
 
 
 render_sh_voxel_grid_bricked = _BrickedProcedure()

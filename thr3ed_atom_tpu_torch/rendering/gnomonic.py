@@ -41,7 +41,8 @@ prefiltered cubic B-spline: ``bspline_prefilter``, the reference's IIR
 prefilter as one product with its [n, n] matrix), in two forms:
 ``gnomonic_warp_impl`` "matmul" (= "auto") or "gather", the per-pixel
 gather warp (``_warp_gather``). Flat ray batches through the procedure
-object raise NotImplementedError (they go to the fast renderer, not ported).
+object go to the fast two-phase renderer (rendering/fast_renderer.py), as
+the JAX package routes them.
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
 from thr3ed_atom_tpu_torch.ops.relu_trap import relu_trap_plain
 from thr3ed_atom_tpu_torch.ops.sh import C0 as _C0, C1 as _C1, C2 as _C2, C3 as _C3
 from thr3ed_atom_tpu_torch.rendering.axes import _uv_axes, dominant_axis_for_pose
+from thr3ed_atom_tpu_torch.rendering.fast_renderer import FlatRaysToFast
 from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
 from thr3ed_atom_tpu_torch.utils.constants import (
     EXTRA_ACCUMULATED_WEIGHTS,
@@ -1318,19 +1320,15 @@ def render_poses_gnomonic(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics
     )
 
 
-class _GnomonicProcedure:
+class _GnomonicProcedure(FlatRaysToFast):
     """RENDER_PROCEDURES entry: the gnomonic renderer is pose-structured, so
     VolumetricModel renders whole poses through ``render_image`` /
-    ``render_poses``."""
+    ``render_poses``; flat ray batches go to the fast renderer."""
 
+    name = "render_sh_voxel_grid_gnomonic"
+    pipeline = "shear-warp pipeline"
     render_image = staticmethod(render_image_gnomonic)
     render_poses = staticmethod(render_poses_gnomonic)
-
-    def __call__(self, voxel_grid, rays, render_config, key=None, prepared=None):
-        raise NotImplementedError(
-            "flat ray batches go to the fast two-phase renderer, not ported yet "
-            "(ROADMAP.md, 'Modules to port', item 8)"
-        )
 
 
 render_sh_voxel_grid_gnomonic = _GnomonicProcedure()

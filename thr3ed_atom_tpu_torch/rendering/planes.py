@@ -20,10 +20,10 @@ Counterpart of thr3ed_atom_tpu/rendering/planes.py. Per pose:
      one launch; the tiles are cropped back to the image, with the white
      background and disparity.
 
-Flat ray batches are not served here: the JAX package routes them to its
-fast two-phase renderer, which is not ported (ROADMAP.md, 'Modules to port',
-item 8). Nor is the depth-segment restriction of the tables (``group_range``
-of the JAX package's mesh path).
+Flat ray batches through the procedure object go to the fast two-phase
+renderer (rendering/fast_renderer.py), as the JAX package routes them. The
+depth-segment restriction of the tables (``group_range`` of the JAX
+package's mesh path) is not ported.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ from thr3ed_atom_tpu_torch.rendering.bricked import (
     ray_records,
     stack_renders,
 )
+from thr3ed_atom_tpu_torch.rendering.fast_renderer import FlatRaysToFast
 from thr3ed_atom_tpu_torch.rendering.interface import RenderOut
 
 F32 = torch.float32
@@ -424,21 +425,15 @@ def render_poses_planes(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics, 
                           for pose in camera_poses])
 
 
-class _PlanesProcedure:
+class _PlanesProcedure(FlatRaysToFast):
     """RENDER_PROCEDURES entry: the plane march is pose-structured, so
     VolumetricModel renders whole poses through ``render_image`` /
-    ``render_poses``."""
+    ``render_poses``; flat ray batches go to the fast renderer."""
 
+    name = "render_sh_voxel_grid_planes"
+    pipeline = "plane-march kernel"
     render_image = staticmethod(render_image_planes)
     render_poses = staticmethod(render_poses_planes)
-
-    def __call__(self, voxel_grid, rays, render_config, key=None, prepared=None):
-        raise NotImplementedError(
-            "render_sh_voxel_grid_planes serves whole poses only; the JAX package "
-            "routes flat ray batches to the fast two-phase renderer "
-            "(render_sh_voxel_grid_fast), not ported yet (ROADMAP.md, 'Modules to "
-            "port', item 8)"
-        )
 
 
 render_sh_voxel_grid_planes = _PlanesProcedure()

@@ -1,11 +1,12 @@
 """Ray utilities: pinhole ray casting, flattening and collation, NDC
-reprojection, and the reshaping of chunked render outputs (counterpart of
+reprojection, the draw of a ray / pixel batch without replacement, and the
+reshaping of chunked render outputs (counterpart of
 thr3ed_atom_tpu/rendering/rays.py). Rays are cast on the device named by the
 caller (None: the CUDA card).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +105,25 @@ def ndcize_rays(rays: Rays, camera_intrinsics: CameraIntrinsics) -> Rays:
 
     return Rays(origins=torch.stack([o0, o1, o2], dim=-1),
                 directions=torch.stack([d0, d1, d2], dim=-1))
+
+
+def sample_random_rays_and_pixels_synchronously(
+    rays: Rays,
+    pixels: torch.Tensor,
+    sample_size: int,
+    generator: Optional[torch.Generator] = None,
+    *,
+    idx: Optional[torch.Tensor] = None,
+) -> Tuple[Rays, torch.Tensor]:
+    """``sample_size`` (ray, pixel) pairs drawn without replacement from
+    flat ``rays`` [N, 3] and ``pixels`` [N, C]: the indices ``idx``
+    [sample_size], or the head of a permutation drawn from ``generator``."""
+    if idx is None:
+        assert generator is not None, "drawing the batch requires a generator or idx"
+        idx = torch.randperm(pixels.shape[0], generator=generator,
+                             device=generator.device)[:sample_size]
+    idx = idx.to(pixels.device)
+    return Rays(origins=rays.origins[idx], directions=rays.directions[idx]), pixels[idx]
 
 
 def collate_rendered_output(rendered_chunks: Sequence[RenderOut]) -> RenderOut:

@@ -3,14 +3,16 @@ procedures.
 
 Counterpart of thr3ed_atom_tpu/rendering/renderer.py. ``SHVoxGridRenderConfig``
 carries every field of the JAX package's config, so a checkpoint's JSON written
-by either package loads in the other; the knobs of procedures that are not
-ported yet are kept and ignored. ``render_sh_voxel_grid`` is the exact ray
-marcher (the JAX package's default procedure and the oracle of its quality
-gates): sampler -> SH point processor -> accumulator over flat rays.
-``RENDER_PROCEDURES`` holds the procedures this port serves: the exact
-renderer, the gnomonic shear-warp renderer, the bricked slab-march renderer
-and the plane-march renderer; a checkpoint naming another one is refused by
-``get_render_procedure``.
+by either package loads in the other. ``render_sh_voxel_grid`` is the exact
+ray marcher (the JAX package's default procedure and the oracle of its
+quality gates): sampler -> SH point processor -> accumulator over flat rays.
+``RENDER_PROCEDURES`` holds every procedure of the JAX package: the exact
+renderer, the two-phase top-K renderer (rendering/fast_renderer.py), the
+hierarchical one (rendering/hierarchical.py), the gnomonic shear-warp
+renderer, the bricked slab-march renderer and the plane-march renderer. A
+procedure with a ``prepare`` hook (the fast and hierarchical ones: their
+cell-packed tables) has that per-grid work hoisted out of the chunk loop and
+cached by ``VolumetricModel``.
 """
 import dataclasses
 from functools import partial
@@ -25,7 +27,12 @@ from thr3ed_atom_tpu_torch.rendering.accumulate import (
     accumulate_radiance_density_on_rays,
 )
 from thr3ed_atom_tpu_torch.rendering.bricked import render_sh_voxel_grid_bricked
+from thr3ed_atom_tpu_torch.rendering.fast_renderer import (
+    prepare_for_config,
+    render_sh_voxel_grid_fast,
+)
 from thr3ed_atom_tpu_torch.rendering.gnomonic import render_sh_voxel_grid_gnomonic
+from thr3ed_atom_tpu_torch.rendering.hierarchical import render_sh_voxel_grid_hierarchical
 from thr3ed_atom_tpu_torch.rendering.interface import Rays, RenderOut, render
 from thr3ed_atom_tpu_torch.rendering.planes import render_sh_voxel_grid_planes
 from thr3ed_atom_tpu_torch.rendering.process import process_points_with_sh_voxel_grid
@@ -38,9 +45,8 @@ from thr3ed_atom_tpu_torch.utils.camera import CameraBounds
 
 @dataclasses.dataclass(frozen=True)
 class SHVoxGridRenderConfig:
-    """Static render configuration, field for field the JAX package's. The
-    fields of the fast and hierarchical procedures do not act in this port;
-    they are carried so that checkpoints round-trip."""
+    """Static render configuration, field for field the JAX package's, so
+    that checkpoints round-trip."""
 
     # probing config:
     num_samples_per_ray: int
@@ -59,7 +65,8 @@ class SHVoxGridRenderConfig:
     render_num_samples_per_ray: int = 1024
     parallel_rays_chunk_size: int = 32768
 
-    # two-phase (fast) renderer: not ported yet
+    # two-phase (fast) renderer: samples shaded a ray, the feature table in
+    # bf16, and cell-packed feature rows (False: the raw grid, eight taps)
     fast_topk: int = 64
     fast_bf16_features: bool = False
     # also emit the diffuse (degree-0 SH) colour in extra["diffuse_colour"]
@@ -158,27 +165,22 @@ def render_sh_voxel_grid(
     )
 
 
+# the per-grid precomputation (the cell-packed tables) of the procedures
+# that have one: (grid, config) -> prepared, passed as ``prepared=``
+render_sh_voxel_grid_fast.prepare = prepare_for_config
+render_sh_voxel_grid_hierarchical.prepare = prepare_for_config
+
 RENDER_PROCEDURES = {
     "render_sh_voxel_grid": render_sh_voxel_grid,
+    "render_sh_voxel_grid_fast": render_sh_voxel_grid_fast,
+    "render_sh_voxel_grid_hierarchical": render_sh_voxel_grid_hierarchical,
     "render_sh_voxel_grid_gnomonic": render_sh_voxel_grid_gnomonic,
     "render_sh_voxel_grid_bricked": render_sh_voxel_grid_bricked,
     "render_sh_voxel_grid_planes": render_sh_voxel_grid_planes,
 }
 
-# the JAX package's other procedures: not ported yet
-_NOT_PORTED = (
-    "render_sh_voxel_grid_fast",
-    "render_sh_voxel_grid_hierarchical",
-)
-
 
 def get_render_procedure(name: str):
     if name in RENDER_PROCEDURES:
         return RENDER_PROCEDURES[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"render procedure '{name}' is not ported yet (ROADMAP.md, "
-            "'Modules to port', item 8); only "
-            f"{sorted(RENDER_PROCEDURES)} are"
-        )
     raise ValueError(f"unknown render procedure '{name}'")
