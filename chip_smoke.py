@@ -123,7 +123,19 @@ version on the card at the main paths' shapes:
        hierarchical renderer, and a softplus field routed from the gnomonic
        default to the fast renderer (64^3 then 128^3, 4 steps a stage): the
        checkpoints load in the port, the held-out test with LPIPS ran.
-The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21 and 22, each
+  29.  3inFusion (the diffusion package and its training CLI): the CLI's
+       UNet on the card against the CPU on a 32^3 crop, batch 2 (output
+       and a p_sample step within 1e-4 of their scale, a train step's loss
+       rtol 1e-5, its gradient cosine > 0.99999); main([...]) at the CLI's
+       widths, diffusion and crop ratio on phase 5's saved 128^3 scene
+       (crop 112^3, DIFF_BATCH crops a step, DIFF_STEPS steps, the in-loop
+       mosaic once, nothing logged as failed): ms a step, voxels/s, peak
+       memory, the loss on a fixed batch falling; the final checkpoint
+       reloaded to equal leaves; two samples of 25 reverse steps rendered
+       through phase 5's gnomonic procedure into a mosaic (K1 and K2
+       counted), ms a reverse step; a train step with TF32 on beside it
+       in f32, and the f32 step's top kernels under torch.profiler.
+The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21, 22 and 29, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
 and the device's busy share.
@@ -154,6 +166,12 @@ and blocks an SM come from the port's march_launch_shape where it has
 one, else from ptxas's log of the build and the occupancy rule for a
 thread a ray. It prints them as one JSON line and the card's name and
 power limit; no kernel is held against its plain version in this mode.
+
+    python3 chip_smoke.py --diffusion-batch B
+
+runs one full-width 3inFusion train step (the CLI's UNet, 112^3 crops of
+the 128^3 blob scene) at batch B and prints its peak memory or that it ran
+out of memory: how DIFF_BATCH was chosen.
 
     python3 chip_smoke.py --stripe-split
 
@@ -2041,13 +2059,317 @@ def ray_batch_phases(torch, port, workdir, *, scene, view, dev) -> dict:
     return out
 
 
+# phase 29: 3inFusion at the training CLI's widths on phase 5's 128^3 scene
+# the largest of 32 / 16 / 8 whose full-width step fits the card (--diffusion-batch on an
+# NVIDIA H100 80GB HBM3 at 700 W: 32 and 16 ran out of memory at 71.8 and 78.2 GB; 8 peaks
+# at 43.85 GB)
+DIFF_BATCH = 8
+DIFF_STEPS = 6  # train steps of the full-width run
+DIFF_SAMPLE_ITERS = 25  # reverse steps of each of the mosaic's samples
+DIFF_CHECK_CROP = 32  # the card-vs-CPU check's crop side (batch 2)
+
+
+def app_unet(dunet, channels, generator=None):
+    """apps/train_thre3infusion.py's UNet for a scene of ``channels`` grid channels."""
+    return dunet.UNetModel(
+        in_channels=channels, model_channels=32, out_channels=channels, num_res_blocks=1,
+        attention_resolutions=(), use_bottleneck_attn=True, channel_mult=(1, 2, 4, 8),
+        conv_resample=True, dims=3, num_classes=None, use_checkpoint=True, num_heads=4,
+        num_head_channels=-1, use_scale_shift_norm=True, resblock_updown=False,
+        generator=generator)
+
+
+def app_diffusion(gdm):
+    """The training CLI's diffusion: cosine, 500 steps, EPSILON / FIXED_SMALL / MSE."""
+    return gdm.GaussianDiffusion(
+        betas=gdm.get_named_beta_schedule("cosine", 500),
+        model_mean_type=gdm.ModelMeanType.EPSILON, model_var_type=gdm.ModelVarType.FIXED_SMALL,
+        loss_type=gdm.LossType.MSE)
+
+
+def diffusion_phase(torch, port, workdir, *, dev) -> dict:
+    """Phase 29: 3inFusion (no hand-written kernel of its own; its sample
+    mosaic renders through phase 5's gnomonic procedure, K1 and K2). The
+    training CLI's UNet on the card against the CPU (output, a train step's
+    loss and gradient, a p_sample step); main([...]) at the CLI's widths,
+    diffusion and crop ratio on phase 5's 128^3 SH-degree-2 scene (crop
+    112^3) with DIFF_BATCH crops a step, the in-loop mosaic once; the loss
+    on a fixed batch before and after; a train step with TF32 on beside one
+    without; two samples of DIFF_SAMPLE_ITERS reverse steps rendered into a
+    mosaic through the gnomonic procedure, its launches counted; the final
+    checkpoint reloaded. Returns what the summary prints."""
+    import copy
+    import logging
+
+    from thr3ed_atom_tpu_torch.apps import train_thre3infusion as dcli
+    from thr3ed_atom_tpu_torch.diffusion import gaussian_diffusion as gdm
+    from thr3ed_atom_tpu_torch.diffusion import model as dmodel
+    from thr3ed_atom_tpu_torch.diffusion import nn as dnn
+    from thr3ed_atom_tpu_torch.diffusion import unet as dunet
+
+    gn, wm, vm = port["gn"], port["wm"], port["vm"]
+    Model = dmodel.Thre3inFusionModel
+    out = {}
+    torch.cuda.empty_cache()
+    scene_path = workdir / "blob128"
+    vol, _ = vm.create_volumetric_model_from_saved_model(scene_path, device="cpu")
+    norm_cpu, _, _ = dmodel.normalize_grid(Model.serialize_vol_mod_to_tensor_grid(vol)[0])
+    del vol
+    channels = norm_cpu.shape[-1]
+    diffusion = app_diffusion(gdm)
+    dmodel.strict_f32()
+
+    # ---- 29a: card against CPU at the CLI's widths, a 32^3 crop, batch 2:
+    # perturbed weights (the zero-initialised convs would hide a path)
+    gen = torch.Generator().manual_seed(290)
+    cpu_unet = app_unet(dunet, channels, gen)
+    with torch.no_grad():
+        for p in cpu_unet.parameters():
+            p.add_(torch.randn(p.shape, generator=gen) * 0.02)
+    card_unet = copy.deepcopy(cpu_unet).to(dev)
+    crop = (DIFF_CHECK_CROP,) * 3
+    batch = dmodel.crop_batch(norm_cpu, torch.tensor([[10, 40, 70], [60, 20, 5]]), crop)
+    t = torch.tensor([17, 403])
+    noise = torch.randn(batch.shape, generator=gen)
+    z = torch.randn(batch.shape, generator=gen)
+    # the UNet's convolution FLOPs a voxel of a forward (2 x MACs, counted on
+    # the CPU forward by hooks on its convs): the compute a step's time stands on
+    conv_flops = []
+    hooks = [m.register_forward_hook(lambda m_, i_, o_: conv_flops.append(
+        2 * o_.numel() * m_.weight[0].numel())) for m in cpu_unet.modules()
+        if isinstance(m, dnn.ConvNd)]
+    with torch.no_grad():
+        cpu_unet(batch, t)
+    for h in hooks:
+        h.remove()
+    flops_voxel = sum(conv_flops) / batch[..., 0].numel()
+    out["conv_gflop_forward"] = {f"{n}^3": flops_voxel * n ** 3 / 1e9 for n in (112, 128)}
+    res = {}
+    for name, unet, d_ in (("cpu", cpu_unet, "cpu"), ("card", card_unet, dev)):
+        args = (batch.to(d_), t.to(d_))
+        with torch.no_grad():
+            fwd = unet(*args).cpu()
+            x_t = diffusion.q_sample(args[0], args[1], noise.to(d_))
+            step = diffusion.p_sample(unet, x_t, args[1], noise=z.to(d_))[0].cpu()
+        loss = diffusion.training_losses(unet, *args, noise=noise.to(d_))["loss"].mean()
+        loss.backward()
+        grads = torch.cat([p.grad.reshape(-1).cpu() for p in unet.parameters()])
+        res[name] = (fwd, step, float(loss.detach()), grads)
+    scale = float(res["cpu"][0].abs().max())
+    fwd_rel = max_abs(res["card"][0], res["cpu"][0]) / scale
+    step_rel = max_abs(res["card"][1], res["cpu"][1]) / float(res["cpu"][1].abs().max())
+    loss_rel = abs(res["card"][2] - res["cpu"][2]) / abs(res["cpu"][2])
+    grad_cos = cosine(res["card"][3], res["cpu"][3])
+    out["card_vs_cpu"] = dict(unet_rel=fwd_rel, unet_scale=scale, p_sample_rel=step_rel,
+                              loss_rel=loss_rel, loss=res["cpu"][2], grad_cosine=grad_cos)
+    print(f"# 3inFusion card vs CPU (CLI widths, {DIFF_CHECK_CROP}^3 x 2, {channels} channels):"
+          f" UNet max-abs / scale {fwd_rel:.3g} (scale {scale:.4g}), p_sample step "
+          f"{step_rel:.3g}, loss {res['cpu'][2]:.7f} relative gap {loss_rel:.3g}, gradient "
+          f"cosine {grad_cos:.9f}; convolution GFLOP a forward "
+          f"{json.dumps(out['conv_gflop_forward'])} ({flops_voxel:.0f} a voxel; "
+          f"{sum(p.numel() for p in cpu_unet.parameters())} parameters)", flush=True)
+    check(scale > 0 and fwd_rel <= 1e-4 and step_rel <= 1e-4 and loss_rel <= 1e-5
+          and grad_cos > 0.99999, f"3inFusion card vs CPU: {out['card_vs_cpu']}")
+    del cpu_unet, card_unet, res, batch, noise, z
+
+    # ---- 29b: the CLI's full width, main([...]) on phase 5's scene; the
+    # step and the sample timed on CUDA events, the log kept
+    steps, samples, messages = [], [], []
+    original_step, original_sample = Model.train_step, Model.sample
+
+    def timed_step(self, *args):
+        loss, ms = cuda_ms(torch, lambda: original_step(self, *args))
+        steps.append((ms, float(loss), torch.cuda.max_memory_allocated() / 1e9))
+        return loss
+
+    def timed_sample(self, *args, **kw):
+        grids, ms = cuda_ms(torch, lambda: original_sample(self, *args, **kw))
+        samples.append((kw.get("max_iter"), ms))
+        return grids
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    keep = Keep()
+    logging.getLogger().addHandler(keep)
+    out_dir = workdir / "thre3infusion"
+    argv = ["-i", str(scene_path), "-o", str(out_dir), "--batch_size", str(DIFF_BATCH),
+            "--num_iters", str(DIFF_STEPS), "--sample_frequency", str(DIFF_STEPS),
+            "--save_frequency", str(DIFF_STEPS), "--loss_feedback_frequency", "1",
+            "--visualization_samples", "1"]
+    Model.train_step, Model.sample = timed_step, timed_sample
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        model = dcli.main(argv)
+    finally:
+        Model.train_step, Model.sample = original_step, original_sample
+        logging.getLogger().removeHandler(keep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    side = dmodel.training_crop_side((GRID_SIZE,) * 3, 0.8, 4)
+    check(side == 112 and model.unet.in_channels == channels == 28,
+          f"3inFusion: crop {side}, channels {model.unet.in_channels}")
+    failed = [m for m in messages if "sample visualization failed" in m]
+    check(not failed, f"3inFusion: the in-loop mosaic failed: {failed}")
+    gif = out_dir / "generated_samples" / f"samples_{DIFF_STEPS}.gif"
+    check(gif.exists(), f"3inFusion: no in-loop mosaic {gif}")
+    w_, h_, n_frames = gif_frames(gif.read_bytes())
+    check(n_frames == 59, f"3inFusion in-loop mosaic: {n_frames} frames")
+    step_ms = [s_[0] for s_ in steps]
+    step_losses = [s_[1] for s_ in steps]
+    peak_gb = max(s_[2] for s_ in steps)
+    check(len(steps) == DIFF_STEPS and all(np.isfinite(step_losses)),
+          f"3inFusion steps {steps}")
+    ms_step = float(np.mean(step_ms[1:]))
+    voxels = DIFF_BATCH * side ** 3
+
+    # the loss on a fixed crop batch, timesteps and noise: the initial UNet
+    # (train()'s initialisation from the seed) against the trained one
+    g29 = torch.Generator(device=dev).manual_seed(291)
+    norm = norm_cpu.to(dev)
+    fixed = dmodel.crop_batch(norm, torch.tensor([[3, 9, 14], [12, 0, 7]]), (side,) * 3)
+    fixed_t = torch.tensor([50, 250], device=dev)
+    fixed_noise = torch.randn(fixed.shape, generator=g29, device=dev)
+    initial = app_unet(dunet, channels, torch.Generator().manual_seed(42)).to(dev)
+
+    def fixed_loss(unet):
+        with torch.no_grad():
+            return float(diffusion.training_losses(unet, fixed, fixed_t,
+                                                   noise=fixed_noise)["loss"].mean())
+
+    loss_before, loss_after = fixed_loss(initial), fixed_loss(model.unet)
+    del initial
+    check(loss_after < loss_before, f"3inFusion fixed-batch loss {loss_before} -> {loss_after}")
+    in_loop = [ms for it, ms in samples if it is None]
+    out["full_width"] = dict(
+        batch=DIFF_BATCH, crop=side, steps=DIFF_STEPS, step_ms=step_ms, ms_per_step=ms_step,
+        voxels_per_sec=voxels / ms_step * 1e3, peak_gb=peak_gb, step_losses=step_losses,
+        fixed_batch_loss=[loss_before, loss_after], main_s=wall,
+        in_loop_sample_ms=in_loop, in_loop_ms_per_reverse_step=[ms / 500 for ms in in_loop])
+    print(f"# 3inFusion full width ({card_line()}): batch {DIFF_BATCH} x {side}^3 x {channels}, "
+          f"ms/step (CUDA events) {[round(v, 3) for v in step_ms]}, steps 2-{DIFF_STEPS} "
+          f"{ms_step:.3f} ms = {voxels / ms_step * 1e3:.4g} voxels/s; peak memory "
+          f"{peak_gb:.2f} GB; losses {step_losses}; fixed-batch loss {loss_before:.7f} -> "
+          f"{loss_after:.7f}; main() {wall:.1f} s, its in-loop sample (500 reverse steps, "
+          f"{GRID_SIZE}^3, batch 1) {[round(ms, 1) for ms in in_loop]} ms", flush=True)
+
+    # ---- 29c: the final checkpoint reloads in the port to equal leaves
+    again = Model(app_unet(dunet, channels), diffusion, device=dev)
+    again.load_params(out_dir / "saved_models" / "model_final")
+    saved = dunet.flax_leaves(again.params)
+    mine = dunet.flax_leaves(model.params)
+    check(len(saved) == len(mine) and all(np.array_equal(a, b) for a, b in zip(saved, mine)),
+          "3inFusion: the final checkpoint does not reload to the trained leaves")
+    del again, saved, mine
+
+    # ---- 29d: two samples of DIFF_SAMPLE_ITERS reverse steps each, rendered
+    # through the scene's gnomonic procedure into a mosaic; K1 and K2 counted
+    counters = {"composite_fused": gn.composite_positions_fused,
+                "resample_rows": wm.resample_rows}
+    for c in counters.values():
+        c.launches = 0
+    samples.clear()
+    Model.sample = timed_sample
+    t0 = time.perf_counter()
+    try:
+        path = model.visualize_samples_mosaic(
+            (GRID_SIZE,) * 3, 2, workdir / "mosaic" / "samples.mp4", num_frames=60, fps=24,
+            generator=torch.Generator(device=dev).manual_seed(292),
+            max_iter=DIFF_SAMPLE_ITERS)
+    finally:
+        Model.sample = original_sample
+    torch.cuda.synchronize()
+    mosaic_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    check(model.render_procedure_name == "render_sh_voxel_grid_gnomonic"
+          and all(v > 0 for v in launches.values()), f"3inFusion mosaic launches {launches}")
+    mw, mh, mframes = gif_frames(path.read_bytes())
+    check(mframes == 59 and mw == 2 * w_, f"3inFusion mosaic GIF {mw} x {mh}, {mframes} frames")
+    ms_reverse = float(np.mean([ms for _, ms in samples])) / DIFF_SAMPLE_ITERS
+    out["sampling"] = dict(samples=2, max_iter=DIFF_SAMPLE_ITERS,
+                           sample_ms=[ms for _, ms in samples], ms_per_reverse_step=ms_reverse,
+                           mosaic_s=mosaic_s, launches=launches, gif=[mw, mh, mframes])
+    print(f"# 3inFusion sampling ({card_line()}): 2 x {DIFF_SAMPLE_ITERS} reverse steps on "
+          f"{GRID_SIZE}^3 x {channels}, batch 1: {[round(ms, 1) for _, ms in samples]} ms = "
+          f"{ms_reverse:.3f} ms a reverse step; mosaic {mw} x {mh} x {mframes} frames in "
+          f"{mosaic_s:.1f} s; launches {launches}", flush=True)
+
+    # ---- 29e: the same train step with cuDNN / cuBLAS TF32 on, beside it
+    # without (the second of two steps each, on one drawn batch)
+    opt = torch.optim.Adam(model.unet.parameters(), lr=8e-5, betas=(0.9, 0.999), eps=1e-8)
+    draws = dmodel.draw_train_step(g29, tuple(norm.shape), (side,) * 3, DIFF_BATCH,
+                                   torch.full((500,), 1 / 500))
+    tbatch = dmodel.crop_batch(norm, draws.offsets, (side,) * 3)
+    tf32 = {}
+    for label, allow in (("f32", False), ("tf32", True)):
+        torch.backends.cudnn.allow_tf32 = allow
+        torch.backends.cuda.matmul.allow_tf32 = allow
+        try:
+            tf32[label] = [cuda_ms(torch, lambda: model.train_step(
+                opt, tbatch, draws.timesteps, draws.noise))[1] for _ in range(2)][1]
+        finally:
+            dmodel.strict_f32()
+    _, prof_ms, prof = device_profile(torch, lambda: model.train_step(
+        opt, tbatch, draws.timesteps, draws.noise), 1, "step", top_n=8)
+    out["tf32_step_ms"] = tf32
+    out["profiled_device_ms"] = prof_ms
+    print(f"# 3inFusion train step with TF32 on ({card_line()}; a reading, the port "
+          f"keeps f32): {tf32['tf32']:.3f} ms against {tf32['f32']:.3f} ms in f32; the f32 "
+          f"step under torch.profiler {prof_ms:.1f} device ms ({prof_ms / tf32['f32']:.3f} of "
+          f"its CUDA-event time), {prof}", flush=True)
+    del model, opt, draws, tbatch, norm, fixed, fixed_noise
+    torch.cuda.empty_cache()
+    return out
+
+
+def diffusion_batch_probe(torch, batch: int) -> int:
+    """``--diffusion-batch B``: one full-width 3inFusion train step (the
+    CLI's UNet and diffusion, 112^3 crops of the 128^3 blob scene's
+    normalized grid) at batch B; prints its peak memory, or that it ran out
+    of memory, and the card's name and power limit."""
+    from thr3ed_atom_tpu_torch.diffusion import gaussian_diffusion as gdm
+    from thr3ed_atom_tpu_torch.diffusion import model as dmodel
+    from thr3ed_atom_tpu_torch.diffusion import unet as dunet
+
+    print(card_line(), flush=True)
+    dev = torch.device("cuda")
+    d, f, _ = blob_scene(GRID_SIZE)
+    norm = dmodel.normalize_grid(torch.as_tensor(np.concatenate([d, f], -1)).to(dev))[0]
+    model = dmodel.Thre3inFusionModel(app_unet(dunet, norm.shape[-1]), app_diffusion(gdm),
+                                      device=dev)
+    dmodel.strict_f32()
+    side = dmodel.training_crop_side((GRID_SIZE,) * 3, 0.8, 4)
+    opt = torch.optim.Adam(model.unet.parameters(), lr=8e-5)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    result = dict(batch=batch, crop=side)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for i in range(2):
+            draws = dmodel.draw_train_step(gen, tuple(norm.shape), (side,) * 3, batch,
+                                           torch.full((500,), 1 / 500))
+            batch_t = dmodel.crop_batch(norm, draws.offsets, (side,) * 3)
+            loss, ms = cuda_ms(torch, lambda: model.train_step(opt, batch_t, draws.timesteps,
+                                                                draws.noise))
+            result[f"step{i + 1}_ms"] = ms
+            del draws, batch_t
+        result.update(fits=True, loss=float(loss))
+    except torch.cuda.OutOfMemoryError as error:
+        result.update(fits=False, error=str(error).splitlines()[0])
+    result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(json.dumps({"diffusion_batch": result}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args and args != ["--stripe-split"] and (len(args) != 2 or args[0] != "--readings"):
-        print("usage: python3 chip_smoke.py [--readings PORT_ROOT | --stripe-split]",
-              file=sys.stderr)
+    if args and args != ["--stripe-split"] and (
+            len(args) != 2 or args[0] not in ("--readings", "--diffusion-batch")):
+        print("usage: python3 chip_smoke.py [--readings PORT_ROOT | --stripe-split | "
+              "--diffusion-batch B]", file=sys.stderr)
         return 2
     root = Path(args[1]).resolve() if args[:1] == ["--readings"] else REPO
     if not torch.cuda.is_available():
@@ -2063,6 +2385,9 @@ def main() -> int:
         split = stripe_split(torch, port, main_scene(port, dev), dev)
         print(json.dumps({"stripe_split": split}))
         return 0
+    if args[:1] == ["--diffusion-batch"]:
+        load_port()
+        return diffusion_batch_probe(torch, int(args[1]))
     if args:
         return readings(torch)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
@@ -3449,6 +3774,7 @@ def run(torch, workdir: Path) -> int:
     view = TrainingView(init_grid, targets, rots, orgs, picks[0], phases[0], (ax, fl, sw))
     new_paths = warp_options_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     ray_paths = ray_batch_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
+    diffusion = diffusion_phase(torch, port, workdir, dev=dev)
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -3558,6 +3884,9 @@ def run(torch, workdir: Path) -> int:
             rows[-1]["launches_inside"] = ", ".join(inside)
         if name == "composite_stripe":
             rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
+        if name in diffusion["sampling"]["launches"]:
+            rows[-1]["launches_diffusion_mosaic_phase29"] = (
+                diffusion["sampling"]["launches"][name])
         rows[-1].update(r.get("extra", {}))
     print(f"# serving ms/pose {ms_per_pose:.3f} (qb=0: {ms_pose_v2:.3f}; bricked: "
           f"{ms_pose_b:.3f}; planes: {ms_pose_p:.3f}); training ms/step {ms_per_step:.3f}; "
@@ -3566,7 +3895,10 @@ def run(torch, workdir: Path) -> int:
           f"exact render {new_paths['timings']['exact_render_ms_pose']:.1f} ms/pose; quality "
           f"gates {new_paths['gates_db']}; fast renderer gates {ray_paths['gates_db']}; "
           f"full-width ray-batch step {ray_paths['full_width']['ms_per_step']:.3f} ms "
-          f"(peak {ray_paths['full_width']['peak_gb']:.2f} GB); total "
+          f"(peak {ray_paths['full_width']['peak_gb']:.2f} GB); 3inFusion step "
+          f"{diffusion['full_width']['ms_per_step']:.1f} ms at batch {DIFF_BATCH} (peak "
+          f"{diffusion['full_width']['peak_gb']:.2f} GB), reverse step "
+          f"{diffusion['sampling']['ms_per_reverse_step']:.2f} ms; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

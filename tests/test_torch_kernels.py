@@ -133,19 +133,21 @@ def test_port_imports_no_jax():
                  "ops.plane_march", "rendering.planes", "ops.onehot_gather",
                  "visualizations.video", "apps.render_sh_voxel_grid", "utils.lpips",
                  "rendering.rays", "rendering.sample", "rendering.process",
-                 "rendering.accumulate", "ops.grid_sample"):
+                 "rendering.accumulate", "ops.grid_sample", "diffusion.unet",
+                 "diffusion.gaussian_diffusion", "diffusion.model",
+                 "apps.train_thre3infusion"):
         assert f"thr3ed_atom_tpu_torch.{name}" in modules
 
 
-FORBIDDEN = ("jax", "jaxlib", "thr3ed_atom_tpu", "PIL", "imageio", "click", "yaml",
-             "tensorboardX", "matplotlib")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "thr3ed_atom_tpu", "PIL", "imageio", "click",
+             "yaml", "tensorboardX", "matplotlib")
 
 
 def test_port_sources_import_no_forbidden_packages():
     """No import statement anywhere in the port (apps/ included) or in
-    chip_smoke.py, at module level or inside a function, names JAX, the JAX
-    package or a package the card's machine lacks (PIL, imageio, click,
-    yaml, tensorboardX, matplotlib)."""
+    chip_smoke.py, at module level or inside a function, names JAX, flax,
+    optax, the JAX package or a package the card's machine lacks (PIL,
+    imageio, click, yaml, tensorboardX, matplotlib)."""
     import ast
 
     files = sorted((REPO / "thr3ed_atom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -173,10 +175,14 @@ def test_entry_points_default_to_cuda():
         create_volumetric_model_from_saved_model,
     )
 
+    from thr3ed_atom_tpu_torch.apps import train_thre3infusion
+    from thr3ed_atom_tpu_torch.diffusion.model import Thre3inFusionModel
+
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     for fn in (VolumetricModel.__init__, create_volumetric_model_from_saved_model,
-               voxel_grid_from_numpy):
+               voxel_grid_from_numpy, Thre3inFusionModel.__init__,
+               train_thre3infusion.main):
         assert inspect.signature(fn).parameters["device"].default is None
 
 
