@@ -135,7 +135,28 @@ version on the card at the main paths' shapes:
        through phase 5's gnomonic procedure into a mosaic (K1 and K2
        counted), ms a reverse step; a train step with TF32 on beside it
        in f32, and the f32 step's top kernels under torch.profiler.
-The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21, 22 and 29, each
+  30.  multi-GPU training under a one-rank NCCL group: the gnomonic mesh step
+       (phase 8's first step: 4 views, its phases) against
+       gnomonic_train_step_multi (metrics bit-equal, Adam's first moments
+       cosine > 0.99999: K4 adds rows out of order with f32 atomics), the
+       bricked mesh step at (1, 1) on 64 tiles of those views of the blob
+       grid against bricked_train_step (loss rtol 1e-6, moments cosine >
+       0.99999: K10's atomics), and one full-width ray-batch step (phase
+       27's start and fixed batch) against ray_batch_train_step (loss rtol
+       1e-6, gradient cosine > 0.99999);
+  31.  two ranks on the one card under gloo with CUDA tensors (NCCL refuses
+       two ranks on one device), spawned: the gnomonic step at n_dev 2, k 2,
+       the bricked step at (1, 2) (K9 / K10 at group_offset G / 2 on rank 1)
+       and at (2, 1), each against phase 30's single-device step over the
+       same 4 views or 64 tiles (loss rtol 1e-5, moments cosine > 0.99999;
+       > 0.9999 across depth segments, which compose through 1 - acc; the
+       two ranks' grids bit-identical), each rank's second step's ms;
+  32.  the training CLI with --use_mesh true at one rank (its own NCCL
+       group), 2 stages of 4 steps on phase 12's dataset: every step went
+       through gnomonic_train_step_mesh, K1-K4 counted.
+Phase 14 also holds K9 / K10 at group_offset > 0 (the second of two depth
+segments of the pose's slab groups) against their plain versions.
+The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21, 22, 29, 30 and 32, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
 and the device's busy share.
@@ -2059,6 +2080,328 @@ def ray_batch_phases(torch, port, workdir, *, scene, view, dev) -> dict:
     return out
 
 
+# phases 30-32: multi-GPU training over torch.distributed. The card's
+# machine has one H100: a one-rank NCCL group, and two ranks on the one card
+# under gloo with CUDA tensors (NCCL refuses two ranks on one device)
+MESH_TILES = K10_BATCH_TILES  # the bricked mesh steps' tiles (the trainer's batch)
+
+
+def mesh_case(torch, port, *, scene, view, dev) -> dict:
+    """The mesh phases' shared inputs on the host: phase 8's start grid,
+    targets, views and phases (the gnomonic steps), the blob grid and
+    MESH_TILES tiles from one seed (the bricked steps, exit_eps 0 so that
+    depth segments compose exactly)."""
+    bt = port["bt"]
+    g = view.init_grid()
+    idx = np.asarray(view.pick)
+    tiles_gen = torch.Generator(device=dev).manual_seed(30)
+    b_statics = bricked_mesh_statics(port, scene.grid, view.variant, scene.intr.focal)
+    draws = tuple(x.cpu() for x in bt.draw_tiles(tiles_gen, b_statics))
+    pose_idx = np.random.default_rng(30).integers(0, len(view.rots), MESH_TILES)
+    return dict(init=(g.densities.detach().cpu(), g.features.detach().cpu()),
+                grid_config=dict(voxel_size=tuple(g.voxel_size), **g.get_config_dict()),
+                scene=(scene.d, scene.f, scene.grid_config), targets=view.targets.cpu(),
+                rots=view.rots, orgs=view.orgs, pick=idx,
+                phases=[p.cpu() for p in view.phases], variant=view.variant,
+                focal=float(scene.intr.focal), draws=draws, pose_idx=pose_idx)
+
+
+def bricked_mesh_statics(port, grid, variant, focal):
+    return port["bt"].make_bricked_train_statics(
+        grid, variant[0], variant[1], image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+        focal=focal, ray_batch_size=MESH_TILES * 256, white_bkgd=True, exit_eps=0.0)
+
+
+def mesh_step(torch, port, case, dev, kind, mesh_shape=None):
+    """One step of ``kind`` ("gnomonic" / "bricked") from the case's state on
+    ``dev``: single-device (``mesh_shape`` None) or this rank's part of the
+    mesh step. Returns (metrics as floats, Adam's first moments on the
+    host, ms of the step on CUDA events, whether the replicas agree)."""
+    gt, bt = port["gt"], port["bt"]
+    from thr3ed_atom_tpu_torch.parallel.mesh import replicas_agree
+
+    if kind == "gnomonic":
+        d, f = case["init"]
+        grid = port["VoxelGrid"](d.to(dev), f.to(dev), **case["grid_config"])
+        ax, fl, sw = case["variant"]
+        tstat = gt.make_gnomonic_train_statics(
+            grid, ax, fl, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE, white_bkgd=True,
+            apply_diffuse_render_regularization=True, warp_swap=sw)
+        idx, phases = case["pick"], [p.to(dev) for p in case["phases"]]
+        if mesh_shape is not None:
+            n_dev, rank = mesh_shape
+            k = len(idx) // n_dev
+            idx, phases = idx[rank * k:(rank + 1) * k], phases[rank * k:(rank + 1) * k]
+        args = (case["targets"].to(dev)[torch.as_tensor(idx, device=dev)],
+                case["rots"][idx], case["orgs"][idx], case["focal"])
+        opt, _ = port["trainer"].make_gnomonic_optimizer(grid, 0.03)
+        if mesh_shape is None:
+            step = lambda: gt.gnomonic_train_step_multi(tstat, opt, grid, *args,  # noqa: E731
+                                                        phases=phases)
+        else:
+            step = lambda: gt.gnomonic_train_step_mesh(tstat, opt, mesh_shape[0],  # noqa: E731
+                                                       grid, *args, phases=phases)
+    else:
+        d, f, grid_config = case["scene"]
+        grid = port["voxel_grid_from_numpy"](d.copy(), f.copy(), grid_config, device=dev)
+        statics = bricked_mesh_statics(port, grid, case["variant"], case["focal"])
+        poses = np.concatenate([case["rots"], case["orgs"][:, :, None]], -1)
+        pose_idx = torch.as_tensor(case["pose_idx"], device=dev)
+        draws = tuple(x.to(dev) for x in case["draws"])
+        targets = case["targets"].to(dev)
+        opt, _ = port["trainer"].make_gnomonic_optimizer(grid, 0.03)
+        if mesh_shape is None:
+            step = lambda: bt.bricked_train_step(statics, opt, grid, targets,  # noqa: E731
+                                                 poses, pose_idx, draws=draws)
+        else:
+            step = lambda: bt.bricked_train_step_mesh(  # noqa: E731
+                statics, opt, mesh_shape, grid, targets, poses, pose_idx, draws=draws)
+    m, ms = cuda_ms(torch, step)
+    agree = replicas_agree([grid.densities, grid.features]) if mesh_shape else True
+    moments = tuple(opt.state[p]["exp_avg"].cpu() for p in (grid.densities, grid.features))
+    return {k_: float(v) for k_, v in m.items()}, moments, ms, agree
+
+
+def _mesh_rank(rank: int, world: int, workdir: str) -> None:
+    """A rank of phase 31's world: two processes on the one card under gloo
+    with CUDA tensors, rendezvous through a file in ``workdir``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    port = load_port()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/pg", rank=rank,
+                            world_size=world)
+    try:
+        case = torch.load(Path(workdir) / "mesh_case.pt", weights_only=False)
+        out = {}
+        for label, kind, shape in (("gnomonic_2x2", "gnomonic", (2, rank)),
+                                   ("bricked_1x2", "bricked", (1, 2)),
+                                   ("bricked_2x1", "bricked", (2, 1))):
+            # twice from the same state: the first warms the path up, the
+            # second is timed; both must read the same metrics
+            m_warm = mesh_step(torch, port, case, dev, kind, shape)[0]
+            m, moments, ms, agree = mesh_step(torch, port, case, dev, kind, shape)
+            out[label] = dict(metrics=m, ms=ms, agree=agree and m == m_warm,
+                              moments=moments if rank == 0 else None)
+        torch.save(out, Path(workdir) / f"mesh_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phases(torch, port, workdir, *, scene, view, dev) -> dict:
+    """Phases 30-32: the mesh steps under a one-rank NCCL group against the
+    single-device steps from the same state and draws (phase 8's gnomonic
+    step of 4 views, MESH_TILES bricked tiles of phase 8's views of the blob
+    grid at (1, 1), one full-width ray-batch step from phase 27's start);
+    two ranks on the one card under gloo with CUDA tensors (the gnomonic
+    step at n_dev 2, k 2; the bricked step at (1, 2), where K9 / K10 run at
+    group_offset G / 2 on rank 1, and at (2, 1)) against the same
+    single-device steps; the training CLI with --use_mesh true at one rank.
+    Returns what the summary prints."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from thr3ed_atom_tpu_torch.parallel import mesh as pm
+
+    gt, gn, wm, trainer, cli = (port[k_] for k_ in ("gt", "gn", "wm", "trainer", "cli"))
+    out = {}
+    case = mesh_case(torch, port, scene=scene, view=view, dev=dev)
+    # ---- phase 30: a one-rank NCCL group
+    check(pm.init_process_group(backend="nccl", device=dev) and dist.get_backend() == "nccl",
+          "a one-rank NCCL group")
+    single = {}
+    try:
+        # the kernels each mesh step must launch
+        counters = {"gnomonic": {"composite_fused": gn.composite_positions_fused,
+                                 "composite_backward_fused": gt.composite_backward_fused,
+                                 "resample_rows": wm.resample_rows,
+                                 "resample_rows_adjoint": wm.resample_rows_adjoint},
+                    "bricked": {"slab_march": port["sm"].slab_march_render,
+                                "slab_march_backward": port["sm"].slab_march_grad}}
+        nccl = {}
+        for kind in ("gnomonic", "bricked"):
+            shape = (1, 0) if kind == "gnomonic" else (1, 1)
+            # warm-ups: the step ms below are warm (a first collective of a
+            # group also sets up its NCCL communicator); then single and mesh
+            # alternate twice, and the second pair is checked
+            mesh_step(torch, port, case, dev, kind)
+            mesh_step(torch, port, case, dev, kind, shape)
+            pairs = []
+            for _ in range(2):
+                single[kind] = mesh_step(torch, port, case, dev, kind)
+                for c in counters[kind].values():
+                    c.launches = 0
+                mesh = mesh_step(torch, port, case, dev, kind, shape)
+                launches = {k_: c.launches for k_, c in counters[kind].items()}
+                pairs.append((single[kind][2], mesh[2]))
+            m0, m1 = single[kind][0], mesh[0]
+            cos = [cosine(a, b) for a, b in zip(mesh[1], single[kind][1])]
+            # the forward kernels are deterministic: the gnomonic step's metrics
+            # are bit-equal; the bricked mesh loss is a sum over the global
+            # count where the single step takes means (one rounding); the
+            # gradients go through f32 atomics (K4 on rows out of order, K10)
+            if kind == "gnomonic":
+                ok = m0 == m1
+            else:
+                ok = abs(m1["total_loss"] - m0["total_loss"]) <= 1e-6 * m0["total_loss"]
+            check(ok and min(cos) > 0.99999 and mesh[3] and all(launches.values()),
+                  f"one-rank NCCL {kind} step vs single: {m1} vs {m0}, moment cosines {cos}, "
+                  f"launches {launches}")
+            # the step's collectives alone: all_reduce_ of the grid's gradient
+            # and the metrics on this one rank
+            grads = [torch.zeros(t.shape, device=dev) for t in mesh[1]] + [
+                torch.zeros(5, device=dev)]
+            all_reduce_ms = [cuda_ms(torch, lambda: pm.all_reduce_(grads))[1]
+                             for _ in range(3)]
+            del grads
+            nccl[kind] = dict(metrics=m1, single_metrics=m0, moment_cosines=cos,
+                              ms=mesh[2], single_ms=single[kind][2], pairs_ms=pairs,
+                              all_reduce_ms=all_reduce_ms, launches=launches)
+            print(f"# mesh (NCCL, 1 rank) {kind}: metrics {m1} (single-device {m0}), "
+                  f"moment cosines {cos}; (single-device ms, mesh ms) "
+                  f"{[(round(a, 3), round(b, 3)) for a, b in pairs]} (CUDA events, after a "
+                  f"warm-up step of each, alternating); all_reduce_ of the gradient alone "
+                  f"{[round(x, 3) for x in all_reduce_ms]} ms; launches {launches}", flush=True)
+        # the ray batch from phase 27's start: the 256^3 grid of its seed, its
+        # fixed batch of FULL_RAYS rays
+        poses = torch.as_tensor(np.concatenate([view.rots, view.orgs[:, :, None]], -1),
+                                dtype=torch.float32, device=dev)
+        step_cfg = scene.config.replace(perturb_sampled_points=True, fast_topk=64,
+                                        num_samples_per_ray=512)
+        gen_eval = torch.Generator().manual_seed(270)
+        fixed = trainer.RayBatchDraws(
+            torch.randint(0, len(view.targets), (FULL_RAYS,), generator=gen_eval).to(dev),
+            torch.randint(0, IMAGE_SIZE * IMAGE_SIZE, (FULL_RAYS,), generator=gen_eval).to(dev),
+            explicit_render_draws(torch, FAST, step_cfg, FULL_RAYS, gen_eval, dev))
+        rb = []
+        # single and mesh alternate: the first pair warms up, the last is checked
+        for i, use_mesh in enumerate((False, True) * 3):
+            g27 = torch.Generator(device=dev).manual_seed(27)
+            shape = (FULL_GRID,) * 3
+            big = port["VoxelGrid"](
+                torch.rand(shape + (1,), generator=g27, device=dev) * 2.0 - 1.0,
+                torch.rand(shape + (27,), generator=g27, device=dev) * 2.0 - 1.0,
+                voxel_size=tuple(v * GRID_SIZE / FULL_GRID
+                                 for v in scene.grid_config["voxel_size"]),
+                grid_location=scene.grid_config["grid_location"],
+                density_preactivation="identity", density_postactivation="relu")
+            statics = trainer.TrainStepStatics(
+                render_config=step_cfg, image_height=IMAGE_SIZE, image_width=IMAGE_SIZE,
+                focal=scene.intr.focal, ray_batch_size=FULL_RAYS, use_mesh=use_mesh,
+                render_procedure=FAST)
+            opt, sched = trainer.make_gnomonic_optimizer(big, 0.03)
+            m, ms = cuda_ms(torch, lambda: trainer.ray_batch_train_step(
+                statics, opt, big, view.targets, poses, draws=fixed, scheduler=sched))
+            rb.append((float(m["total_loss"]), (big.densities.grad.clone(),
+                                                big.features.grad.clone()) if i >= 4 else None,
+                       ms))
+            del big, opt, sched
+        pairs = [(rb[i][2], rb[i + 1][2]) for i in (2, 4)]
+        grads = [torch.zeros_like(g) for g in rb[-1][1]] + [torch.zeros(5, device=dev)]
+        all_reduce_ms = [cuda_ms(torch, lambda: pm.all_reduce_(grads))[1] for _ in range(3)]
+        del grads
+        rb = rb[-2:]
+        cos = [cosine(a, b) for a, b in zip(rb[1][1], rb[0][1])]
+        check(abs(rb[1][0] - rb[0][0]) <= 1e-6 * rb[0][0] and min(cos) > 0.99999,
+              f"one-rank NCCL ray-batch step vs single: losses {rb[1][0]} / {rb[0][0]}, "
+              f"gradient cosines {cos}")
+        nccl["ray_batch"] = dict(loss=rb[1][0], single_loss=rb[0][0], grad_cosines=cos,
+                                 ms=rb[1][2], single_ms=rb[0][2], pairs_ms=pairs,
+                                 all_reduce_ms=all_reduce_ms)
+        print(f"# mesh (NCCL, 1 rank) ray batch ({FULL_GRID}^3, {FULL_RAYS} rays): loss "
+              f"{rb[1][0]:.7f} (single-device {rb[0][0]:.7f}), gradient cosines {cos}; "
+              f"(single-device ms, mesh ms) {[(round(a, 3), round(b, 3)) for a, b in pairs]} "
+              f"(CUDA events, after a warm-up step of each, alternating); all_reduce_ of the "
+              f"gradient alone {[round(x, 3) for x in all_reduce_ms]} ms", flush=True)
+        del rb, fixed, poses
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    out["nccl_one_rank"] = nccl
+
+    # ---- phase 31: two ranks on the one card under gloo with CUDA tensors
+    torch.save(case, workdir / "mesh_case.pt")
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(2, str(workdir)), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(workdir / f"mesh_rank{r}.pt", weights_only=False) for r in range(2)]
+    gloo = {}
+    for label, kind in (("gnomonic_2x2", "gnomonic"), ("bricked_1x2", "bricked"),
+                        ("bricked_2x1", "bricked")):
+        r0, r1 = ranks[0][label], ranks[1][label]
+        m0 = single[kind][0]
+        cos = [cosine(a, b) for a, b in zip(r0["moments"], single[kind][1])]
+        rel = abs(r0["metrics"]["total_loss"] - m0["total_loss"]) / m0["total_loss"]
+        # the two ranks' averages (gnomonic) or segments (bricked) sum in
+        # another order than one device's: loss rtol 1e-5; the gradients
+        # also through f32 atomics: cosine > 0.99999. Depth segments compose
+        # through the front's T = 1 - acc (the JAX package's rule), which
+        # cancels where the front is nearly opaque (the blob scene is): the
+        # back segment's gradient is off by up to ~1e-3 of it there, so
+        # that split is held at cosine > 0.9999 (0.99997 on an H100)
+        min_cos = 0.9999 if label == "bricked_1x2" else 0.99999
+        check(r0["agree"] and r1["agree"] and r0["metrics"] == r1["metrics"] and rel <= 1e-5
+              and min(cos) > min_cos,
+              f"two-rank gloo {label} vs single: {r0['metrics']} vs {m0}, moment cosines {cos}")
+        gloo[label] = dict(metrics=r0["metrics"], loss_rel_diff=rel, moment_cosines=cos,
+                           ms=[r0["ms"], r1["ms"]])
+        print(f"# mesh (gloo, 2 ranks on one card) {label}: metrics {r0['metrics']} "
+              f"(single-device {m0}), loss relative {rel:.3g}, moment cosines {cos} (bound "
+              f"{min_cos}); step ms (CUDA events, each rank's second step, the two sharing "
+              f"the card) "
+              f"{[round(r0['ms'], 3), round(r1['ms'], 3)]}", flush=True)
+    gloo["wall_s"] = wall
+    out["gloo_two_ranks"] = gloo
+    del ranks, single
+
+    # ---- phase 32: the training CLI with --use_mesh true at one rank (it forms
+    # its own one-rank NCCL group), 2 stages of 4 steps on phase 12's dataset
+    counters32 = {"composite_fused": gn.composite_positions_fused,
+                  "composite_backward_fused": gt.composite_backward_fused,
+                  "resample_rows": wm.resample_rows,
+                  "resample_rows_adjoint": wm.resample_rows_adjoint}
+    calls = []
+    original = gt.gnomonic_train_step_mesh
+
+    def counted(*a, **kw):
+        calls.append(a[2])
+        return original(*a, **kw)
+
+    out_dir = workdir / "cli_mesh"
+    argv = ["-d", str(workdir / "blob_views"), "-o", str(out_dir), "--grid_dims",
+            *[str(CLI_GRID)] * 3, "--num_stages", "2", "--num_iterations_per_stage",
+            str(CLI_STEPS), "--save_frequency", str(CLI_STEPS), "--test_frequency",
+            str(CLI_STEPS), "--feedback_frequency", str(CLI_STEPS), "--summary_frequency", "1",
+            "--use_mesh", "true"]
+    for c in counters32.values():
+        c.launches = 0
+    gt.gnomonic_train_step_mesh = counted
+    t0 = time.perf_counter()
+    try:
+        trained = cli.main(argv)
+    finally:
+        gt.gnomonic_train_step_mesh = original
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    launches32 = {k_: c.launches for k_, c in counters32.items()}
+    summaries = [json.loads(line) for line in
+                 (out_dir / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+    losses = [round(s["value"], 5) for s in summaries if s["name"] == "total_loss"]
+    check(not dist.is_initialized() and calls == [1] * (2 * CLI_STEPS)
+          and all(v > 0 for v in launches32.values())
+          and (out_dir / "saved_models" / "model_final.npz").exists()
+          and trained.thre3d_repr.grid_dims == (CLI_GRID,) * 3 and all(np.isfinite(losses)),
+          f"CLI --use_mesh true: mesh calls {calls}, launches {launches32}, losses {losses}")
+    out["cli"] = dict(wall_s=wall32, launches=launches32, losses=losses)
+    print(f"# CLI --use_mesh true (1 rank, NCCL): {wall32:.1f} s in main(); mesh steps "
+          f"{len(calls)}; launches {launches32}; losses {losses}", flush=True)
+    del trained
+    return out
+
+
 # phase 29: 3inFusion at the training CLI's widths on phase 5's 128^3 scene
 # the largest of 32 / 16 / 8 whose full-width step fits the card (--diffusion-batch on an
 # NVIDIA H100 80GB HBM3 at 700 W: 32 and 16 ran out of memory at 71.8 and 78.2 GB; 8 peaks
@@ -3650,6 +3993,43 @@ def run(torch, workdir: Path) -> int:
     nused9 = 3 * bst.ncoeff + 1
     k10_bytes = k9_bytes - out9.numel() * 4 + 2 * out9.numel() * 4 + want10.numel() * 4
     k10_ops = k9_ops + work9[0] * (60 + 4 * nused9 * 2 + nused9)
+    # K9 / K10 at a group offset: the second of two depth segments of the
+    # pose's slab groups (rank 1 of the bricked mesh step at (1, 2)): tables
+    # of global group indices over the segment's groups, the repacked grid's
+    # groups from g0 on
+    rep_s, occ_s = br.prepare_bricked_grid(grid, bst)
+    G9 = occ_s.shape[0]
+    g0 = G9 // 2
+    tab_s, cnt_s, _ = br.build_tables(ops9[2], occ_s[g0:], bst, group_range=(g0, G9))
+    ops_s = (tab_s, cnt_s, ops9[2], rep_s[g0:].contiguous())
+    kw_s = {**kw9, "group_offset": g0}
+    got_s = sm.slab_march_render(*ops_s, **kw_s)
+    torch.cuda.synchronize()
+    want_s = sm.slab_march_render_plain(*ops_s, **kw_s)
+    k9_seg_err = max_abs(got_s, want_s)
+    check(k9_seg_err <= 1e-6 and float(want_s[..., 3].max()) > 0.1 and int(cnt_s.sum()) > 0,
+          f"K9 at group_offset {g0} vs plain: max-abs {k9_seg_err}")
+    gout_s = k10_cotangent(torch, want_s)
+    dg_s = sm.slab_march_grad(*ops_s, want_s, gout_s, **kw_s)
+    torch.cuda.synchronize()
+    dg_s_plain = sm.slab_march_grad_plain(*ops_s, want_s, gout_s, **kw_s)
+    scale_s = float(dg_s_plain.abs().max())
+    k10_seg_err, k10_seg_cos = max_abs(dg_s, dg_s_plain), cosine(dg_s, dg_s_plain)
+    check(scale_s > 0.0 and k10_seg_err <= 1e-4 * scale_s and k10_seg_cos > 0.99999,
+          f"K10 at group_offset {g0} vs plain: max-abs {k10_seg_err} of {scale_s}, cosine "
+          f"{k10_seg_cos}")
+    k9_seg_ms = time_ms(torch, lambda: sm.slab_march_render(*ops_s, **kw_s), 20)
+    k10_seg_ms = time_ms(torch, lambda: sm.slab_march_grad(*ops_s, want_s, gout_s, **kw_s),
+                         20)
+    segment = dict(group_offset=g0, groups=G9 - g0, of_groups=G9, entries=int(cnt_s.sum()),
+                   k9_ms=k9_seg_ms, k9_max_abs_err=k9_seg_err, k10_ms=k10_seg_ms,
+                   k10_max_abs_err=k10_seg_err, k10_cosine=k10_seg_cos)
+    print(f"# K9 / K10 at group_offset {g0} (groups {g0}-{G9 - 1} of {G9}, {int(cnt_s.sum())} "
+          f"entries; {card_line()}): K9 max-abs {k9_seg_err:.3g}, ms={k9_seg_ms:.4f}; K10 "
+          f"max-abs {k10_seg_err:.3g} of {scale_s:.3g}, cosine {k10_seg_cos:.9f}, "
+          f"ms={k10_seg_ms:.4f} (the whole pose at offset 0: K9 {k9_ms:.4f}, K10 "
+          f"{k10_ms:.4f})", flush=True)
+    del rep_s, occ_s, ops_s, got_s, want_s, gout_s, dg_s, dg_s_plain
     print(f"# K9 slab_march (blob, 400 x 400): ms={k9_ms:.4f} plain_ms={k9_plain_ms:.4f}; "
           f"bound counts {k9_bytes} bytes, {k9_ops} operations, {int(work9[1].sum())} slab "
           f"records read", flush=True)
@@ -3774,6 +4154,7 @@ def run(torch, workdir: Path) -> int:
     view = TrainingView(init_grid, targets, rots, orgs, picks[0], phases[0], (ax, fl, sw))
     new_paths = warp_options_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     ray_paths = ray_batch_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
+    mesh_paths = mesh_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     diffusion = diffusion_phase(torch, port, workdir, dev=dev)
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
@@ -3789,11 +4170,13 @@ def run(torch, workdir: Path) -> int:
                    entries_max_mean_empty=k9_entries, launch=k9_shape,
                    trainer_batch=dict(ms=k9_batch_ms, max_abs_err=k9_err_batch,
                                       samples_marched=work9b[0],
-                                      bound_ms=k9_batch_bound[0])))
+                                      bound_ms=k9_batch_bound[0]),
+                   group_offset_segment=segment))
     results["slab_march_backward"] = dict(
         err=k10_err, ms=k10_ms, plain_ms=k10_plain_ms, bound=bound(k10_bytes, k10_ops),
         extra=dict(cosine_vs_plain=k10_cos, max_abs_err_after_bf16_cast=k10_cast,
-                   grad_scale=scale10, pose=k10_pose, trainer_batch=k10_batch))
+                   grad_scale=scale10, pose=k10_pose, trainer_batch=k10_batch,
+                   group_offset_segment=segment))
     results.update(planes_results)
 
     rows = []
@@ -3884,6 +4267,8 @@ def run(torch, workdir: Path) -> int:
             rows[-1]["launches_inside"] = ", ".join(inside)
         if name == "composite_stripe":
             rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
+        if name in mesh_paths["cli"]["launches"]:
+            rows[-1]["launches_cli_use_mesh_phase32"] = mesh_paths["cli"]["launches"][name]
         if name in diffusion["sampling"]["launches"]:
             rows[-1]["launches_diffusion_mosaic_phase29"] = (
                 diffusion["sampling"]["launches"][name])
@@ -3898,7 +4283,10 @@ def run(torch, workdir: Path) -> int:
           f"(peak {ray_paths['full_width']['peak_gb']:.2f} GB); 3inFusion step "
           f"{diffusion['full_width']['ms_per_step']:.1f} ms at batch {DIFF_BATCH} (peak "
           f"{diffusion['full_width']['peak_gb']:.2f} GB), reverse step "
-          f"{diffusion['sampling']['ms_per_reverse_step']:.2f} ms; total "
+          f"{diffusion['sampling']['ms_per_reverse_step']:.2f} ms; mesh steps (gloo, 2 ranks "
+          f"on one card, ms per rank) "
+          f"{ {k_: v['ms'] for k_, v in mesh_paths['gloo_two_ranks'].items() if k_ != 'wall_s'} }"
+          f"; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -230,10 +230,11 @@ def test_staircase_adam_matches_optax():
 
 
 def test_out_of_slice_paths_raise_and_psnr(tmp_path):
-    """What the port still lacks raises, naming it: fused=True with qb = 0,
-    an unknown warp form (the gather warp is ported), the mesh step, the
-    stage loop on a device mesh (through any procedure), and image files
-    other than 8-bit PNGs; the stage loop through the fast renderer trains
+    """What the port cannot run raises, naming it: fused=True with qb = 0,
+    an unknown warp form (the gather warp is ported), the mesh step and the
+    stage loop on a device mesh (through any procedure) without a process
+    group (no fallback to one device), and image files other than 8-bit
+    PNGs; the stage loop through the fast renderer trains
     (ray batches: one stage of two steps writes its checkpoints); fused=False
     with qb > 0 is the v2 pipeline with the q-split kernels (K6 / K8);
     mse2psnr matches the reference's definition."""
@@ -248,15 +249,15 @@ def test_out_of_slice_paths_raise_and_psnr(tmp_path):
     with pytest.raises(ValueError, match="gnomonic_warp_impl"):
         gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, warp_impl="scatter")
     assert not gt.make_gnomonic_train_statics(tgrid, 0, False, **kw, qb=0).fused
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        gt.gnomonic_train_step_mesh()
+    with pytest.raises(RuntimeError, match="process group"):
+        gt.gnomonic_train_step_mesh(ts, None, 2, tgrid, [], [], [], 1.0)
 
     class OtherProcedure:
         render_procedure_name = "render_sh_voxel_grid_fast"
 
     for name in ("render_sh_voxel_grid_fast", "render_sh_voxel_grid_gnomonic"):
         OtherProcedure.render_procedure_name = name
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(RuntimeError, match="process group"):
             trainer.train_sh_vox_grid_vol_mod_with_posed_images(OtherProcedure(), None,
                                                                  tmp_path, use_mesh=True)
     from test_torch_trainer import _write_dataset

@@ -147,22 +147,41 @@ def test_port_sources_import_no_forbidden_packages():
     """No import statement anywhere in the port (apps/ included) or in
     chip_smoke.py, at module level or inside a function, names JAX, flax,
     optax, the JAX package or a package the card's machine lacks (PIL,
-    imageio, click, yaml, tensorboardX, matplotlib)."""
+    imageio, click, yaml, tensorboardX, matplotlib), except as an optional
+    import: in the body of a ``try`` whose handler catches ImportError (the
+    camera-rays plot and the feedback panel's time stamp, skipped with a log
+    line where matplotlib or PIL is missing). JAX, flax, optax and the JAX
+    package are not imported even so."""
     import ast
 
     files = sorted((REPO / "thr3ed_atom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert REPO / "thr3ed_atom_tpu_torch" / "apps" / "train_sh_voxel_grid.py" in files
-    bad = []
+    never = {"jax", "jaxlib", "flax", "optax", "thr3ed_atom_tpu"}
+    bad, optional = [], []
     for path in files:
-        for node in ast.walk(ast.parse(path.read_text())):
+        tree = ast.parse(path.read_text())
+        guarded = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and any(
+                    isinstance(h.type, ast.Name)
+                    and h.type.id in ("ImportError", "ModuleNotFoundError")
+                    for h in node.handlers):
+                guarded |= {id(n) for stmt in node.body for n in ast.walk(stmt)}
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             else:
                 continue
-            bad += [f"{path.name}: {n}" for n in names if n.split(".")[0] in FORBIDDEN]
+            for n in names:
+                root = n.split(".")[0]
+                if root in FORBIDDEN and (id(node) not in guarded or root in never):
+                    bad.append(f"{path.name}: {n}")
+                elif root in FORBIDDEN:
+                    optional.append(f"{path.name}: {n}")
     assert not bad, bad
+    assert sorted(optional) == ["static.py: PIL", "static.py: matplotlib"], optional
 
 
 def test_entry_points_default_to_cuda():
@@ -1365,6 +1384,120 @@ def test_slab_march_kernel_table_cases(cuda, relu, exit_eps, density_scale, ncoe
     torch.cuda.synchronize()
     assert float((got - sm.slab_march_render_plain(*ops, **kw)).abs().max()) <= 1e-6
     _march_table_cases(sm.slab_march_render, sm.slab_march_render_plain, ops, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("segment", [(1, 2), (0, 2), (2, 4)])
+def test_slab_march_kernels_at_group_offset(cuda, segment):
+    """K9 / K10 on a depth segment: segment i of n of the pose's slab
+    groups [g0, g1), tables of global group indices
+    (``build_tables(..., group_range=)``), the repacked grid's groups
+    [g0, g1) and group_offset g0, against their plain versions at the same
+    offset with test_slab_march_kernels_match_plain's bounds (K9 max-abs
+    1e-6; K10 max-abs <= 1e-4 of the largest element, cosine > 0.99999)."""
+    from thr3ed_atom_tpu_torch.ops import slab_march as sm
+    from thr3ed_atom_tpu_torch.rendering import bricked as br
+
+    i, n = segment
+    tgrid = _grid(64, device=cuda)
+    pose = pose_spherical(140.0, -30.0, 3.5)
+    rot = torch.as_tensor(np.asarray(pose.rotation, np.float32).reshape(3, 3)).to(cuda)
+    org = torch.as_tensor(np.asarray(pose.translation, np.float32).reshape(3)).to(cuda)
+    axis, flip = br.dominant_axis_for_pose(rot.cpu().numpy())
+    st = br.statics_for_grid(tgrid, axis, flip, with_diffuse=True, axis_supersample=2)
+    rep, occ = br.prepare_bricked_grid(tgrid, st)
+    G = occ.shape[0]
+    g0, g1 = i * G // n, (i + 1) * G // n
+    assert g0 > 0 or n == 2
+    ro, rd = br._tile_image_rays(128, 128, 140.8, 128, 128, rot, org, st.tile_px)
+    rf = br.compute_ray_features(ro, rd, st)
+    tables, counts, _ = br.build_tables(rf, occ[g0:g1], st, group_range=(g0, g1))
+    ops = (tables, counts, rf, rep[g0:g1].contiguous())
+    kw = dict(ncoeff=st.ncoeff, relu_sigma=True, exit_eps=1e-4, with_diffuse=True,
+              group_offset=g0)
+    got = sm.slab_march_render(*ops, **kw)
+    torch.cuda.synchronize()
+    want = sm.slab_march_render_plain(*ops, **kw)
+    assert int(counts.sum()) > 0 and float(want[..., 3].max()) > 0.1
+    assert float((got - want).abs().max()) <= 1e-6
+    gout = torch.randn(got.shape, generator=torch.Generator(device=cuda).manual_seed(3),
+                       device=cuda)
+    dg = sm.slab_march_grad(*ops, want, gout, **kw)
+    torch.cuda.synchronize()
+    dg_plain = sm.slab_march_grad_plain(*ops, want, gout, **kw)
+    scale = float(dg_plain.abs().max())
+    assert scale > 0.0 and float((dg - dg_plain).abs().max()) <= 1e-4 * scale
+    assert _cosine(dg, dg_plain) > 0.99999
+
+
+@pytest.mark.gpu
+def test_mesh_steps_on_a_one_rank_nccl_group(cuda):
+    """The mesh steps under a one-rank NCCL group against the single-device
+    steps from the same state and draws: the gnomonic step (n_dev 1, k 2)
+    against gnomonic_train_step_multi and the bricked step at (1, 1)
+    against bricked_train_step; metrics within rtol 1e-5, Adam's first
+    moments (0.1 g) cosine > 0.99999 (K3, K4 and K10 sum in f32 in a
+    varying order); the replicas agree."""
+    import torch.distributed as dist
+
+    from thr3ed_atom_tpu_torch.modules import bricked_trainer as bt
+    from thr3ed_atom_tpu_torch.parallel import mesh as pm
+    from thr3ed_atom_tpu_torch.rendering import bricked as br
+
+    assert pm.init_process_group(backend="nccl", device=cuda)
+    try:
+        rng = np.random.default_rng(0)
+        poses = [pose_spherical(140.0 + 6.0 * i, -30.0, 3.5) for i in range(2)]
+        rots = np.stack([np.asarray(p.rotation, np.float32).reshape(3, 3) for p in poses])
+        orgs = np.stack([np.asarray(p.translation, np.float32).reshape(3) for p in poses])
+        images = torch.as_tensor(rng.random((2, H, W, 3), dtype=np.float32)).to(cuda)
+        phases = [torch.tensor([0.1, -0.2], device=cuda), torch.tensor([-0.3, 0.25],
+                                                                        device=cuda)]
+        results = []
+        for mesh in (False, True):
+            grid = _grid(32, device=cuda)
+            axis, flip = gn.dominant_axis_for_pose(rots[0])
+            ts = gt.make_gnomonic_train_statics(grid, axis, flip, image_height=H,
+                                                image_width=W, white_bkgd=True)
+            opt, _ = make_gnomonic_optimizer(grid, 0.03)
+            if mesh:
+                m = gt.gnomonic_train_step_mesh(ts, opt, 1, grid, images, rots, orgs, FOCAL,
+                                                phases=phases)
+                assert pm.replicas_agree([grid.densities, grid.features])
+            else:
+                m = gt.gnomonic_train_step_multi(ts, opt, grid, images, rots, orgs, FOCAL,
+                                                 phases=phases)
+            results.append((m, opt.state[grid.features]["exp_avg"].clone()))
+        for name in results[0][0]:
+            np.testing.assert_allclose(float(results[1][0][name]), float(results[0][0][name]),
+                                       rtol=1e-5, err_msg=name)
+        assert _cosine(results[1][1], results[0][1]) > 0.99999
+        results = []
+        for mesh in (False, True):
+            grid = _grid(32, device=cuda)
+            axis, flip = br.dominant_axis_for_pose(rots[0])
+            bs = bt.make_bricked_train_statics(grid, axis, flip, image_height=H, image_width=W,
+                                               focal=FOCAL, ray_batch_size=4 * 256,
+                                               white_bkgd=True)
+            # four tiles over the ball in the middle of the image
+            draws = (torch.tensor([48, 56, 56, 64], device=cuda),
+                     torch.tensor([56, 48, 64, 56], device=cuda), torch.tensor(0.5))
+            opt, _ = make_gnomonic_optimizer(grid, 0.03)
+            pose_arr = np.concatenate([rots, orgs[:, :, None]], 2)
+            idx = torch.tensor([0, 1, 0, 1], device=cuda)
+            if mesh:
+                m = bt.bricked_train_step_mesh(bs, opt, (1, 1), grid, images, pose_arr, idx,
+                                               draws=draws)
+            else:
+                m = bt.bricked_train_step(bs, opt, grid, images, pose_arr, idx, draws=draws)
+            results.append((m, opt.state[grid.features]["exp_avg"].clone()))
+        for name in results[1][0]:
+            np.testing.assert_allclose(float(results[1][0][name]), float(results[0][0][name]),
+                                       rtol=1e-5, err_msg=name)
+        assert float(results[0][1].abs().max()) > 0.0
+        assert _cosine(results[1][1], results[0][1]) > 0.99999
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu

@@ -236,7 +236,9 @@ def test_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
     package loads with the same arrays; the fast renderer, SH degree 4 and
     softplus fields train through ray batches (the last two routed to the
     fast renderer, as the JAX CLI routes them) into checkpoints the JAX
-    package loads; --use_mesh true raises."""
+    package loads; --use_mesh true, launched without torchrun, trains over a
+    one-rank gloo group through the mesh step into the same model_final,
+    bit for bit, and leaves no group behind."""
     data = _write_dataset(tmp_path / "data")
     out = tmp_path / "out"
     args = ["-d", str(data), "-o", str(out), "--grid_dims", "16", "16", "16",
@@ -282,8 +284,14 @@ def test_cli_run_writes_checkpoints_the_jax_package_loads(tmp_path):
         jfast, _ = vm_jax.create_volumetric_model_from_saved_model(
             tmp_path / f"out_{i}" / "saved_models" / "model_final")
         assert jfast.render_procedure_name == "render_sh_voxel_grid_fast"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(args + ["--use_mesh", "true"], device="cpu")
+    import torch.distributed as dist
+
+    mesh_args = args[:3] + [str(tmp_path / "out_mesh")] + args[4:]
+    mesh_model = cli.main(mesh_args + ["--use_mesh", "true"], device="cpu")
+    assert not dist.is_initialized()
+    for fld in ("densities", "features"):
+        np.testing.assert_array_equal(getattr(mesh_model.thre3d_repr, fld).detach().numpy(),
+                                      getattr(model.thre3d_repr, fld).detach().numpy())
 
 
 def _relu_config():

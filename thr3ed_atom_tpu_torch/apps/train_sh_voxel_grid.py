@@ -15,7 +15,15 @@ steps, and ray-batch steps through ``render_sh_voxel_grid_fast``,
 ``render_sh_voxel_grid`` and ``render_sh_voxel_grid_hierarchical``. What a
 kernel cannot take is routed as the JAX package routes it (softplus fields
 and SH degree 4 to the fast renderer; ``resolve_render_procedure``).
-``--use_mesh true`` raises NotImplementedError (ROADMAP.md, item 9).
+
+``--use_mesh true`` trains over a ``torch.distributed`` group, one process a
+card: launched by torchrun,
+
+    torchrun --nproc_per_node N -m thr3ed_atom_tpu_torch.apps.train_sh_voxel_grid \
+        -d <data> -o <out> --use_mesh true ...
+
+each rank runs on ``cuda:LOCAL_RANK`` under NCCL (gloo with ``device="cpu"``);
+launched without torchrun, the group has one rank. Only rank 0 writes.
 """
 from __future__ import annotations
 
@@ -162,17 +170,33 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> VolumetricModel:
     config["grid_dims"] = tuple(config["grid_dims"])
     config["grid_location"] = tuple(config["grid_location"])
     config["grid_world_size"] = tuple(config["grid_world_size"])
-    dev = resolve_device(device)
+    formed = False
+    if config["use_mesh"]:
+        from thr3ed_atom_tpu_torch.parallel.mesh import init_process_group, local_device
+
+        dev = local_device(device)
+        formed = init_process_group(device=dev)
+    else:
+        dev = resolve_device(device)
+    try:
+        return _train(config, dev)
+    finally:
+        if formed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(config, dev: torch.device) -> VolumetricModel:
     data_path = Path(config["data_path"])
     output_path = Path(config["output_path"])
     render_procedure = resolve_render_procedure(
         config["render_procedure"], config["sh_degree"], config["use_softplus_field"])
-    if config["use_mesh"]:
-        raise NotImplementedError("--use_mesh true: the device mesh is not ported "
-                                  "(ROADMAP.md, 'Modules to port', item 9: multi-GPU)")
+    import torch.distributed as dist
 
-    log.info("logging configuration file ...")
-    log_config_to_disk(config, output_path)
+    if not config["use_mesh"] or dist.get_rank() == 0:
+        log.info("logging configuration file ...")
+        log_config_to_disk(config, output_path)
 
     def dataset(images_dir, camera_params_json):
         return PosedImagesDataset(

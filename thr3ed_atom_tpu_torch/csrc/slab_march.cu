@@ -40,7 +40,7 @@ struct Params {
   const float* rays;   // [T, R, 48]
   const __nv_bfloat16* grid;  // [XG, U, V, 128]
   float* out;          // [T, R, 8]
-  int T, G, U, V;
+  int T, G, U, V, goff;
   float exit_eps;
 };
 
@@ -82,7 +82,7 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS) slab_march_kernel(Par
     for (int b = 0; b < GS; ++b) {
       // a dead sample adds zeros and leaves T; a warp whose samples are all
       // dead skips the step (uniform over the warp: the fold shuffles)
-      const LaneSample s = lane_sample<SlabGeom, Q::L>(ray, e, b, prm.U, prm.V, 0, g);
+      const LaneSample s = lane_sample<SlabGeom, Q::L>(ray, e, b, prm.U, prm.V, prm.goff, g);
       if (!__any_sync(FULL, s.live)) continue;
       float ch[Q::CPL];
       if (s.live) {
@@ -160,16 +160,18 @@ int occupancy(int R, int relu, int diffuse, int* regs_blocks) {
 
 }  // namespace
 
-// One launch: a block per tile (T), L lanes a ray (R = 64 or 256 rays).
-// ``reserved`` must be 0.
+// One launch: a block per tile (T), L lanes a ray (R = 64 or 256 rays). The
+// tables hold global group indices; ``group_offset`` rebases them onto the
+// grid operand (a depth segment's groups).
 extern "C" int slab_march_launch(const void* tables, const int* counts, const float* rays,
                                  const void* grid, float* out, int T, int G, int R, int XG,
                                  int U, int V, int ncoeff, int relu, int with_diffuse,
-                                 int reserved, float exit_eps, void* stream) {
+                                 int group_offset, float exit_eps, void* stream) {
   if (T <= 0) return 0;
-  if ((R != 64 && R != 256) || XG <= 0 || reserved != 0) return (int)cudaErrorInvalidValue;
+  if ((R != 64 && R != 256) || XG <= 0 || group_offset < 0) return (int)cudaErrorInvalidValue;
   Params prm{reinterpret_cast<const int4*>(tables), counts, rays,
-             reinterpret_cast<const __nv_bfloat16*>(grid), out, T, G, U, V, exit_eps};
+             reinterpret_cast<const __nv_bfloat16*>(grid), out, T, G, U, V, group_offset,
+             exit_eps};
   cudaStream_t s = (cudaStream_t)stream;
   switch (ncoeff) {
     case 1: return dispatch<1>(prm, T, R, relu, with_diffuse, s);

@@ -75,7 +75,7 @@ struct Params {
   // issue), global atomics issued (summed vertex quads and direct adds),
   // steps summed in shared memory, steps added directly
   unsigned long long* stats;
-  int G, U, V;
+  int G, U, V, goff;   // goff: the grid operand's first group (tables are global)
   int cells;           // cells of the buckets ([cells, BUCKET] ray ids)
   float exit_eps;
 };
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(256, 2) slab_march_backward_kernel(Params prm)
     e.load(prm.tables + (size_t)t * prm.G + i);
 #pragma unroll 1
     for (int b = 0; b < GS; ++b, ++step) {
-      const Sample s = sample<SlabGeom>(ray, e, b, prm.U, prm.V, 0);
+      const Sample s = sample<SlabGeom>(ray, e, b, prm.U, prm.V, prm.goff);
       bool adds = false;  // a nonzero tap and a nonzero channel cotangent
       if (s.live) {
         float d_int[NUSED];
@@ -288,7 +288,7 @@ __global__ void __launch_bounds__(256, 2) slab_march_backward_kernel(Params prm)
         }
         if (acc.x != 0.0f || acc.y != 0.0f || acc.z != 0.0f || acc.w != 0.0f) {
           float* dst = prm.dgrid +
-                       ((((size_t)e.xg * prm.U + e.u0 + u_lo + a) * prm.V + e.v0 + v_lo + c) *
+                       ((((size_t)(e.xg - prm.goff) * prm.U + e.u0 + u_lo + a) * prm.V + e.v0 + v_lo + c) *
                             LAN +
                         (size_t)b * LPS + 4 * g4);
           atomicAdd(reinterpret_cast<float4*>(dst), acc);
@@ -329,22 +329,24 @@ int dispatch(const Params& prm, int T, int R, size_t smem, int relu, int diffuse
 // against backward_smem_bytes); dgrid must hold zeros (or a cotangent to add
 // to). ``stats`` (null, or four uint64 the caller zeroed) gets the tap
 // products, the global atomics, and the steps summed in shared memory and
-// added directly.
+// added directly. ``group_offset`` rebases the tables' global group indices
+// onto the grid operand and its cotangent.
 extern "C" int slab_march_backward_launch(const void* tables, const int* counts,
                                           const float* rays, const void* grid,
                                           const float* fwd, const float* gout, float* dgrid,
                                           void* stats, int T, int G, int R, int XG, int U,
                                           int V, int ncoeff, int relu, int with_diffuse,
-                                          int cells, long long smem, float exit_eps,
-                                          void* stream) {
+                                          int group_offset, int cells, long long smem,
+                                          float exit_eps, void* stream) {
   if (T <= 0) return 0;
   const int ch = (3 * ncoeff + 1 + 3) / 4 * 4;
-  if ((R != 64 && R != 256) || XG <= 0 || cells < 1 ||
+  if ((R != 64 && R != 256) || XG <= 0 || group_offset < 0 || cells < 1 ||
       (size_t)smem != backward_smem_bytes(R, ch, cells) || (uintptr_t)dgrid % 16 != 0)
     return (int)cudaErrorInvalidValue;
   Params prm{reinterpret_cast<const int4*>(tables), counts, rays,
              reinterpret_cast<const __nv_bfloat16*>(grid), fwd, gout, dgrid,
-             reinterpret_cast<unsigned long long*>(stats), G, U, V, cells, exit_eps};
+             reinterpret_cast<unsigned long long*>(stats), G, U, V, group_offset, cells,
+             exit_eps};
   cudaStream_t s = (cudaStream_t)stream;
   switch (ncoeff) {
     case 1: return dispatch<1>(prm, T, R, (size_t)smem, relu, with_diffuse, s);

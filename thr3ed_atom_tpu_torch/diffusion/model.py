@@ -12,7 +12,7 @@ Checkpoints are the JAX package's: ``<path>.npz`` holds the flax parameter
 leaves ``param_i`` in ``jax.tree_util`` order, ``<path>.json`` the UNet and
 diffusion config and the normalization ranges; either package loads the
 other's. The scalar ``loss`` goes to ``tensorboard_logs/summaries.jsonl``
-(the port's stand-in for TensorBoard event files). The whole path runs in
+and to a TensorBoard event file beside it (utils/tensorboard.py). The whole path runs in
 true f32 (no TF32), as the JAX package's reference does.
 """
 from __future__ import annotations
@@ -401,7 +401,7 @@ class Thre3inFusionModel:
         tensorboard_dir = output_path / "tensorboard_logs"
         for directory in (model_dir, sample_dir, tensorboard_dir):
             directory.mkdir(parents=True, exist_ok=True)
-        summaries = SummaryLog(tensorboard_dir / "summaries.jsonl")
+        summaries = SummaryLog(tensorboard_dir / "summaries.jsonl", event_dir=tensorboard_dir)
 
         log.info("Training the 3inFusion model ...")
         for step in range(1, num_iters + 1):

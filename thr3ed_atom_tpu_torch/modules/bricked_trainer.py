@@ -17,8 +17,13 @@ entry gets no gradient, so an emptied region could never regrow).
 
 The step's random draws (tile origins and theta) come from one helper,
 ``draw_tiles``, that reads a ``torch.Generator``; a caller may pass the draws
-instead. The JAX package's mesh step is not ported (ROADMAP.md, 'Modules to
-port', item 9); the trainer refuses ``use_mesh``.
+instead.
+
+``bricked_train_step_mesh`` runs the step over a (``"data"`` tiles x
+``"model"`` depth segments) mesh of ``torch.distributed`` ranks: each rank
+marches its tiles through its segment of slab groups (K9 at the segment's
+``group_offset``), the segments are gathered without a gradient and composited
+front to back, and the gradient is all-reduced over the mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from thr3ed_atom_tpu_torch.models.voxels import VoxelGrid
 from thr3ed_atom_tpu_torch.ops.slab_march import slab_march
 from thr3ed_atom_tpu_torch.rendering.bricked import (
     BrickedStatics,
+    _slab_geometry,
     build_tables,
     compute_ray_features,
     occupancy_mip,
@@ -209,3 +215,134 @@ def bricked_train_step(statics: BrickedTrainStatics, optimizer: torch.optim.Opti
             scheduler.step()
     return {k: v.detach() for k, v in aux.items()}
 
+
+
+# ------------------------------------------------------------------ multi-device step
+#
+# Layout (the JAX package's): "data" splits the tiles; "model" splits the
+# march into DEPTH SEGMENTS of slab groups. Front-to-back compositing is
+# associative, (C1, T1) o (C2, T2) = (C1 + T1 C2, T1 T2), and the march's acc
+# output encodes T = 1 - acc, so each rank renders its contiguous group range
+# for its tiles and the segments combine after one all_gather over "model".
+
+
+def _combine_segments(parts) -> torch.Tensor:
+    """[T, R, 8] per-segment composites, front to back -> [T, R, 8]."""
+    out = parts[0]
+    for seg in parts[1:]:
+        t_front = 1.0 - out[..., 3:4]
+        out = torch.cat([out[..., 0:3] + t_front * seg[..., 0:3],
+                         out[..., 3:4] + t_front * seg[..., 3:4],
+                         out[..., 4:5] + t_front * seg[..., 4:5],
+                         out[..., 5:8] + t_front * seg[..., 5:8]], dim=-1)
+    return out
+
+
+def bricked_train_step_mesh(statics: BrickedTrainStatics, optimizer: torch.optim.Optimizer,
+                            mesh_shape: Tuple[int, int], grid: VoxelGrid,
+                            images: torch.Tensor, poses, pose_idx,
+                            generator: Optional[torch.Generator] = None, *,
+                            draws=None, scheduler=None) -> Dict[str, torch.Tensor]:
+    """``bricked_train_step`` over a ``mesh_shape`` = (data_parallel,
+    model_parallel) mesh of the first ranks of the default group (rank = d *
+    model_parallel + m). Every rank draws the same tiles and theta (``draws``,
+    else ``draw_tiles(generator, ...)``: the generators start alike) and
+    takes its data shard of the tiles; rank (d, m) marches them through the
+    slab groups [g0, g0 + G / model_parallel), g0 = m G / model_parallel, with
+    tables of global group indices (``build_tables(..., group_range=)``) and
+    K9 at ``group_offset`` g0, under a segment-local early exit at the
+    statics' ``exit_eps`` (a segment cannot see the transmittance in front of
+    it, but T = T_front T_local <= T_local, so the tail it drops is bounded by
+    eps as on one device; exit_eps = 0 makes the step exact). The segments
+    are all-gathered over "model" without a gradient and composited front to
+    back, this rank's segment being the live tensor and the others
+    constants, so each rank differentiates its own segment only. The grid
+    gradient is then all-reduced over the world (a rank outside the mesh
+    adds zeros), and every rank takes the same optimizer step. Returns
+    {"total_loss", "specular_psnr"} as the JAX package's mesh step."""
+    import torch.distributed as dist
+
+    from thr3ed_atom_tpu_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        all_reduce_,
+        make_grid_mesh,
+    )
+
+    _strict_f32()
+    data_parallel, model_parallel = (int(x) for x in mesh_shape)
+    mesh = make_grid_mesh(model_parallel, data_parallel * model_parallel)
+    bst = statics.bricked
+    num_groups = _slab_geometry(bst)[3]
+    if num_groups % model_parallel:
+        raise ValueError(f"slab groups ({num_groups}) must divide over model_parallel "
+                         f"({model_parallel})")
+    if statics.num_tiles % data_parallel:
+        raise ValueError(f"{statics.num_tiles} tiles do not divide over data_parallel "
+                         f"({data_parallel})")
+    seg_groups = num_groups // model_parallel
+    if draws is None:
+        draws = draw_tiles(generator, statics)
+    dev = grid.device
+    poses = torch.as_tensor(np.asarray(poses, np.float32) if not torch.is_tensor(poses)
+                            else poses).to(dev)
+    pose_idx = torch.as_tensor(np.asarray(pose_idx) if not torch.is_tensor(pose_idx)
+                               else pose_idx).to(dev)
+    ty, tx, theta = draws
+    n_total = float(statics.num_tiles * bst.tile_px ** 2 * 3)
+    optimizer.zero_grad(set_to_none=True)
+    with grid.trainable():
+        if mesh.is_member:
+            d, m = mesh.axis_index(DATA_AXIS), mesh.axis_index(MODEL_AXIS)
+            rays_o, rays_d, pixels = sample_tiles(statics, images, poses, pose_idx, ty, tx)
+            theta = torch.as_tensor(theta, dtype=F32, device=rays_o.device)
+            tiles = torch.tensor_split(torch.arange(statics.num_tiles, device=dev),
+                                       data_parallel)[d]
+            g0 = m * seg_groups
+            with torch.no_grad():
+                rays_feat = compute_ray_features(rays_o, rays_d, bst, theta)[tiles]
+                occ = occupancy_mip(grid, bst)[g0:g0 + seg_groups]
+                tables, counts, _ = build_tables(rays_feat, occ, bst,
+                                                 group_range=(g0, g0 + seg_groups))
+            pixels = pixels[tiles]
+            repacked = repack_slab_grid(grid, bst, theta)[g0:g0 + seg_groups]
+            out_local = slab_march(tables, counts, rays_feat, repacked, ncoeff=bst.ncoeff,
+                                   relu_sigma=bst.relu_sigma, exit_eps=bst.exit_eps,
+                                   with_diffuse=bst.with_diffuse, group_offset=g0)
+            parts = [torch.empty_like(out_local) for _ in range(model_parallel)]
+            dist.all_gather(parts, out_local.detach().contiguous(),
+                            group=mesh.group(MODEL_AXIS))
+            parts[m] = out_local
+            out = _combine_segments(parts)
+            colour, acc = out[..., 0:3], out[..., 3:4]
+            if statics.white_bkgd:
+                colour = colour + (1.0 - acc)
+            total = torch.sum(torch.abs(colour - pixels)) / n_total
+            sq_sum = torch.sum((colour - pixels) ** 2).detach()
+            if statics.apply_diffuse_render_regularization:
+                diffuse = out[..., 5:8]
+                if statics.white_bkgd:
+                    diffuse = diffuse + (1.0 - acc)
+                total = total + torch.sum(torch.abs(diffuse - pixels)) / n_total
+            # Each rank differentiates only its own segment (the others are
+            # gathered constants), so the sum over the mesh assembles the
+            # segments' cotangents once each. The JAX package differentiates
+            # through its all_gather, whose transpose sums model_parallel
+            # identical cotangents into every segment, and divides its psum
+            # by model_parallel; here no such factor arises.
+            total.backward()
+            sums = torch.stack([total.detach(), sq_sum])
+        else:
+            sums = torch.zeros(2, dtype=F32, device=dev)
+        for p in (grid.densities, grid.features):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_([grid.densities.grad, grid.features.grad, sums])
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+    # every "model" rank of a data row holds the same combined loss
+    sums = sums / torch.full((), float(model_parallel), dtype=F32, device=dev)
+    return {"total_loss": sums[0],
+            "specular_psnr": mse2psnr(sums[1] / torch.full((), n_total, dtype=F32,
+                                                           device=dev))}

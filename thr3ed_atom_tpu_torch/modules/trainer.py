@@ -26,10 +26,15 @@ view for every tile), summaries, feedback renders,
 held-out tests, checkpoints. Checkpoints and ``<ckpt>_opt.npz`` keep the JAX
 package's format (optax's state leaves ``leaf_0 .. leaf_5``), so either
 package resumes from the other's. Summaries are JSON lines in
-``training_logs/summaries.jsonl`` under the JAX package's scalar names.
+``training_logs/summaries.jsonl`` and a TensorBoard event file in
+``training_logs/tensorboard/`` under the JAX package's scalar names.
 
-Out of this module: the device mesh (``use_mesh`` raises
-NotImplementedError).
+``use_mesh`` trains over the ranks of a ``torch.distributed`` group, one
+process a device (parallel/mesh.py): the gnomonic steps pose-parallel
+(``gnomonic_train_step_mesh``), the bricked steps over tiles x depth
+segments (``bricked_train_step_mesh``), the ray batches data-parallel
+(``ray_batch_train_step`` with ``TrainStepStatics.use_mesh``, which also
+splits the grid's x axis over a "model" axis with ``model_parallel`` > 1).
 """
 from __future__ import annotations
 
@@ -120,6 +125,11 @@ class TrainStepStatics:
     focal: float
     ray_batch_size: int
     apply_diffuse_render_regularization: bool = True
+    # the rays split over a "data" mesh axis; with model_parallel > 1 each
+    # rank also keeps only its x slab of the grid (and of Adam's moments)
+    # over a "model" axis; model_parallel > 1 requires use_mesh
+    use_mesh: bool = False
+    model_parallel: int = 1
     render_procedure: str = "render_sh_voxel_grid_fast"
 
 
@@ -187,6 +197,67 @@ def rotate_f32(rotations: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def draw_render_draws(generator: torch.Generator, statics: TrainStepStatics,
+                      batch: int) -> Tuple[Dict[str, torch.Tensor], Optional[Dict]]:
+    """The renders' own draws for ``batch`` rays, drawn from ``generator`` in
+    the order the procedure draws them (the specular render's, then the exact
+    procedure's separate diffuse render's): the jitter's uniforms ``t_rand``
+    (hierarchical: the coarse ``t_rand`` and the fine ``u``) with
+    ``perturb_sampled_points``, and the density noise's normals ``noise``
+    with ``stochastic_density_noise_std`` > 0. Returns (specular, diffuse or
+    None); a mesh step draws the global batch's and shards them."""
+    from thr3ed_atom_tpu_torch.rendering.hierarchical import hierarchical_budget
+
+    cfg, dev = statics.render_config, generator.device
+    samples = cfg.num_samples_per_ray
+    hierarchical = statics.render_procedure == "render_sh_voxel_grid_hierarchical"
+
+    def one() -> Dict[str, torch.Tensor]:
+        out = {}
+        if hierarchical:
+            num_coarse, num_fine = hierarchical_budget(samples)
+            if cfg.perturb_sampled_points:
+                out["t_rand"] = torch.rand((batch, num_coarse), generator=generator,
+                                           device=dev)
+                out["u"] = torch.rand((batch, num_fine), generator=generator, device=dev)
+            shape = (batch, num_coarse + num_fine)
+        else:
+            if cfg.perturb_sampled_points:
+                out["t_rand"] = torch.rand((batch, samples), generator=generator, device=dev)
+            shape = (batch, samples)
+        if cfg.stochastic_density_noise_std > 0.0:
+            out["noise"] = torch.randn(shape, generator=generator, device=dev)
+        return out
+
+    specular = one()
+    separate = (statics.apply_diffuse_render_regularization
+                and statics.render_procedure == _EXACT)
+    return specular, (one() if separate else None)
+
+
+def _ray_batch_colours(statics: TrainStepStatics, grid: VoxelGrid, images: torch.Tensor,
+                       poses: torch.Tensor, draws: RayBatchDraws,
+                       generator: Optional[torch.Generator] = None):
+    """(pixels, specular colour, diffuse colour or None) of the batch of
+    ``draws``, differentiable in the grid (see ``ray_batch_loss``)."""
+    rays, pixels = sample_ray_pixel_batch(images, poses, statics, draws.img_idx,
+                                          draws.pix_idx)
+    procedure = get_render_procedure(statics.render_procedure)
+    fuse_diffuse = (statics.apply_diffuse_render_regularization
+                    and statics.render_procedure != _EXACT)
+    specular_config = statics.render_config.replace(also_render_diffuse=fuse_diffuse)
+    specular = procedure(grid, rays, specular_config, generator, **(draws.specular or {}))
+    diffuse_colour = None
+    if statics.apply_diffuse_render_regularization:
+        if fuse_diffuse:
+            diffuse_colour = specular.extra[EXTRA_DIFFUSE_COLOUR]
+        else:
+            diffuse_colour = procedure(grid, rays,
+                                       statics.render_config.replace(render_diffuse=True),
+                                       generator, **(draws.diffuse or {})).colour
+    return pixels, specular.colour, diffuse_colour
+
+
 def ray_batch_loss(statics: TrainStepStatics, grid: VoxelGrid, images: torch.Tensor,
                    poses: torch.Tensor, draws: RayBatchDraws,
                    generator: Optional[torch.Generator] = None):
@@ -197,24 +268,13 @@ def ray_batch_loss(statics: TrainStepStatics, grid: VoxelGrid, images: torch.Ten
     procedure, which has no such output and renders a second time with
     ``render_diffuse``. Returns (total, metrics: the losses and their
     MSE-based PSNRs)."""
-    rays, pixels = sample_ray_pixel_batch(images, poses, statics, draws.img_idx,
-                                          draws.pix_idx)
-    procedure = get_render_procedure(statics.render_procedure)
-    fuse_diffuse = (statics.apply_diffuse_render_regularization
-                    and statics.render_procedure != _EXACT)
-    specular_config = statics.render_config.replace(also_render_diffuse=fuse_diffuse)
-    specular = procedure(grid, rays, specular_config, generator, **(draws.specular or {}))
-    specular_loss = torch.mean(torch.abs(specular.colour - pixels))
+    pixels, specular_colour, diffuse_colour = _ray_batch_colours(
+        statics, grid, images, poses, draws, generator)
+    specular_loss = torch.mean(torch.abs(specular_colour - pixels))
     total = specular_loss
     aux = {"specular_loss": specular_loss,
-           "specular_psnr": mse2psnr(torch.mean((specular.colour - pixels) ** 2))}
-    if statics.apply_diffuse_render_regularization:
-        if fuse_diffuse:
-            diffuse_colour = specular.extra[EXTRA_DIFFUSE_COLOUR]
-        else:
-            diffuse_colour = procedure(grid, rays,
-                                       statics.render_config.replace(render_diffuse=True),
-                                       generator, **(draws.diffuse or {})).colour
+           "specular_psnr": mse2psnr(torch.mean((specular_colour - pixels) ** 2))}
+    if diffuse_colour is not None:
         diffuse_loss = torch.mean(torch.abs(diffuse_colour - pixels))
         total = total + diffuse_loss
         aux["diffuse_loss"] = diffuse_loss
@@ -232,8 +292,14 @@ def ray_batch_train_step(statics: TrainStepStatics, optimizer: torch.optim.Optim
     ``_train_step``): the objective's gradient with respect to the grid's
     densities and features, then ``optimizer.step()`` (and
     ``scheduler.step()``) in place. The batch is ``draws``, else
-    ``draw_ray_batch(generator, ...)``. Returns the metrics (0-d
-    tensors)."""
+    ``draw_ray_batch(generator, ...)``. With ``statics.use_mesh`` the step
+    runs over a mesh of the default group's ranks (``_ray_batch_train_step_mesh``).
+    Returns the metrics (0-d tensors)."""
+    if statics.use_mesh:
+        return _ray_batch_train_step_mesh(statics, optimizer, grid, images, poses, generator,
+                                          draws=draws, scheduler=scheduler)
+    if statics.model_parallel != 1:
+        raise ValueError(f"model_parallel {statics.model_parallel} needs use_mesh")
     _strict_f32()
     if draws is None:
         draws = draw_ray_batch(generator, statics, images.shape[0])
@@ -245,6 +311,82 @@ def ray_batch_train_step(statics: TrainStepStatics, optimizer: torch.optim.Optim
         if scheduler is not None:
             scheduler.step()
     return {k: v.detach() for k, v in aux.items()}
+
+
+def _ray_batch_train_step_mesh(statics: TrainStepStatics, optimizer: torch.optim.Optimizer,
+                               grid: VoxelGrid, images: torch.Tensor, poses: torch.Tensor,
+                               generator: Optional[torch.Generator] = None, *,
+                               draws: Optional[RayBatchDraws] = None, scheduler=None
+                               ) -> Dict[str, torch.Tensor]:
+    """``ray_batch_train_step`` over a mesh of the default group's ranks
+    (``statics.use_mesh``): ("data",) of every rank, or ("data", "model")
+    with ``statics.model_parallel`` > 1 (rank = d * model_parallel + m).
+    Every rank draws the same global batch (``draws``, else
+    ``draw_ray_batch`` and ``draw_render_draws`` from ``generator``: the
+    generators start alike) and takes its contiguous "data" shard. The loss
+    is the shard's sum over the global ray count, so the gradients summed
+    over "data" are the global mean's. With model_parallel 1, ``grid`` is
+    the replicated grid; with more, ``grid`` is this rank's x slab
+    (``parallel.mesh.shard_grid_spatial``: the optimizer holds the slab and
+    its moments), the forward all-gathers the slabs over "model" without a
+    gradient, and the reduced gradient of the whole grid is cut back to the
+    slab. Every rank then takes the same optimizer step on the same
+    gradient. Returns the global batch's metrics."""
+    from thr3ed_atom_tpu_torch.parallel import mesh as pm
+
+    _strict_f32()
+    mp = int(statics.model_parallel)
+    mesh = pm.make_grid_mesh(mp) if mp > 1 else pm.make_data_mesh()
+    if not mesh.is_member:
+        raise RuntimeError("ray_batch_train_step: this rank is outside the mesh")
+    if draws is None:
+        draws = draw_ray_batch(generator, statics, images.shape[0])
+        specular, diffuse = draw_render_draws(generator, statics, statics.ray_batch_size)
+        draws = draws._replace(specular=specular, diffuse=diffuse)
+    local = pm.shard_batch(mesh, draws)
+    batch = int(draws.img_idx.shape[0])
+    dev = grid.device
+    n_total = torch.full((), float(batch * 3), dtype=F32, device=dev)
+    optimizer.zero_grad(set_to_none=True)
+    if mp > 1:
+        full_x = grid.grid_dims[0] * mp
+        if any(s.shape[0] != grid.grid_dims[0]
+               for s in torch.tensor_split(torch.empty(full_x, 0), mp)):
+            raise ValueError("ray_batch_train_step: the grid's x extent must divide "
+                             f"over model_parallel {mp}")
+        target = pm.gather_grid_spatial(mesh, grid, full_x)
+    else:
+        target = grid
+    with target.trainable():
+        pixels, spec, dif = _ray_batch_colours(statics, target, images, poses, local,
+                                               generator)
+        sums = [torch.sum(torch.abs(spec - pixels)), torch.sum((spec - pixels) ** 2)]
+        if dif is not None:
+            sums += [torch.sum(torch.abs(dif - pixels)), torch.sum((dif - pixels) ** 2)]
+        total = sums[0] / n_total
+        if dif is not None:
+            total = total + sums[2] / n_total
+        total.backward()
+    grads = [target.densities.grad, target.features.grad]
+    stacked = torch.stack([x.detach() for x in sums])
+    pm.all_reduce_(grads + [stacked], group=mesh.group(pm.DATA_AXIS))
+    with grid.trainable():
+        if mp > 1:
+            m = mesh.axis_index(pm.MODEL_AXIS)
+            grid.densities.grad = torch.tensor_split(grads[0], mp)[m].clone()
+            grid.features.grad = torch.tensor_split(grads[1], mp)[m].clone()
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+    means = stacked / n_total
+    metrics = {"specular_loss": means[0], "specular_psnr": mse2psnr(means[1])}
+    total = means[0]
+    if dif is not None:
+        metrics["diffuse_loss"] = means[2]
+        metrics["diffuse_psnr"] = mse2psnr(means[3])
+        total = total + means[2]
+    metrics["total_loss"] = total
+    return metrics
 
 
 # --------------------------------------------------------------- optimizer checkpoints
@@ -337,20 +479,53 @@ def _set_schedule_count(optimizer, scheduler, count: int) -> None:
 
 
 class SummaryLog:
-    """Scalar summaries as JSON lines {"step", "name", "value"} (the port's
-    stand-in for TensorBoard event files; the names are the JAX package's)."""
+    """Scalar summaries as JSON lines {"step", "name", "value"} and, with
+    ``event_dir``, as a TensorBoard event file there (utils/tensorboard.py,
+    where the JAX package's tensorboardX SummaryWriter writes its own); the
+    names are the JAX package's."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, event_dir: Optional[Path] = None):
+        from thr3ed_atom_tpu_torch.utils.tensorboard import EventFileWriter
+
         self._path = Path(path)
         self._path.parent.mkdir(parents=True, exist_ok=True)
+        self._events = None if event_dir is None else EventFileWriter(event_dir)
 
     def add_scalar(self, name: str, value: float, global_step: int) -> None:
         with open(self._path, "a") as f:
             f.write(json.dumps({"step": int(global_step), "name": name,
                                 "value": float(value)}) + "\n")
+        if self._events is not None:
+            self._events.add_scalar(name, float(value), int(global_step))
 
 
 # ------------------------------------------------------------------------- procedure
+
+
+def _bricked_mesh_shape(b_statics, n_dev: int, model_parallel: int) -> Tuple[int, int]:
+    """(data_parallel, model_parallel) for bricked_train_step_mesh over n_dev
+    ranks (the JAX package's rule): tiles shard over "data", depth segments
+    over "model". Pure tile parallelism is preferred (depth segments forfeit
+    per-segment early exit and replicate the repack); an explicit
+    model_parallel > 1 request is honoured first when divisibility allows.
+    A shape may use fewer than n_dev ranks."""
+    from thr3ed_atom_tpu_torch.rendering.bricked import _slab_geometry
+
+    num_groups = _slab_geometry(b_statics.bricked)[3]
+    num_tiles = b_statics.num_tiles
+    if model_parallel > 1:
+        dp = n_dev // model_parallel
+        if dp >= 1 and num_groups % model_parallel == 0 and num_tiles % dp == 0:
+            return dp, model_parallel
+    # the most ranks; among equal totals the largest tile (data) axis
+    for total in range(n_dev, 1, -1):
+        for mp in range(1, total + 1):
+            if total % mp or num_groups % mp:
+                continue
+            dp = total // mp
+            if num_tiles % dp == 0:
+                return dp, mp
+    return 1, 1
 
 
 def _pose_buckets(poses_np: np.ndarray, height: int, width: int, focal: float,
@@ -396,6 +571,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     seed: int = 42,
     resume_from: Optional[Path] = None,
     gnomonic_poses_per_step: int = 0,
+    mesh_devices: int = 0,
 ) -> VolumetricModel:
     """Coarse-to-fine training loop: per stage a fresh Adam at the stage's
     learning rate with the in-stage staircase decay, whole-pose gnomonic steps,
@@ -405,7 +581,20 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
     ``seed`` drives the pose picker (numpy, as the JAX package) and a
     ``torch.Generator`` for the initial grid, the phase jitter, the bricked
     step's tiles and slab offset, and the ray batches and their renders'
-    jitter and noise."""
+    jitter and noise.
+
+    ``use_mesh`` trains over the ranks of the default process group (one
+    process a device; raises without one): the gnomonic procedure pose-
+    parallel over ``min(world, mesh_devices or world)`` ranks, each
+    accumulating ``ceil(floor / width)`` views so that a step still averages
+    at least ``_GN_MIN_POSES_PER_STEP`` of them (every rank draws the same
+    [width, k] views and phases and takes its row; ranks beyond the width add
+    zeros); the bricked procedure over a (tiles x depth segments) mesh
+    (``_bricked_mesh_shape``) when the world has more than one rank; the ray
+    batches data-parallel over every rank. Rank 0 broadcasts the initial
+    grid, every rank takes the same step, the replicas' bits are compared at
+    every summary, and only rank 0 writes checkpoints, logs, feedback images
+    and summaries."""
     from thr3ed_atom_tpu_torch.modules import bricked_trainer
     from thr3ed_atom_tpu_torch.modules.tester import (
         test_sh_vox_grid_vol_mod_with_posed_images,
@@ -423,18 +612,26 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
 
     bricked = vol_mod.render_procedure_name == _BRICKED
     ray_batch = vol_mod.render_procedure_name not in (_GNOMONIC, _BRICKED)
+    world, rank = 1, 0
     if use_mesh:
-        raise NotImplementedError(
-            "the device mesh (use_mesh) is not ported (ROADMAP.md, 'Modules to port', "
-            "item 9: multi-GPU)"
-        )
+        import torch.distributed as dist
+
+        from thr3ed_atom_tpu_torch.parallel.mesh import replicas_agree, replicate
+        from thr3ed_atom_tpu_torch.rendering.gnomonic_train import gnomonic_train_step_mesh
+
+        if not dist.is_initialized():
+            raise RuntimeError("use_mesh needs an initialized process group "
+                               "(parallel.mesh.init_process_group, or torchrun)")
+        world, rank = dist.get_world_size(), dist.get_rank()
+    writer = rank == 0
     dev = vol_mod.device
     output_dir = Path(output_dir)
     model_dir = output_dir / "saved_models"
     logs_dir = output_dir / "training_logs"
     render_dir = logs_dir / "rendered_output"
-    for directory in (model_dir, logs_dir, render_dir):
-        directory.mkdir(exist_ok=True, parents=True)
+    if writer:
+        for directory in (model_dir, logs_dir, render_dir):
+            directory.mkdir(exist_ok=True, parents=True)
 
     stagewise_voxel_grid_sizes = compute_thre3d_grid_sizes(
         final_required_resolution=vol_mod.thre3d_repr.grid_dims,
@@ -497,19 +694,24 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             for t in (small.densities, small.features):
                 t.copy_(torch.rand(t.shape, generator=generator, device=dev) * 2.0 - 1.0)
         vol_mod.thre3d_repr = small
+    if use_mesh:
+        # every rank starts from rank 0's grid (they draw it alike already)
+        replicate(None, vol_mod.thre3d_repr)
 
     # feedback pose: the first test (or train) image's pose
     feedback_dataset = test_dataset if test_dataset is not None else train_dataset
     if render_feedback_pose is None:
         pose0 = feedback_dataset.poses[0]
         render_feedback_pose = CameraPose(rotation=pose0[:, :3], translation=pose0[:, 3:])
-        write_png(render_dir / "1__real_log.png", to8b(feedback_dataset.images[0]))
+        if writer:
+            write_png(render_dir / "1__real_log.png", to8b(feedback_dataset.images[0]))
 
     camera_bounds = train_dataset.camera_bounds
     camera_intrinsics = train_dataset.camera_intrinsics
     dataset_size = len(train_dataset) * camera_intrinsics.height * camera_intrinsics.width
-    summaries = SummaryLog(logs_dir / "summaries.jsonl")
-    if not fast_debug_mode:
+    summaries = (SummaryLog(logs_dir / "summaries.jsonl", event_dir=logs_dir / "tensorboard")
+                 if writer else None)
+    if not fast_debug_mode and writer:
         visualize_camera_rays(train_dataset, output_dir, num_rays_per_image=1)
 
     log.info("beginning training")
@@ -551,6 +753,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
         pose_picker = np.random.default_rng(seed + stage)
         tstats = {}
         pose_rays = intr.height * intr.width
+        width = 1  # ranks of the gnomonic mesh
         if ray_batch:
             poses_per_step = 0
             poses_dev = torch.as_tensor(poses_np, dtype=torch.float32).to(dev)
@@ -558,22 +761,33 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 render_config=render_config, image_height=intr.height, image_width=intr.width,
                 focal=intr.focal, ray_batch_size=ray_batch_size,
                 apply_diffuse_render_regularization=apply_diffuse_render_regularization,
-                render_procedure=vol_mod.render_procedure_name)
+                use_mesh=use_mesh, render_procedure=vol_mod.render_procedure_name)
         elif bricked:
             poses_per_step = 1
             poses_dev = torch.as_tensor(poses_np, dtype=torch.float32).to(dev)
-        elif gnomonic_poses_per_step > 0:
-            poses_per_step = gnomonic_poses_per_step
         else:
-            poses_per_step = max(_GN_MIN_POSES_PER_STEP, round(ray_batch_size / pose_rays))
+            if gnomonic_poses_per_step > 0:
+                poses_per_step = gnomonic_poses_per_step
+            else:
+                poses_per_step = max(_GN_MIN_POSES_PER_STEP, round(ray_batch_size / pose_rays))
+            if use_mesh:
+                # the floor composes with the mesh width: each rank takes
+                # ceil(target / width) views, so a narrow mesh still averages
+                # at least the floor's distinct views a step
+                width = min(world, mesh_devices) if mesh_devices > 0 else world
+                poses_per_step = -(-poses_per_step // width)
+                if writer:
+                    log.info(f"gnomonic mesh training over {width} ranks "
+                             "(whole training views, pose-parallel)")
         rays_per_step = (ray_batch_size if bricked or ray_batch
-                         else pose_rays * poses_per_step)
-        if poses_per_step > 1:
+                         else pose_rays * poses_per_step * width)
+        if poses_per_step > 1 and writer:
             log.info(f"gnomonic whole-pose steps accumulate {poses_per_step} poses/step "
                      f"({pose_rays} rays/pose vs ray_batch_size {ray_batch_size})")
-        log.info(f"training stage: {stage}   voxel grid resolution: {grid.grid_dims} "
-                 f"training images resolution: [{intr.height} x {intr.width}]")
-        log.info(f"current stage learning rate: {current_stage_lr}")
+        if writer:
+            log.info(f"training stage: {stage}   voxel grid resolution: {grid.grid_dims} "
+                     f"training images resolution: [{intr.height} x {intr.width}]")
+            log.info(f"current stage learning rate: {current_stage_lr}")
 
         rays_meter = ThroughputMeter(window=8)
         steps_since_sync = 0
@@ -601,11 +815,16 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                         tile_px=render_config.bricked_tile_px,
                         axis_supersample=render_config.bricked_axis_supersample,
                     )
-                tile_pose_idx = np.asarray(
-                    pose_picker.choice(buckets[variant], size=tstat.num_tiles))
-                metrics = bricked_trainer.bricked_train_step(
-                    tstat, optimizer, grid, images, poses_dev,
-                    torch.as_tensor(tile_pose_idx).to(dev), generator, scheduler=scheduler)
+                tile_pose_idx = torch.as_tensor(np.asarray(
+                    pose_picker.choice(buckets[variant], size=tstat.num_tiles))).to(dev)
+                if use_mesh and world > 1:
+                    metrics = bricked_trainer.bricked_train_step_mesh(
+                        tstat, optimizer, _bricked_mesh_shape(tstat, world, 1), grid,
+                        images, poses_dev, tile_pose_idx, generator, scheduler=scheduler)
+                else:
+                    metrics = bricked_trainer.bricked_train_step(
+                        tstat, optimizer, grid, images, poses_dev, tile_pose_idx, generator,
+                        scheduler=scheduler)
             else:
                 if tstat is None:
                     tstat = tstats[variant] = make_gnomonic_train_statics(
@@ -623,7 +842,20 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                     )
                 bucket = buckets[variant]
                 gen = generator if jitter else None
-                if poses_per_step > 1:
+                if use_mesh:
+                    # the same [width, k] views and phases on every rank; each
+                    # takes its row (ranks beyond the width none)
+                    idx = np.asarray(pose_picker.choice(bucket, size=(width, poses_per_step)))
+                    phases = ([draw_phase(gen) for _ in range(width * poses_per_step)]
+                              if jitter else [None] * (width * poses_per_step))
+                    mine = idx[min(rank, width - 1)]
+                    metrics = gnomonic_train_step_mesh(
+                        tstat, optimizer, width, grid,
+                        images[torch.as_tensor(mine, device=dev)], poses_np[mine, :, :3],
+                        poses_np[mine, :, 3], intr.focal,
+                        phases=phases[rank * poses_per_step:(rank + 1) * poses_per_step],
+                        scheduler=scheduler)
+                elif poses_per_step > 1:
                     idx = np.asarray(pose_picker.choice(bucket, size=poses_per_step))
                     metrics = gnomonic_train_step_multi(
                         tstat, optimizer, grid, images[torch.as_tensor(idx, device=dev)],
@@ -639,7 +871,10 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             global_step = (stage - 1) * num_iterations_per_stage + stage_iteration
             is_edge = stage_iteration == 1 or stage_iteration == num_iterations_per_stage
 
-            if global_step % summary_freq == 0 or is_edge:
+            if use_mesh and (global_step % summary_freq == 0 or is_edge):
+                if not replicas_agree([grid.densities, grid.features]):
+                    raise RuntimeError(f"the ranks' grids differ after step {global_step}")
+            if (global_step % summary_freq == 0 or is_edge) and writer:
                 metrics_host = {k: float(v) for k, v in metrics.items()}  # syncs
                 rays_meter.tick(rays_per_step * steps_since_sync)
                 steps_since_sync = 0
@@ -653,7 +888,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
 
             time_spent_actually_training += time.perf_counter() - last_time
 
-            if (global_step % feedback_freq == 0 or is_edge) and not fast_debug_mode:
+            if (global_step % feedback_freq == 0 or is_edge) and not fast_debug_mode and writer:
                 log.info("TIME CHECK: time spent actually training till now: "
                          f"{timedelta(seconds=time_spent_actually_training)}")
                 visualize_sh_vox_grid_vol_mod_rendered_feedback(
@@ -668,7 +903,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                 )
                 vol_mod.drop_prepared_cache()
 
-            if (test_dataset is not None and not fast_debug_mode
+            if (test_dataset is not None and not fast_debug_mode and writer
                     and (global_step % test_freq == 0
                          or stage_iteration == num_iterations_per_stage)):
                 test_sh_vox_grid_vol_mod_with_posed_images(
@@ -676,7 +911,7 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                     tensorboard_writer=summaries, global_step=global_step)
                 vol_mod.drop_prepared_cache()
 
-            if global_step % save_freq == 0 or is_edge:
+            if (global_step % save_freq == 0 or is_edge) and writer:
                 ckpt_path = model_dir / f"model_stage_{stage}_iter_{global_step}"
                 vol_mod.save(ckpt_path, extra_info=extra_info)
                 save_optimizer_state(ckpt_path, optimizer, stage, stage_iteration)
@@ -688,7 +923,9 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
             vol_mod.thre3d_repr = scale_voxel_grid_with_required_output_size(
                 vol_mod.thre3d_repr, output_size=stagewise_voxel_grid_sizes[stage])
 
-    vol_mod.save(model_dir / "model_final", extra_info=extra_info)
-    log.info("Training complete")
-    log.info(f"Total actual training time: {timedelta(seconds=time_spent_actually_training)}")
+    if writer:
+        vol_mod.save(model_dir / "model_final", extra_info=extra_info)
+        log.info("Training complete")
+        log.info("Total actual training time: "
+                 f"{timedelta(seconds=time_spent_actually_training)}")
     return vol_mod

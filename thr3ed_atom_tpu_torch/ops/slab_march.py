@@ -101,7 +101,10 @@ class _Entry:
         (ku0, ku1), (wu0, wu1) = taps(u, patch[0])
         (kv0, kv1), (wv0, wv1) = taps(v, patch[1])
         wu0, wu1 = (torch.where(live, w, 0.0) for w in (wu0, wu1))
-        base = (((xg.long() - goff) * U + u0.long()) * V + v0.long())[:, None]
+        # a tile past its count may hold a padding entry (group 0) below the
+        # offset: its taps weigh nothing, its rows only need to be in range
+        base = ((((xg.long() - goff).clamp_min(0)) * U + u0.long()) * V
+                + v0.long())[:, None]
         rows, ws = [], []
         for ku, wu in ((ku0, wu0), (ku1, wu1)):
             for kv, wv in ((kv0, wv0), (kv1, wv1)):
@@ -150,7 +153,8 @@ def _shade(ch, rays, ncoeff: int, relu_sigma: bool):
 
 def slab_march_render_plain(tables, counts, rays, grid, *, ncoeff: int,
                             relu_sigma: bool = False, exit_eps: float = 1e-4,
-                            with_diffuse: bool = False, return_work: bool = False):
+                            with_diffuse: bool = False, group_offset: int = 0,
+                            return_work: bool = False):
     """Plain PyTorch version of the TPU kernel
     thr3ed_atom_tpu/ops/pallas/slab_march.py slab_march_render: every tile's
     march, entry by entry, vectorized over tiles and rays. Per entry and slab
@@ -159,7 +163,9 @@ def slab_march_render_plain(tables, counts, rays, grid, *, ncoeff: int,
     exact bf16 products sum in ascending patch row; the colour folds in
     ascending lane; per entry the slabs' contributions sum from zero and are
     then added to the state; a tile stops before an entry once its max
-    transmittance is at most ``exit_eps``. Returns [T, R, 8] f32: rgb, acc,
+    transmittance is at most ``exit_eps``. The tables hold global group
+    indices and ``grid`` the groups ``[group_offset, group_offset + XG)`` (a
+    depth segment of the grid). Returns [T, R, 8] f32: rgb, acc,
     depth, diffuse rgb (zero without ``with_diffuse``); with ``return_work``
     also the work the march did, (live samples marched, slab records read: a
     bool mask over the grid's [XG * U * V * GS] 32-lane blocks)."""
@@ -186,7 +192,8 @@ def slab_march_render_plain(tables, counts, rays, grid, *, ncoeff: int,
         acc = [zeros] * 8
         T_cur = trans
         for b in range(GS):
-            ent = _Entry(rays, xg, u0, v0, jlo, jhi, b, (XG, U, V), running)
+            ent = _Entry(rays, xg, u0, v0, jlo, jhi, b, (XG, U, V), running,
+                         goff=group_offset)
             if return_work:
                 n_samples += int(ent.live.sum())
                 touched[(ent.rows * GS + b)[ent.w > 0.0]] = True
@@ -211,7 +218,8 @@ def slab_march_render_plain(tables, counts, rays, grid, *, ncoeff: int,
 
 def slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
                           relu_sigma: bool = False, exit_eps: float = 1e-4,
-                          with_diffuse: bool = False) -> torch.Tensor:
+                          with_diffuse: bool = False, group_offset: int = 0
+                          ) -> torch.Tensor:
     """Plain PyTorch version of the TPU kernel
     thr3ed_atom_tpu/ops/pallas/slab_march.py _backward_impl: the replay VJP of
     the slab march with respect to the repacked grid. The march is replayed
@@ -222,7 +230,9 @@ def slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: 
     cuts or, identity, where sigma * delta < 0), the colour cotangents through
     the sigmoid and the SH basis, rounded to bf16, and their products with
     the taps' bf16 weights added into an f32 grid cotangent. Returns
-    [XG, U, V, 128] f32 (the caller casts to the grid's bf16, as JAX)."""
+    [XG, U, V, 128] f32 (the caller casts to the grid's bf16, as JAX), the
+    cotangent of the groups ``[group_offset, group_offset + XG)`` that
+    ``grid`` holds."""
     _check("slab_march_grad_plain", tables, counts, rays, grid, ncoeff)
     T, G, _ = tables.shape
     R = rays.shape[1]
@@ -245,7 +255,8 @@ def slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: 
             break
         xg, u0, v0, jlo, jhi = _entry_meta(tables, i)
         for b in range(GS):
-            ent = _Entry(rays, xg, u0, v0, jlo, jhi, b, (XG, U, V), running)
+            ent = _Entry(rays, xg, u0, v0, jlo, jhi, b, (XG, U, V), running,
+                         goff=group_offset)
             ch = _interp(grid_rows, ent, b, nused)
             rgb, dif, sigma_raw, sigma, alpha, _ = _shade(ch, rays, ncoeff, relu_sigma)
             delta = rays[..., L_DELTA]
@@ -307,16 +318,18 @@ def _cuda_operands(what, tables, counts, rays, grid, ncoeff, lan=LAN, patch=(PU,
 
 
 def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bool = False,
-                      exit_eps: float = 1e-4, with_diffuse: bool = False) -> torch.Tensor:
+                      exit_eps: float = 1e-4, with_diffuse: bool = False,
+                      group_offset: int = 0) -> torch.Tensor:
     """The slab-march render (K9): [T, R, 8] f32 from tables [T, G, 4] int32,
     counts [T, 1], rays [T, R, 48] f32 and the repacked grid
-    [XG, U, V, 128] bf16. On a CUDA tensor one launch of csrc/slab_march.cu
+    [XG, U, V, 128] bf16 (global group indices in the tables; ``grid``
+    holds the groups from ``group_offset`` on). On a CUDA tensor one launch of csrc/slab_march.cu
     (a block per tile, a group of lanes per ray: ``march_launch_shape``); on
     a CPU tensor ``slab_march_render_plain``."""
     if grid.device.type == "cpu":
         return slab_march_render_plain(tables, counts, rays, grid, ncoeff=ncoeff,
                                        relu_sigma=relu_sigma, exit_eps=exit_eps,
-                                       with_diffuse=with_diffuse)
+                                       with_diffuse=with_diffuse, group_offset=group_offset)
     (tab, cnt, rays, grid), dev = _cuda_operands("slab_march_render", tables, counts,
                                                  rays, grid, ncoeff)
     T, G, _ = tab.shape
@@ -324,8 +337,8 @@ def slab_march_render(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bo
     out = torch.empty((T, rays.shape[1], 8), dtype=F32, device=dev)
     err = _lib("slab_march", "slab_march_launch", 5, 10)(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), out.data_ptr(),
-        T, G, rays.shape[1], XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), 0,
-        float(exit_eps), kernels.stream(out))
+        T, G, rays.shape[1], XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse),
+        int(group_offset), float(exit_eps), kernels.stream(out))
     kernels.check(err, "slab_march")
     slab_march_render.launches += 1
     return out
@@ -394,9 +407,11 @@ def _grad_buffers(what, grid, lan, stats, dgrid):
 
 def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
                     relu_sigma: bool = False, exit_eps: float = 1e-4,
-                    with_diffuse: bool = False, stats=None, dgrid=None) -> torch.Tensor:
+                    with_diffuse: bool = False, group_offset: int = 0, stats=None,
+                    dgrid=None) -> torch.Tensor:
     """The replay VJP of the slab march (K10): the grid cotangent
-    [XG, U, V, 128] f32 (see ``slab_march_grad_plain``). On a CUDA tensor one
+    [XG, U, V, 128] f32 of the groups from ``group_offset`` on (see
+    ``slab_march_grad_plain``). On a CUDA tensor one
     launch of csrc/slab_march_backward.cu, which sums each step's tap
     products over the tile's rays by patch cell in shared memory and adds
     the sums into the cotangent with f32 atomics (tiles run in no order on
@@ -411,7 +426,8 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     if grid.device.type == "cpu":
         g = slab_march_grad_plain(tables, counts, rays, grid, fwd_out, gout,
                                   ncoeff=ncoeff, relu_sigma=relu_sigma,
-                                  exit_eps=exit_eps, with_diffuse=with_diffuse)
+                                  exit_eps=exit_eps, with_diffuse=with_diffuse,
+                                  group_offset=group_offset)
         return g if dgrid is None else dgrid.add_(g)
     (tab, cnt, rays, grid), dev = _cuda_operands("slab_march_grad", tables, counts, rays,
                                                  grid, ncoeff)
@@ -426,12 +442,12 @@ def slab_march_grad(tables, counts, rays, grid, fwd_out, gout, *, ncoeff: int,
     if dgrid is None:
         dgrid = torch.zeros((XG, U, V, LAN), dtype=F32, device=dev)
     err = kernels.bind("slab_march_backward", "slab_march_backward_launch",
-                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                        + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])(
         tab.data_ptr(), cnt.data_ptr(), rays.data_ptr(), grid.data_ptr(), fwd.data_ptr(),
         g.data_ptr(), dgrid.data_ptr(), None if stats is None else stats.data_ptr(),
-        T, G, R, XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), plan.cells,
-        plan.smem, float(exit_eps), kernels.stream(dgrid))
+        T, G, R, XG, U, V, ncoeff, int(relu_sigma), int(with_diffuse), int(group_offset),
+        plan.cells, plan.smem, float(exit_eps), kernels.stream(dgrid))
     kernels.check(err, "slab_march_backward")
     slab_march_grad.launches += 1
     return dgrid
@@ -446,9 +462,9 @@ class _SlabMarch(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tables, counts, rays, grid, ncoeff, relu_sigma, exit_eps,
-                with_diffuse, plain):
+                with_diffuse, group_offset, plain):
         kw = dict(ncoeff=ncoeff, relu_sigma=relu_sigma, exit_eps=exit_eps,
-                  with_diffuse=with_diffuse)
+                  with_diffuse=with_diffuse, group_offset=group_offset)
         out = (slab_march_render_plain if plain else slab_march_render)(
             tables, counts, rays, grid, **kw)
         ctx.save_for_backward(tables, counts, rays, grid, out)
@@ -461,14 +477,16 @@ class _SlabMarch(torch.autograd.Function):
         grad = slab_march_grad_plain if ctx.plain else slab_march_grad
         dgrid = grad(tables, counts, rays, grid, out, gout, **ctx.kw)
         # the reference's VJP returns the cotangent in the grid's dtype (bf16)
-        return (None, None, None, dgrid.to(grid.dtype)) + (None,) * 5
+        return (None, None, None, dgrid.to(grid.dtype)) + (None,) * 6
 
 
 def slab_march(tables, counts, rays, grid, *, ncoeff: int, relu_sigma: bool = False,
-               exit_eps: float = 1e-4, with_diffuse: bool = False,
+               exit_eps: float = 1e-4, with_diffuse: bool = False, group_offset: int = 0,
                plain: bool = False) -> torch.Tensor:
     """Differentiable slab-march render: gradients flow to ``grid`` (the
-    repacked bf16 slab grid) through the replay VJP (K10); ``plain`` runs both
-    directions through the plain versions."""
+    repacked bf16 slab grid, or a depth segment of it: the groups from
+    ``group_offset`` on, the tables' indices being global) through the replay
+    VJP (K10); ``plain`` runs both directions through the plain versions."""
     return _SlabMarch.apply(tables, counts, rays, grid, int(ncoeff), bool(relu_sigma),
-                            float(exit_eps), bool(with_diffuse), bool(plain))
+                            float(exit_eps), bool(with_diffuse), int(group_offset),
+                            bool(plain))

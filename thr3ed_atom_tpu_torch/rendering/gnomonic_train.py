@@ -28,8 +28,12 @@ with ``qb`` > 0 runs the same pipeline on a q-block grain (K6, K8: flags per
 [128, qb] texel block, the fold summed per q-block), as the JAX package's.
 
 The warp is either form (``warp_impl``: the scanline warp, or the gather
-warp, whose gradient is autograd's index-add) at order 1, 3 or 5. Out of
-this module (it raises NotImplementedError): the mesh step.
+warp, whose gradient is autograd's index-add) at order 1, 3 or 5.
+
+``gnomonic_train_step_mesh`` is the pose-parallel step over a
+``torch.distributed`` group (one process a device): each rank differentiates
+its own views, the gradient is all-reduced, and every rank takes the same
+Adam step.
 """
 from __future__ import annotations
 
@@ -938,9 +942,62 @@ def gnomonic_train_step_multi(tstat: GnomonicTrainStatics,
     return metrics
 
 
-def gnomonic_train_step_mesh(*args, **kwargs):
-    """The pose-parallel step over several devices is not ported yet."""
-    raise NotImplementedError(
-        "the multi-device gnomonic step is not ported yet (ROADMAP.md, "
-        "'Modules to port', item 9: multi-GPU)"
-    )
+def _metric_names(tstat: GnomonicTrainStatics) -> Tuple[str, ...]:
+    """The keys of a whole-pose step's metrics, in a fixed order."""
+    names = ["specular_loss", "specular_psnr"]
+    if tstat.apply_diffuse_render_regularization:
+        names += ["diffuse_loss", "diffuse_psnr"]
+    return tuple(names + ["total_loss"])
+
+
+def gnomonic_train_step_mesh(tstat: GnomonicTrainStatics,
+                             optimizer: torch.optim.Optimizer, n_dev: int,
+                             grid: VoxelGrid, images, rotations, origins, focal, *,
+                             phases=None, scheduler=None) -> Dict[str, torch.Tensor]:
+    """The pose-parallel step over ``n_dev`` ranks of the default group:
+    rank r < n_dev passes its own k views (``images`` [k, H, W, 3],
+    ``rotations`` [k, 3, 3], ``origins`` [k, 3], all of one march variant,
+    the same on every rank), accumulates their averaged gradient as
+    ``gnomonic_train_step_multi`` does (the hoisted repack), and the grid
+    gradient and the metrics are all-reduced and divided by n_dev, so one
+    step averages n_dev * k whole-pose gradients; then the same Adam step on
+    every rank, which keeps the replicated grids bit-identical. A rank at or
+    beyond n_dev (a mesh narrower than the world) adds zeros and is not
+    counted in the average. ``phases`` [k, 2] are this rank's phase jitter
+    (the trainer draws every rank's alike and hands each its own; the JAX
+    package folds its key with the rank); None renders without jitter.
+    Raises without a process group or when the world has fewer than n_dev
+    ranks. Returns the averaged metrics."""
+    import torch.distributed as dist
+
+    from thr3ed_atom_tpu_torch.parallel.mesh import all_reduce_
+
+    _strict_f32()
+    if not dist.is_initialized():
+        raise RuntimeError("gnomonic_train_step_mesh needs an initialized process group")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world < n_dev:
+        raise RuntimeError(f"gnomonic_train_step_mesh: {n_dev} ranks asked, the world has {world}")
+    active = rank < n_dev
+    if active and phases is None:
+        phases = [None] * len(images)
+    optimizer.zero_grad(set_to_none=True)
+    names = _metric_names(tstat)
+    with grid.trainable():
+        if active:
+            metrics = _multi_pose_grads(tstat, grid, images, rotations, origins, focal,
+                                        phases)
+        else:
+            metrics = {}
+        for p in (grid.densities, grid.features):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        zero = torch.zeros((), dtype=F32, device=grid.device)
+        stacked = torch.stack([metrics.get(name, zero).to(F32) for name in names])
+        all_reduce_([grid.densities.grad, grid.features.grad, stacked])
+        n = torch.full((), float(n_dev), dtype=F32, device=grid.device)
+        for p in (grid.densities, grid.features):
+            p.grad.div_(n)
+        stacked = stacked / n
+        _step(optimizer, scheduler)
+    return {name: stacked[i] for i, name in enumerate(names)}

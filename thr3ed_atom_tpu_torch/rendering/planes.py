@@ -21,9 +21,9 @@ Counterpart of thr3ed_atom_tpu/rendering/planes.py. Per pose:
      background and disparity.
 
 Flat ray batches through the procedure object go to the fast two-phase
-renderer (rendering/fast_renderer.py), as the JAX package routes them. The
-depth-segment restriction of the tables (``group_range`` of the JAX
-package's mesh path) is not ported.
+renderer (rendering/fast_renderer.py), as the JAX package routes them.
+``build_tables(..., group_range=(g0, g1))`` lists a depth segment's entries
+only (global group indices), for K11's ``group_offset``.
 """
 from __future__ import annotations
 
@@ -272,23 +272,29 @@ _MAX_ACTIVE = 7  # worst case: all single cells
 
 
 def build_tables(rays_feat: torch.Tensor, occ_dil: torch.Tensor, statics: PlanesStatics,
-                 exact_spans: bool = False):
+                 exact_spans: bool = False, group_range: Optional[Tuple[int, int]] = None):
     """Per-tile front-to-back traversal tables with overflow splitting:
-    (tables [T, 7 G, 4] int32 = (group, u0, v0, jlo * 256 + jhi), counts
-    [T, 1] int32, overflow: a 0-d bool tensor on the device, True only when
-    even a single cell's footprint exceeds the patch). ``exact_spans`` bounds
-    the footprints with every ray instead of the lattice. Entries sort by a
-    stable sort of the JAX package's keys, so the tables equal its tables."""
-    (_u_ax, _v_ax, _np, num_groups, u_real, v_real, u_pad, v_pad, _s) = _geometry(statics)
-    if occ_dil.shape[0] != num_groups:
-        raise ValueError(f"occupancy mip {tuple(occ_dil.shape)} for {num_groups} groups")
+    (tables [T, 7 G, 4] int32 = (global group, u0, v0, jlo * 256 + jhi),
+    counts [T, 1] int32, overflow: a 0-d bool tensor on the device, True only
+    when even a single cell's footprint exceeds the patch). ``exact_spans``
+    bounds the footprints with every ray instead of the lattice.
+    ``group_range`` = (g0, g1) restricts the tables to a depth segment:
+    ``occ_dil`` is the mip's slice of groups [g0, g1) and G = g1 - g0, the
+    entries keep global group indices. Entries sort by a stable sort of the
+    JAX package's keys, so the tables equal its tables."""
+    (_u_ax, _v_ax, _np, total_groups, u_real, v_real, u_pad, v_pad, _s) = _geometry(statics)
+    g0, g1 = (0, total_groups) if group_range is None else map(int, group_range)
+    num_groups = g1 - g0
+    if not 0 <= g0 < g1 <= total_groups or occ_dil.shape[0] != num_groups:
+        raise ValueError(f"occupancy mip {tuple(occ_dil.shape)} for groups [{g0}, {g1}) "
+                         f"of {total_groups}")
     dev = rays_feat.device
     sel = rays_feat if exact_spans else rays_feat[:, _lattice_indices(statics.tile_px), :]
     au, bu, av, bv = (sel[..., k][..., None, None] for k in range(4))
     jminf = sel[..., 6][..., None, None]
     jmaxf = sel[..., 7][..., None, None]
 
-    g_iota = torch.arange(num_groups, dtype=F32, device=dev)[None, None, :, None]
+    g_iota = (g0 + torch.arange(num_groups, dtype=F32, device=dev))[None, None, :, None]
     sub = torch.tensor(_SUB_RANGES, dtype=F32, device=dev)
     glo = g_iota * STRIDE + sub[None, None, None, :, 0]  # [1, 1, G, C]
     ghi = g_iota * STRIDE + sub[None, None, None, :, 1]
@@ -336,7 +342,7 @@ def build_tables(rays_feat: torch.Tensor, occ_dil: torch.Tensor, statics: Planes
     key = torch.where(active, g_idx.to(torch.int32) * 16 + order_off,
                       16 * num_groups + 15).reshape(num_tiles, cand)
     order = torch.sort(key, dim=-1, stable=True).indices[:, :_MAX_ACTIVE * num_groups]
-    g_col = g_idx.to(torch.int32).expand(num_tiles, num_groups, n_sub)
+    g_col = (g0 + g_idx.to(torch.int32)).expand(num_tiles, num_groups, n_sub)
     jpack = torch.tensor([lo * 256 + hi for (lo, hi) in _SUB_RANGES], dtype=torch.int32,
                          device=dev)[None, None, :].expand_as(g_col)
 

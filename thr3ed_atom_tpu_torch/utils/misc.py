@@ -1,5 +1,6 @@
 """Host-side utilities (counterpart of thr3ed_atom_tpu/utils/misc.py): the
-stage plan of the coarse-to-fine trainer and the run configuration on disk.
+stage plan of the coarse-to-fine trainer, the run configuration on disk, the
+power-of-2 check and the host-side chunked map ``batchify``.
 
 ``log_config_to_disk`` writes ``config.yml`` with a few-line emitter for the
 flat configuration dict (scalars, paths and sequences of scalars), so the port
@@ -18,6 +19,30 @@ from thr3ed_atom_tpu_torch.rendering.rays import (  # noqa: F401
     compute_expected_density_scale_for_relu_field_grid,
 )
 from thr3ed_atom_tpu_torch.utils.logging import log
+
+
+def check_power_of_2(x: int) -> bool:
+    return x != 0 and (x & (x - 1)) == 0
+
+
+def batchify(processor_fn, collate_fn, chunk_size, verbose: bool = False):
+    """Host-side chunked map: ``x`` in chunks of ``chunk_size`` through
+    ``processor_fn``, the results through ``collate_fn`` (one call of
+    ``processor_fn`` when ``chunk_size`` is None or ``x`` fits one chunk).
+    ``verbose`` logs each chunk's progress."""
+
+    def batchified(x):
+        if chunk_size is None or len(x) <= chunk_size:
+            return processor_fn(x)
+        starts = range(0, len(x), chunk_size)
+        results = []
+        for n, i in enumerate(starts):
+            if verbose:
+                log.info(f"batchify: chunk {n + 1} / {len(starts)}")
+            results.append(processor_fn(x[i: i + chunk_size]))
+        return collate_fn(results)
+
+    return batchified
 
 
 def compute_thre3d_grid_sizes(
