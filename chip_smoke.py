@@ -96,7 +96,10 @@ version on the card at the main paths' shapes:
        and gnomonic at P = 1, 2, 4, P = 2 with the gather warp and with warp
        order 5 in both forms, bricked at K = 1, 2, 4, each through
        VolumetricModel.render and gated on its PSNR against the exact
-       render; the exact render on the card against the CPU on a 64 x 64
+       render; through the port's tools/run_quality_gates, the bricked
+       occupancy skip against neither skip nor exit (> 60 dB) and gnomonic
+       P = 2 on the sharp (voxel-noise) scene against its own exact render
+       (> 30 dB); the exact render on the card against the CPU on a 64 x 64
        crop;
   22.  one gnomonic_train_step_multi through warp order 5 and one through
        the gather warp (phase 8's first step), each against its plain step;
@@ -154,9 +157,22 @@ version on the card at the main paths' shapes:
   32.  the training CLI with --use_mesh true at one rank (its own NCCL
        group), 2 stages of 4 steps on phase 12's dataset: every step went
        through gnomonic_train_step_mesh, K1-K4 counted.
+  33.  the training CLI's default recipe at full width: the port's
+       make_synthetic_dataset renders 20 + 4 views of 800 x 800 of a 128^3
+       blob scene at 1024 samples a ray, and main([...]) runs every
+       default (256^3 in four stages from 32^3, data halved, gnomonic with
+       qb = 128) but RECIPE_STEPS steps a stage and the save, test and
+       feedback frequencies: each stage's first step against the plain
+       versions' whole step (loss rtol 1e-5, gradient cosine > 0.99999),
+       the loss on its views falling by 1%, K1-K4 launched and K5-K8 not;
+       ms/step, peak memory, held-out PSNR, and the stage Stage::fit chose
+       for K1 and K3 with their direct tiles on one view; the checkpoints,
+       a --resume_from at stage 4 with its Adam moments (two finite
+       steps), and the render CLI on model_final with its checkpoint load,
+       render and GIF encoding timed apart.
 Phase 14 also holds K9 / K10 at group_offset > 0 (the second of two depth
 segments of the pose's slab groups) against their plain versions.
-The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21, 22, 29, 30 and 32, each
+The launch counts of phases 5, 8, 11, 12, 13, 15, 16, 18, 19, 20, 21, 22, 29, 30, 32 and 33, each
 reset just before its run, show the paths went through the kernels; one more
 pass of phases 5, 8, 15 and 18 under torch.profiler prints the device time
 and the device's busy share.
@@ -193,6 +209,11 @@ power limit; no kernel is held against its plain version in this mode.
 runs one full-width 3inFusion train step (the CLI's UNet, 112^3 crops of
 the 128^3 blob scene) at batch B and prints its peak memory or that it ran
 out of memory: how DIFF_BATCH was chosen.
+
+    python3 chip_smoke.py --full-recipe
+
+runs phase 33 alone after the build and prints its results as one JSON
+line.
 
     python3 chip_smoke.py --stripe-split
 
@@ -268,34 +289,13 @@ def check(cond, msg):
 
 
 def blob_scene(grid_size, seed=3, num_blobs=6):
-    """tools/make_synthetic_dataset.py make_blob_scene(converged=True): soft
-    density blobs with random colours and mild view dependence, empty space
-    at -1 under identity pre- / relu post-activation."""
-    rng = np.random.default_rng(seed)
-    coords = (
-        np.stack(np.meshgrid(*[np.arange(grid_size)] * 3, indexing="ij"), -1)
-        - (grid_size - 1) / 2
-    ) / grid_size
-    densities = np.zeros((grid_size,) * 3, dtype=np.float32)
-    features = np.zeros((grid_size,) * 3 + (27,), dtype=np.float32)
-    for _ in range(num_blobs):
-        center = rng.uniform(-0.28, 0.28, size=3)
-        radius = rng.uniform(0.08, 0.16)
-        colour = rng.uniform(-3.0, 3.0, size=3)
-        dist = np.linalg.norm(coords - center, axis=-1)
-        blob = np.exp(-((dist / radius) ** 2) * 4.0).astype(np.float32)
-        densities += 8.0 * blob
-        for channel in range(3):
-            features[..., channel * 9] += colour[channel] * blob
-            features[..., channel * 9 + 1: channel * 9 + 4] += (
-                rng.uniform(-0.5, 0.5, size=3).astype(np.float32) * blob[..., None]
-            )
-    densities = np.where(densities > 0.05, densities, -1.0).astype(np.float32)
-    config = dict(voxel_size=(3.0 / grid_size,) * 3, grid_location=(0.0, 0.0, 0.0),
-                  density_preactivation="identity", density_postactivation="relu",
-                  feature_preactivation="identity", feature_postactivation="identity",
-                  expected_density_scale=1.0, radiance_transfer_function=None)
-    return densities[..., None], features, config
+    """The port's make_synthetic_dataset blob scene, converged (the JAX
+    tool's arrays bit for bit): soft density blobs with random colours and
+    mild view dependence, empty space at -1 under identity pre- / relu
+    post-activation. Returns (densities, features, grid config)."""
+    from thr3ed_atom_tpu_torch.tools.make_synthetic_dataset import blob_scene_arrays
+
+    return blob_scene_arrays(grid_size, seed, num_blobs, converged=True)
 
 
 def time_ms(torch, fn, iters):
@@ -861,16 +861,9 @@ def check_stage_first_steps(torch, port, firsts, qb):
     bounds of phase 8); and the stage's progress on those views: their loss,
     evaluated alone before the first step (equal to the step's, rtol 1e-5)
     and after the stage's last step, falls by at least 1%."""
-    gt, trainer = port["gt"], port["trainer"]
     out = {}
     for dims, rec in sorted(firsts.items()):
-        d0, f0 = rec["start"]
-        g = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
-        opt, sched = trainer.make_gnomonic_optimizer(g, 0.03)
-        m = gt.gnomonic_train_step_multi(rec["tstat"], opt, g, *rec["views"][:4],
-                                         phases=rec["views"][4], scheduler=sched, plain=True)
-        plain_loss = float(m["total_loss"])
-        cos = [cosine(a, b) for a, b in zip(rec["grads"], (g.densities.grad, g.features.grad))]
+        plain_loss, cos = replay_first_step(torch, port, rec)
         check(abs(rec["loss"] - plain_loss) <= 1e-5 * plain_loss and min(cos) > 0.99999,
               f"CLI qb={qb}: stage {dims}^3 first step vs plain: loss {rec['loss']} vs "
               f"{plain_loss}, gradient cosines {cos}")
@@ -882,8 +875,23 @@ def check_stage_first_steps(torch, port, firsts, qb):
               f"{rec['loss_before']} -> {rec['loss_after']} after its last step")
         out[f"{dims}^3"] = dict(loss=rec["loss"], plain_loss=plain_loss, grad_cos=cos,
                                 loss_before=rec["loss_before"], loss_after=rec["loss_after"])
-        del g, opt, sched, m
     return out
+
+
+def replay_first_step(torch, port, rec):
+    """A recorded first step through the plain versions, on a copy of the
+    grid it started from (on the card), with its views and phases. Returns
+    the plain loss and the cosines of the recorded grid gradients against
+    the plain ones (densities, features)."""
+    d0, f0 = (t.to(rec.get("device", "cuda")) for t in rec["start"])
+    g = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
+    opt, sched = port["trainer"].make_gnomonic_optimizer(g, 0.03)
+    m = port["gt"].gnomonic_train_step_multi(rec["tstat"], opt, g, *rec["views"][:4],
+                                             phases=rec["views"][4], scheduler=sched,
+                                             plain=True)
+    cos = [cosine(a.to(b.device), b)
+           for a, b in zip(rec["grads"], (g.densities.grad, g.features.grad))]
+    return float(m["total_loss"]), cos
 
 
 def make_posed_dataset(torch, camera, png, model, root, views, size):
@@ -1126,8 +1134,23 @@ def check_bricked_first_steps(torch, port, original_step, firsts):
               f"{rec['loss_before']} -> {rec['loss_after']} after its last step")
         out[f"{dims}^3"] = dict(loss=rec["loss"], plain_loss=plain_loss, grad_cos=cos,
                                 loss_before=rec["loss_before"], loss_after=rec["loss_after"])
-        del g, opt, sched, m
     return out
+
+
+def replay_first_step(torch, port, rec):
+    """A recorded first step through the plain versions, on a copy of the
+    grid it started from (on the card), with its views and phases. Returns
+    the plain loss and the cosines of the recorded grid gradients against
+    the plain ones (densities, features)."""
+    d0, f0 = (t.to(rec.get("device", "cuda")) for t in rec["start"])
+    g = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
+    opt, sched = port["trainer"].make_gnomonic_optimizer(g, 0.03)
+    m = port["gt"].gnomonic_train_step_multi(rec["tstat"], opt, g, *rec["views"][:4],
+                                             phases=rec["views"][4], scheduler=sched,
+                                             plain=True)
+    cos = [cosine(a.to(b.device), b)
+           for a, b in zip(rec["grads"], (g.densities.grad, g.features.grad))]
+    return float(m["total_loss"]), cos
 
 
 class PlanesRun(NamedTuple):
@@ -1533,6 +1556,7 @@ def warp_options_phases(torch, port, workdir, *, scene, view, dev) -> dict:
     from thr3ed_atom_tpu_torch.modules import tester
     from thr3ed_atom_tpu_torch.rendering import rays as rays_mod
     from thr3ed_atom_tpu_torch.rendering.renderer import render_sh_voxel_grid
+    from thr3ed_atom_tpu_torch.tools import run_quality_gates as rqg
     from thr3ed_atom_tpu_torch.utils import lpips
 
     grid, config, intr = scene.grid, scene.config, scene.intr
@@ -1601,6 +1625,21 @@ def warp_options_phases(torch, port, workdir, *, scene, view, dev) -> dict:
     check(gates["gnomonic_P1"] < gates["gnomonic_P2"] < gates["gnomonic_P4"],
           f"gnomonic P ladder not monotone: {gates}")
     out["gates_db"] = gates
+    # the two gates of the reference's battery beyond the PSNR ladders, through
+    # the port's run_quality_gates: the bricked occupancy skip and early exit
+    # against neither (lossless), and gnomonic P = 2 on the sharp
+    # (voxel-noise) scene against its own exact render
+    t0 = time.perf_counter()
+    tool_gates = {
+        "bricked_occupancy_neutrality": rqg.occupancy_neutrality_db(grid, [gate_pose], intr, dev),
+        "gnomonic_P2_sharp_scene": rqg.sharp_scene_db(grid, [gate_pose], intr, dev),
+    }
+    print("# quality gates through tools/run_quality_gates (port): " + ", ".join(
+        f"{k_} {v:.2f} dB (gate {rqg.GATES[k_]})" for k_, v in tool_gates.items())
+        + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    failed = {k_: v for k_, v in tool_gates.items() if not v > rqg.GATES[k_]}
+    check(not failed, f"quality gates failed: {failed}")
+    out["tool_gates_db"] = tool_gates
 
     # the exact render on the card against the same function on the CPU, on
     # the central 64 x 64 crop (4096 rays)
@@ -2667,6 +2706,341 @@ def diffusion_phase(torch, port, workdir, *, dev) -> dict:
     return out
 
 
+# phase 33: the training CLI's default recipe at full width: every default of
+# apps/train_sh_voxel_grid.py (256^3 in 4 stages 32^3 -> 256^3, data halved,
+# gnomonic with qb = 128) on the dataset of the port's make_synthetic_dataset
+RECIPE_VIEWS, RECIPE_IMAGE = (20, 4), 800  # the tool's (train, test) views and pixels
+# experiments/run_canonical_256.sh's dataset: a 128^3 blob scene at 1024 samples a ray
+RECIPE_SCENE, RECIPE_GT_SAMPLES = 128, 1024
+RECIPE_STEPS = 6  # steps a stage (the CLI's 7000, cut)
+RECIPE_FRAMES = 5  # the render CLI's frames asked (the thre360 path drops the last)
+RECIPE_COUNTERS = ("composite_fused", "composite_backward_fused", "resample_rows",
+                   "resample_rows_adjoint", "composite_stripe", "composite_stripe_qb",
+                   "composite_stripe_backward", "composite_stripe_backward_qb")
+
+
+def recipe_counters(port):
+    gn, gt, wm = port["gn"], port["gt"], port["wm"]
+    fns = (gn.composite_positions_fused, gt.composite_backward_fused, wm.resample_rows,
+           wm.resample_rows_adjoint, gn.composite_positions, gn.composite_positions_qb,
+           gt.composite_backward, gt.composite_backward_qb)
+    return dict(zip(RECIPE_COUNTERS, fns))
+
+
+def adam_checksum(torch, optimizer):
+    """(step, f64 sums of Adam's two moments of each parameter): equal after a
+    save and a resume that restored the moments bit for bit."""
+    sums = []
+    step = None
+    for p in optimizer.param_groups[0]["params"]:
+        state = optimizer.state[p]
+        step = int(state["step"])
+        sums += [float(state[k].double().sum()) for k in ("exp_avg", "exp_avg_sq")]
+    return step, sums
+
+
+def recipe_recorder(torch, gt, original_step, counters, steps_per_stage):
+    """A stand-in for gnomonic_train_step_multi for phase 33. At each stage's
+    first step it closes the stage before (its peak memory and launches), keeps
+    the step's start grid (on the host), views, phases, loss and gradient (on
+    the host), evaluates the loss on those views alone, and resets the peak
+    memory; it times every step (CUDA synchronized), evaluates the first
+    step's views again after the stage's last step and keeps Adam's checksum
+    there. The evaluations' launches are not counted, and run before the
+    peak's reset or after the step."""
+    rec = dict(steps=[], firsts={}, launches={}, peak_gb={}, checksum={}, resumed=None)
+    stage = {"dims": None, "base": None}
+
+    def close():
+        if stage["dims"] is not None:
+            torch.cuda.synchronize()
+            rec["peak_gb"][stage["dims"]] = torch.cuda.max_memory_allocated() / 1e9
+            rec["launches"][stage["dims"]] = {n: c.launches - stage["base"][n]
+                                              for n, c in counters.items()}
+
+    def timed_step(tstat, optimizer, grid, images, rots, orgs, focal, generator=None,
+                   *, phases=None, **kw):
+        if phases is None:
+            phases = [None if generator is None else gt.draw_phase(generator)
+                      for _ in images]
+        dims = tstat.statics.dims[0]
+        first = dims not in rec["firsts"]
+        views = (images, rots, orgs, focal, phases)
+        if first:
+            close()
+            if rec["resumed"] is None:
+                rec["resumed"] = adam_checksum(torch, optimizer) if optimizer.state else ()
+            start = tuple(t.detach().to("cpu", copy=True) for t in (grid.densities,
+                                                                      grid.features))
+            loss_before = uncounted(counters, lambda: views_loss(torch, gt, tstat, grid, views))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            stage.update(dims=dims, base={n: c.launches for n, c in counters.items()})
+        torch.cuda.synchronize()
+        t_step = time.perf_counter()
+        m = original_step(tstat, optimizer, grid, images, rots, orgs, focal,
+                          phases=phases, **kw)
+        torch.cuda.synchronize()
+        rec["steps"].append((dims, tstat.fused, (time.perf_counter() - t_step) * 1e3,
+                             float(m["total_loss"])))
+        if first:
+            rec["firsts"][dims] = dict(
+                tstat=tstat, start=start, device=grid.device, voxel_size=grid.voxel_size,
+                config=grid.get_config_dict(), loss=rec["steps"][-1][3],
+                loss_before=loss_before, views=views,
+                grads=tuple(t.grad.to("cpu", copy=True) for t in (grid.densities,
+                                                                  grid.features)))
+        if sum(s_[0] == dims for s_ in rec["steps"]) == steps_per_stage:
+            first_rec = rec["firsts"][dims]
+            first_rec["loss_after"] = uncounted(counters, lambda: views_loss(
+                torch, gt, first_rec["tstat"], grid, first_rec["views"]))
+            rec["checksum"][dims] = adam_checksum(torch, optimizer)
+        return m
+
+    rec["close"] = close
+    return rec, timed_step
+
+
+def recipe_view_kernels(torch, port, rec):
+    """K1 (training branch) and K3 on the first view of a stage's recorded
+    first step, from the grid it started from, each counting its tiles that
+    gathered directly, beside the stage Stage::fit chose for each (K3 on a
+    seeded state cotangent)."""
+    gn, gt = port["gn"], port["gt"]
+    dev = rec["device"]
+    d0, f0 = (t.to(dev) for t in rec["start"])
+    grid = port["VoxelGrid"](d0, f0, voxel_size=rec["voxel_size"], **rec["config"])
+    tstat = rec["tstat"]
+    st = tstat.statics
+    Pn, Qn, PB, Pb = tstat.frame
+    _, rots, orgs, focal, phases = rec["views"]
+    slices = gn.repack_position_slices(grid, st, vertex_only=tstat.fused).to(torch.bfloat16)
+    geo = gn.gnomonic_geometry(gt._f32(rots[0], dev), gt._f32(orgs[0], dev), st,
+                               tstat.height, tstat.width, gt._f32(focal, dev),
+                               tstat.supersample, phase=phases[0], lite=tstat.fused,
+                               skip_basis=False)
+    occ = gn.gnomonic_occupancy_lite(slices, geo.geom, st, Pn, Qn, PB, Pb,
+                                     *gn._qb_blocks(st, Qn))
+    args = (slices, geo.ybasis, geo.norm, geo.geom, st, Pn, Qn, PB, Pb, occ)
+    direct = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2)]
+    state = gn.composite_positions_fused(*args, direct_tiles=direct[0])
+    gstate = torch.randn(state.shape, generator=torch.Generator(device=dev).manual_seed(7),
+                         device=dev)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    gt.composite_backward_fused(*args[:4], gaux, occ, *args[4:9], direct_tiles=direct[1])
+    TP, TQ = gn.CUDA_EXIT_TILE
+    return dict(P=st.pos_per_cell, positions=gn._num_positions(st), frame=(Pn, Qn),
+                tiles=(Pn // TP) * (Qn // TQ),
+                k1_stage=gn.composite_fused_stage(st, True),
+                k3_stage=gt.composite_backward_fused_stage(st),
+                k1_direct_tiles=int(direct[0].item()), k3_direct_tiles=int(direct[1].item()))
+
+
+def recipe_phase(torch, port, workdir, *, dev) -> dict:
+    """Phase 33: the training CLI's default recipe at full width. The
+    dataset: make_synthetic_dataset's main on the card (RECIPE_VIEWS views
+    of RECIPE_IMAGE pixels of a RECIPE_SCENE^3 blob scene at
+    RECIPE_GT_SAMPLES samples a ray). The run: the training CLI's main with
+    every default but -d, -o, RECIPE_STEPS steps a stage and the save, test
+    and feedback frequencies (each stage saves, tests and renders its
+    feedback; its edges do anyway). Per stage (32^3 .. 256^3): its first
+    step against the plain versions' whole step (phase 12's bounds); the
+    loss on its first step's views falling by 1%; K1-K4
+    launched, K5-K8 not; ms/step, peak GB, held-out PSNR, the stage
+    Stage::fit chose for K1 and K3 and their direct tiles. After: a finite
+    256^3 grid, the checkpoints, a resume at stage 4 with its Adam moments
+    (two finite steps), and the render CLI's GIF with its load / render /
+    encode split."""
+    from thr3ed_atom_tpu_torch.tools import make_synthetic_dataset as msd
+
+    gt, cli, rcli = port["gt"], port["cli"], port["rcli"]
+    t_phase = time.perf_counter()
+    free_gb = shutil.disk_usage(workdir).free / 1e9
+    # what earlier phases still hold: every stage's peak below includes it
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    data = workdir / "recipe_data"
+    t0 = time.perf_counter()
+    check(msd.main(["-o", str(data), "--num_train", str(RECIPE_VIEWS[0]), "--num_test",
+                    str(RECIPE_VIEWS[1]), "--image_size", str(RECIPE_IMAGE), "--grid_size",
+                    str(RECIPE_SCENE), "--gt_samples_per_ray", str(RECIPE_GT_SAMPLES)]) == 0,
+          "make_synthetic_dataset failed")
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    pngs = sorted(data.rglob("*.png"))
+    check(len(pngs) == sum(RECIPE_VIEWS) and (data / "ground_truth_grid.npz").exists(),
+          f"dataset: {len(pngs)} PNGs")
+    print(f"# recipe dataset: {len(pngs)} views of {RECIPE_IMAGE} x {RECIPE_IMAGE} "
+          f"({RECIPE_SCENE}^3 blob scene, {RECIPE_GT_SAMPLES} samples a ray, fast renderer) "
+          f"in {data_s:.1f} s; {free_gb:.1f} GB free on the work disk; {resident_gb:.2f} GB "
+          f"allocated on the card before the phase", flush=True)
+
+    counters = recipe_counters(port)
+    original_step = gt.gnomonic_train_step_multi
+    out_dir = workdir / "recipe_run"
+    freq = str(RECIPE_STEPS)
+    argv = ["-d", str(data), "-o", str(out_dir), "--num_iterations_per_stage", freq,
+            "--save_frequency", freq, "--test_frequency", freq, "--feedback_frequency", freq]
+    rec, timed_step = recipe_recorder(torch, gt, original_step, counters, RECIPE_STEPS)
+    for c in counters.values():
+        c.launches = 0
+    gt.gnomonic_train_step_multi = timed_step
+    t0 = time.perf_counter()
+    try:
+        trained = cli.main(argv)
+        rec["close"]()
+    finally:
+        gt.gnomonic_train_step_multi = original_step
+    wall = time.perf_counter() - t0
+    g = trained.thre3d_repr
+    defaults = cli.build_parser().parse_args(["-d", "", "-o", ""])
+    side, n_stages = defaults.grid_dims[0], defaults.num_stages
+    check(g.grid_dims == (side,) * 3
+          and all(bool(torch.isfinite(t).all()) for t in (g.densities, g.features)),
+          f"recipe: final grid {g.grid_dims}, or not finite")
+    del trained, g
+    stages = sorted(rec["firsts"])
+    check(stages == [side >> (n_stages - 1 - i) for i in range(n_stages)]
+          and len(rec["steps"]) == n_stages * RECIPE_STEPS
+          and all(fused for _, fused, _, _ in rec["steps"]),
+          f"recipe: steps {[(d, f) for d, f, _, _ in rec['steps']]}")
+    saved = out_dir / "saved_models"
+    for stage in range(1, n_stages + 1):
+        for it in ((stage - 1) * RECIPE_STEPS + 1, stage * RECIPE_STEPS):
+            stem = saved / f"model_stage_{stage}_iter_{it}"
+            for suffix in (".npz", ".json", "_opt.npz"):
+                check(Path(str(stem) + suffix).exists(), f"recipe: missing {stem}{suffix}")
+    check((saved / "model_final.npz").exists(), "recipe: missing model_final")
+    summaries = [json.loads(line) for line in
+                 (out_dir / "training_logs" / "summaries.jsonl").read_text().splitlines()]
+    test_psnr = {s["step"]: s["value"] for s in summaries if s["name"] == "TEST_SET_PSNR"}
+    check(sorted(test_psnr) == [RECIPE_STEPS * s for s in range(1, n_stages + 1)],
+          f"recipe: held-out tests at {sorted(test_psnr)}")
+    feedback = sorted((out_dir / "training_logs" / "rendered_output").glob("*.png"))
+    print(f"# recipe: {wall:.1f} s in main(); {len(feedback)} feedback images", flush=True)
+
+    per_stage = {}
+    for i, dims in enumerate(stages):
+        first = rec["firsts"][dims]
+        counts = rec["launches"][dims]
+        check(all(counts[k] > 0 for k in RECIPE_COUNTERS[:4])
+              and all(counts[k] == 0 for k in RECIPE_COUNTERS[4:]),
+              f"recipe {dims}^3: launches {counts}")
+        check(abs(first["loss_before"] - first["loss"]) <= 1e-5 * first["loss"],
+              f"recipe {dims}^3: views' loss {first['loss_before']} before the first step, "
+              f"the step's {first['loss']}")
+        check(first["loss_after"] <= 0.99 * first["loss_before"],
+              f"recipe {dims}^3: loss on its first step's views {first['loss_before']} -> "
+              f"{first['loss_after']} after its last step")
+        ms = [t for d, _, t, _ in rec["steps"] if d == dims]
+        row = dict(ms_per_step=float(np.mean(ms[1:])), first_step_ms=ms[0],
+                   peak_gb=rec["peak_gb"][dims], test_psnr=test_psnr[RECIPE_STEPS * (i + 1)],
+                   loss_before=first["loss_before"], loss_after=first["loss_after"],
+                   launches=counts, views_a_step=len(first["views"][4]),
+                   image=(first["tstat"].height, first["tstat"].width))
+        # the whole first step through the plain versions fits at every
+        # stage (256^3: ~9 s on an NVIDIA H100 80GB HBM3 at 700 W)
+        t0 = time.perf_counter()
+        plain_loss, cos = uncounted(counters, lambda: replay_first_step(torch, port, first))
+        check(abs(first["loss"] - plain_loss) <= 1e-5 * plain_loss and min(cos) > 0.99999,
+              f"recipe {dims}^3: first step vs plain: loss {first['loss']} vs "
+              f"{plain_loss}, gradient cosines {cos}")
+        row.update(plain_loss=plain_loss, grad_cos=cos, plain_s=time.perf_counter() - t0)
+        row["kernels_one_view"] = uncounted(counters, lambda: recipe_view_kernels(
+            torch, port, first))
+        torch.cuda.empty_cache()
+        per_stage[f"{dims}^3"] = row
+        print(f"# recipe stage {dims}^3 ({row['image'][0]} x {row['image'][1]}, "
+              f"{row['views_a_step']} views a step): {row['ms_per_step']:.3f} ms/step "
+              f"(steps 2-{RECIPE_STEPS}, CUDA synchronized; first {ms[0]:.1f}), peak "
+              f"{row['peak_gb']:.2f} GB, held-out PSNR {row['test_psnr']:.3f} dB, loss on the "
+              f"first step's views {first['loss_before']:.5f} -> {first['loss_after']:.5f}; "
+              f"whole first step vs plain ({row['plain_s']:.1f} s): loss {first['loss']} vs "
+              f"{plain_loss}, cosines {cos}; one view: {row['kernels_one_view']}; launches "
+              f"{counts}", flush=True)
+    # --resume_from the last stage-4 checkpoint with two more steps a stage:
+    # stage 4 from its iteration RECIPE_STEPS + 1 with the saved Adam moments
+    # (the other checkpoints, 5.6 GB at 256^3 with Adam's, make room first)
+    ckpt = saved / f"model_stage_{n_stages}_iter_{n_stages * RECIPE_STEPS}"
+    for path in saved.glob("model_stage_*"):
+        if not path.name.startswith(ckpt.name):
+            path.unlink()
+    res, timed_res = recipe_recorder(torch, gt, original_step, counters, RECIPE_STEPS + 2)
+    gt.gnomonic_train_step_multi = timed_res
+    t0 = time.perf_counter()
+    try:
+        resumed = cli.main(["-d", str(data), "-o", str(workdir / "recipe_resume"),
+                            "--num_iterations_per_stage", str(RECIPE_STEPS + 2),
+                            "--resume_from", str(ckpt)])
+        res["close"]()
+    finally:
+        gt.gnomonic_train_step_multi = original_step
+    resume_s = time.perf_counter() - t0
+    g = resumed.thre3d_repr
+    losses = [loss for _, _, _, loss in res["steps"]]
+    check([d for d, _, _, _ in res["steps"]] == [side, side]
+          and all(np.isfinite(losses)) and bool(torch.isfinite(g.features).all()),
+          f"recipe resume: steps {res['steps']}")
+    check(res["resumed"] == rec["checksum"][side],
+          f"recipe resume: Adam state {res['resumed']} at the resume, "
+          f"{rec['checksum'][side]} saved")
+    del resumed, g
+    shutil.rmtree(workdir / "recipe_resume")
+    print(f"# recipe resume from {ckpt.name}: stage {n_stages} at iteration "
+          f"{RECIPE_STEPS + 1}, Adam "
+          f"step {res['resumed'][0]} and moments as saved; losses {losses}; {resume_s:.1f} s "
+          f"in main()", flush=True)
+
+    # the render CLI on model_final: the checkpoint load, the render and the
+    # GIF's encoding timed apart (host clock, synchronized)
+    split = {}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            split[name] = time.perf_counter() - t
+            return r
+        return call
+
+    parts = {"load_s": "create_volumetric_model_from_saved_model",
+             "render_s": "render_camera_path_for_volumetric_model", "encode_s": "write_video"}
+    originals = {attr: getattr(rcli, attr) for attr in parts.values()}
+    for name, attr in parts.items():
+        setattr(rcli, attr, timed(name, originals[attr]))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    try:
+        gif_path = rcli.main(["-i", str(saved / "model_final.json"), "-o",
+                              str(workdir / "recipe_render"), "--num_frames",
+                              str(RECIPE_FRAMES)])
+    finally:
+        for attr, fn in originals.items():
+            setattr(rcli, attr, fn)
+    render_wall = time.perf_counter() - t0
+    render_launches = {n: c.launches for n, c in counters.items()}
+    gif_w, gif_h, gif_n = gif_frames(gif_path.read_bytes())
+    frame = RECIPE_IMAGE  # the CLI's training frame (halved data) at the render scale 2
+    check((gif_w, gif_h, gif_n) == (3 * frame, frame, RECIPE_FRAMES - 1)
+          and render_launches["composite_fused"] > 0 and render_launches["resample_rows"] > 0,
+          f"recipe render CLI: GIF {gif_w} x {gif_h}, {gif_n} frames; launches "
+          f"{render_launches}")
+    print(f"# recipe render CLI (model_final {side}^3, {gif_n} frames of {frame} x {frame}): "
+          f"{render_wall:.2f} s in main(): load {split['load_s']:.2f} s, render "
+          f"{split['render_s']:.2f} s, GIF encoding {split['encode_s']:.2f} s; "
+          f"{gif_path.stat().st_size} bytes; launches {render_launches}", flush=True)
+    shutil.rmtree(out_dir)
+    phase_s = time.perf_counter() - t_phase
+    print(f"# recipe (phase 33): {phase_s:.1f} s", flush=True)
+    return dict(stages=per_stage, resident_gb=resident_gb, dataset_s=data_s, wall_s=wall,
+                resume_s=resume_s,
+                render_cli=dict(wall_s=render_wall, **split, launches=render_launches),
+                phase_s=phase_s,
+                launches={k: sum(r["launches"][k] for r in per_stage.values())
+                          for k in RECIPE_COUNTERS})
+
+
 def diffusion_batch_probe(torch, batch: int) -> int:
     """``--diffusion-batch B``: one full-width 3inFusion train step (the
     CLI's UNet and diffusion, 112^3 crops of the 128^3 blob scene's
@@ -2709,10 +3083,10 @@ def main() -> int:
     import torch
 
     args = sys.argv[1:]
-    if args and args != ["--stripe-split"] and (
+    if args and args not in (["--stripe-split"], ["--full-recipe"]) and (
             len(args) != 2 or args[0] not in ("--readings", "--diffusion-batch")):
         print("usage: python3 chip_smoke.py [--readings PORT_ROOT | --stripe-split | "
-              "--diffusion-batch B]", file=sys.stderr)
+              "--diffusion-batch B | --full-recipe]", file=sys.stderr)
         return 2
     root = Path(args[1]).resolve() if args[:1] == ["--readings"] else REPO
     if not torch.cuda.is_available():
@@ -2731,13 +3105,29 @@ def main() -> int:
     if args[:1] == ["--diffusion-batch"]:
         load_port()
         return diffusion_batch_probe(torch, int(args[1]))
-    if args:
+    if args[:1] == ["--readings"]:
         return readings(torch)
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
+        if args == ["--full-recipe"]:
+            return full_recipe(torch, workdir)
         return run(torch, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+
+
+def full_recipe(torch, workdir: Path) -> int:
+    """Phase 33 alone, after the build, in a process of its own."""
+    port = load_port()
+    print(card_line())
+    print(f"# torch device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    port["kernels"].build_all()
+    print(f"# build in {time.perf_counter() - t0:.1f} s", flush=True)
+    recipe = recipe_phase(torch, port, workdir, dev=torch.device("cuda"))
+    print(json.dumps({"full_recipe": recipe}, default=str))
+    return 0
 
 
 def card_line():
@@ -4156,6 +4546,7 @@ def run(torch, workdir: Path) -> int:
     ray_paths = ray_batch_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     mesh_paths = mesh_phases(torch, port, workdir, scene=scene, dev=dev, view=view)
     diffusion = diffusion_phase(torch, port, workdir, dev=dev)
+    recipe = recipe_phase(torch, port, workdir, dev=dev)
     results["composite_stripe_qb"] = dict(
         err=k6_err, ms=k6_ms, plain_ms=k6_plain_ms, bound=bound(k6_bytes, k6_ops),
         extra=dict(training_operands_ms=k6t_ms))
@@ -4269,6 +4660,8 @@ def run(torch, workdir: Path) -> int:
             rows[-1]["launches_serving_qb0_phase11"] = launches11["composite_stripe"]
         if name in mesh_paths["cli"]["launches"]:
             rows[-1]["launches_cli_use_mesh_phase32"] = mesh_paths["cli"]["launches"][name]
+        if name in recipe["launches"]:
+            rows[-1]["launches_full_recipe_phase33"] = recipe["launches"][name]
         if name in diffusion["sampling"]["launches"]:
             rows[-1]["launches_diffusion_mosaic_phase29"] = (
                 diffusion["sampling"]["launches"][name])
@@ -4278,7 +4671,8 @@ def run(torch, workdir: Path) -> int:
           f"CLI ms/step qb=128 {cli_runs[128]['ms_per_step']}, qb=0 "
           f"{cli_runs[0]['ms_per_step']}, bricked {ms_step_b}; render CLI {wall19:.2f} s; "
           f"exact render {new_paths['timings']['exact_render_ms_pose']:.1f} ms/pose; quality "
-          f"gates {new_paths['gates_db']}; fast renderer gates {ray_paths['gates_db']}; "
+          f"gates {new_paths['gates_db']} {new_paths['tool_gates_db']}; fast renderer gates "
+          f"{ray_paths['gates_db']}; "
           f"full-width ray-batch step {ray_paths['full_width']['ms_per_step']:.3f} ms "
           f"(peak {ray_paths['full_width']['peak_gb']:.2f} GB); 3inFusion step "
           f"{diffusion['full_width']['ms_per_step']:.1f} ms at batch {DIFF_BATCH} (peak "
@@ -4286,7 +4680,12 @@ def run(torch, workdir: Path) -> int:
           f"{diffusion['sampling']['ms_per_reverse_step']:.2f} ms; mesh steps (gloo, 2 ranks "
           f"on one card, ms per rank) "
           f"{ {k_: v['ms'] for k_, v in mesh_paths['gloo_two_ranks'].items() if k_ != 'wall_s'} }"
-          f"; total "
+          f"; full recipe ms/step "
+          f"{ {k_: round(v['ms_per_step'], 3) for k_, v in recipe['stages'].items()} }, peak GB "
+          f"{ {k_: round(v['peak_gb'], 2) for k_, v in recipe['stages'].items()} } ("
+          f"{recipe['resident_gb']:.2f} held before the phase), "
+          f"held-out PSNR "
+          f"{ {k_: round(v['test_psnr'], 3) for k_, v in recipe['stages'].items()} }; total "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

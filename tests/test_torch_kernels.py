@@ -135,7 +135,8 @@ def test_port_imports_no_jax():
                  "rendering.rays", "rendering.sample", "rendering.process",
                  "rendering.accumulate", "ops.grid_sample", "diffusion.unet",
                  "diffusion.gaussian_diffusion", "diffusion.model",
-                 "apps.train_thre3infusion"):
+                 "apps.train_thre3infusion", "tools.make_synthetic_dataset",
+                 "tools.run_quality_gates", "tools.run_gate_battery"):
         assert f"thr3ed_atom_tpu_torch.{name}" in modules
 
 
@@ -156,6 +157,8 @@ def test_port_sources_import_no_forbidden_packages():
 
     files = sorted((REPO / "thr3ed_atom_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert REPO / "thr3ed_atom_tpu_torch" / "apps" / "train_sh_voxel_grid.py" in files
+    for tool in ("make_synthetic_dataset", "run_quality_gates", "run_gate_battery"):
+        assert REPO / "thr3ed_atom_tpu_torch" / "tools" / f"{tool}.py" in files
     never = {"jax", "jaxlib", "flax", "optax", "thr3ed_atom_tpu"}
     bad, optional = [], []
     for path in files:
@@ -185,7 +188,9 @@ def test_port_sources_import_no_forbidden_packages():
 
 
 def test_entry_points_default_to_cuda():
-    """``device=None`` resolves to the CUDA card; nothing falls back to the CPU."""
+    """``device=None`` resolves to the CUDA card; nothing falls back to the
+    CPU. The tools' functions too (their ``main`` refuses without a card:
+    tests/test_torch_tools.py)."""
     import inspect
 
     from thr3ed_atom_tpu_torch.models.voxels import voxel_grid_from_numpy
@@ -196,12 +201,17 @@ def test_entry_points_default_to_cuda():
 
     from thr3ed_atom_tpu_torch.apps import train_thre3infusion
     from thr3ed_atom_tpu_torch.diffusion.model import Thre3inFusionModel
+    from thr3ed_atom_tpu_torch.tools import make_synthetic_dataset as msd
+    from thr3ed_atom_tpu_torch.tools import run_gate_battery as rgb
+    from thr3ed_atom_tpu_torch.tools import run_quality_gates as rqg
 
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
     for fn in (VolumetricModel.__init__, create_volumetric_model_from_saved_model,
                voxel_grid_from_numpy, Thre3inFusionModel.__init__,
-               train_thre3infusion.main):
+               train_thre3infusion.main, msd.main, msd.make_blob_scene,
+               rqg.run_gates, rqg.render, rqg.occupancy_neutrality_db, rqg.sharp_scene_db,
+               rgb.run_battery):
         assert inspect.signature(fn).parameters["device"].default is None
 
 
@@ -653,6 +663,69 @@ def test_fused_kernels_on_staged_footprints(cuda, view, P):
         assert min(counts.values()) > 0, counts
     else:
         assert max(counts.values()) == 0, counts
+
+
+@pytest.mark.gpu
+def test_fused_kernels_at_full_width(cuda):
+    """K1 (training branch) and K3 at the training CLI's final stage: a 256^3
+    carved relu scene (SH degree 2) at the automatic P (1 at 256^3), one
+    400 x 400 view at focal 440 (the CLI's halved NeRF-synthetic frame),
+    diffuse on, exit 0, on the stage Stage::fit picks for that march (a
+    real stage: records and lines > 0), at the staged footprints'
+    tolerances: K1 1e-4 a row, 1e-3 depth; K3 max-abs <= 1e-2 of the
+    largest element, cosine > 0.99999, pad channels zero."""
+    size, side, focal = 256, 400, 440.0
+    rng = np.random.default_rng(3)
+    densities = rng.uniform(-2.0, 4.0, (size,) * 3 + (1,)).astype(np.float32)
+    coords = (np.arange(size, dtype=np.float32) - (size - 1) / 2) ** 2
+    dist2 = coords[:, None, None] + coords[None, :, None] + coords[None, None, :]
+    densities[dist2 >= (size / 4) ** 2] = -1.0
+    features = rng.standard_normal((size,) * 3 + (27,), dtype=np.float32) * np.float32(0.4)
+    config = dict(voxel_size=(3.0 / size,) * 3, grid_location=(0.0, 0.0, 0.0),
+                  density_preactivation="identity", density_postactivation="relu",
+                  feature_preactivation="identity", feature_postactivation="identity",
+                  expected_density_scale=1.0, radiance_transfer_function=None)
+    grid = voxel_grid_from_numpy(densities, features, config, device=cuda)
+    del densities, features
+    pose = pose_spherical(140.0, -30.0, 4.0)
+    rot = np.asarray(pose.rotation, np.float32).reshape(3, 3)
+    org = np.asarray(pose.translation, np.float32).reshape(3)
+    axis, flip = gn.dominant_axis_for_pose(rot)
+    tstat = gt.make_gnomonic_train_statics(grid, axis, flip, image_height=side,
+                                           image_width=side, white_bkgd=True,
+                                           apply_diffuse_render_regularization=True)
+    st = tstat.statics
+    assert st.pos_per_cell == 1 and tstat.fused
+    Pn, Qn, PB, Pb = tstat.frame
+    slices = gn.repack_position_slices(grid, st, vertex_only=True)
+    geo = gn.gnomonic_geometry(torch.from_numpy(rot).to(cuda), torch.from_numpy(org).to(cuda),
+                               st, side, side, torch.tensor(focal, device=cuda),
+                               tstat.supersample, phase=(0.25, -0.125), lite=True,
+                               skip_basis=False)
+    occ = gn.gnomonic_occupancy_lite(slices, geo.geom, st, Pn, Qn, PB, Pb,
+                                     *gn._qb_blocks(st, Qn))
+    assert bool(occ[1].any())
+    for recs, lines in (gn.composite_fused_stage(st, True), gt.composite_backward_fused_stage(st)):
+        assert recs > 0 and lines > 0, (recs, lines)
+    args = (slices, geo.ybasis, geo.norm, geo.geom, st, Pn, Qn, PB, Pb, occ)
+    got = gn.composite_positions_fused(*args)
+    torch.cuda.synchronize()
+    state = gn.composite_positions_fused_plain(*args)
+    gap = (got - state).abs().amax(dim=(1, 2)).cpu().numpy()
+    assert gap[:5].max() < 1e-4 and gap[5] < 1e-3 and gap[6:].max() < 1e-4, gap
+    del got
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    gstate = torch.randn(state.shape, generator=gen, device=cuda)
+    gaux = torch.cat([gstate, (gstate[1:] * state[1:]).sum(0)[None], state[0:1]])
+    bwd = (slices, geo.ybasis, geo.norm, geo.geom, gaux, occ, st, Pn, Qn, PB, Pb)
+    got = gt.composite_backward_fused(*bwd)
+    torch.cuda.synchronize()
+    want = gt.composite_backward_fused_plain(*bwd)
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert scale > 0.0 and err <= 1e-2 * scale, (err, scale)
+    assert _cosine(got.float(), want.float()) > 0.99999
+    assert not got[:, :, 3 * st.ncoeff + 1:].any()
 
 
 @pytest.mark.gpu

@@ -366,11 +366,17 @@ __global__ void __launch_bounds__(UF_WARPS * 32) ufold_kernel(UFoldParams prm) {
   }
 }
 
+// The stage a march of NP positions takes: what its tables and v-fold
+// scratch leave of the block's opt-in shared memory (Stage::fit).
+template <int NCOEFF>
+StageSize fitted_stage(int NP) {
+  return Stage<NCOEFF>::fit((long long)smem_optin() - (long long)march_rest_bytes<NCOEFF>(NP));
+}
+
 template <int NCOEFF, bool DIFFUSE, bool RELU>
 int launch_march(MarchParams prm, cudaStream_t stream) {
-  const size_t rest = march_rest_bytes<NCOEFF>(prm.NP);
-  prm.stage = Stage<NCOEFF>::fit((long long)smem_optin() - (long long)rest);
-  const size_t smem = Stage<NCOEFF>::bytes(prm.stage) + rest;
+  prm.stage = fitted_stage<NCOEFF>(prm.NP);
+  const size_t smem = Stage<NCOEFF>::bytes(prm.stage) + march_rest_bytes<NCOEFF>(prm.NP);
   auto kern = backward_march_kernel<NCOEFF, DIFFUSE, RELU>;
   static size_t smem_allowed[16] = {};
   const cudaError_t e = allow_smem(kern, smem, smem_allowed);
@@ -428,4 +434,20 @@ extern "C" int composite_backward_fused_launch(
   const dim3 grid((nu + UF_M - 1) / UF_M, NP);
   ufold_kernel<<<grid, UF_WARPS * 32, smem, s>>>(fp);
   return (int)cudaGetLastError();
+}
+
+// The stage the march of a launch with these arguments takes: records of a
+// ring stage and t1 lines into recs_lines[0], recs_lines[1].
+extern "C" int composite_backward_fused_stage(int ncoeff, int NP, int* recs_lines) {
+  StageSize z;
+  switch (ncoeff) {
+    case 1: z = fitted_stage<1>(NP); break;
+    case 4: z = fitted_stage<4>(NP); break;
+    case 9: z = fitted_stage<9>(NP); break;
+    case 16: z = fitted_stage<16>(NP); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  recs_lines[0] = z.recs;
+  recs_lines[1] = z.nvs;
+  return 0;
 }

@@ -102,12 +102,19 @@ __global__ void __launch_bounds__(TP * TQ) composite_fused_kernel(Params prm) {
   if (direct && tid == 0 && prm.direct_tiles != nullptr) atomicAdd(prm.direct_tiles, 1);
 }
 
+// The stage a march of NP positions takes: what its position tables leave
+// of the block's opt-in shared memory (Stage::fit).
+template <int NCOEFF, bool OPERANDS>
+StageSize fitted_stage(int NP) {
+  return Stage<NCOEFF, !OPERANDS>::fit((long long)smem_optin() -
+                                       (long long)march_tables_bytes(NP, false));
+}
+
 template <int NCOEFF, bool DIFFUSE, bool RELU, bool OPERANDS>
 int launch(Params prm, cudaStream_t stream) {
   using S = Stage<NCOEFF, !OPERANDS>;
-  const size_t tables = march_tables_bytes(prm.NP, false);
-  prm.stage = S::fit((long long)smem_optin() - (long long)tables);
-  const size_t smem = S::bytes(prm.stage) + tables;
+  prm.stage = fitted_stage<NCOEFF, OPERANDS>(prm.NP);
+  const size_t smem = S::bytes(prm.stage) + march_tables_bytes(prm.NP, false);
   auto kern = composite_fused_kernel<NCOEFF, DIFFUSE, RELU, OPERANDS>;
   static size_t smem_allowed[16] = {};
   const cudaError_t e = allow_smem(kern, smem, smem_allowed);
@@ -159,4 +166,24 @@ extern "C" int composite_fused_launch(
   if (fs != nullptr) return dispatch_ncoeff<false>(prm, ncoeff, with_diffuse, relu, s);
   if (ybasis == nullptr || norm == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch_ncoeff<true>(prm, ncoeff, with_diffuse, relu, s);
+}
+
+// The stage a launch with these arguments takes: records of a ring stage and
+// t1 lines into recs_lines[0], recs_lines[1] (operands: the training branch).
+extern "C" int composite_fused_stage(int ncoeff, int operands, int NP, int* recs_lines) {
+  StageSize z;
+  switch (ncoeff * 2 + (operands ? 1 : 0)) {
+    case 2: z = fitted_stage<1, false>(NP); break;
+    case 3: z = fitted_stage<1, true>(NP); break;
+    case 8: z = fitted_stage<4, false>(NP); break;
+    case 9: z = fitted_stage<4, true>(NP); break;
+    case 18: z = fitted_stage<9, false>(NP); break;
+    case 19: z = fitted_stage<9, true>(NP); break;
+    case 32: z = fitted_stage<16, false>(NP); break;
+    case 33: z = fitted_stage<16, true>(NP); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  recs_lines[0] = z.recs;
+  recs_lines[1] = z.nvs;
+  return 0;
 }

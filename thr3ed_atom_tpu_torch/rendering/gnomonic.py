@@ -779,6 +779,19 @@ def composite_positions_fused(slices, ybasis, norm, geom, statics, Pn, Qn,
 composite_positions_fused.launches = 0
 
 
+def composite_fused_stage(statics: GnomonicStatics, operands: bool) -> Tuple[int, int]:
+    """The stage that Stage::fit gives a launch of composite_positions_fused
+    on ``statics`` on the current card (``operands``: the training branch):
+    (records of a ring stage, t1 lines); (0, 0) is no stage, every tile
+    gathering directly. Launches nothing."""
+    fn = kernels.bind("composite_fused", "composite_fused_stage",
+                      [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 2)()
+    kernels.check(fn(statics.ncoeff, int(operands), _num_positions(statics),
+                     ctypes.cast(out, ctypes.c_void_p)), "composite_fused_stage")
+    return out[0], out[1]
+
+
 # ----------------------------------------------------------- stripe composite
 
 

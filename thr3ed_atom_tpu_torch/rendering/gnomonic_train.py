@@ -322,6 +322,18 @@ def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
 composite_backward_fused.launches = 0
 
 
+def composite_backward_fused_stage(statics: GnomonicStatics) -> Tuple[int, int]:
+    """The stage that Stage::fit gives the march of a launch of
+    composite_backward_fused on ``statics`` on the current card: (records of
+    a ring stage, t1 lines); (0, 0) is no stage. Launches nothing."""
+    fn = kernels.bind("composite_backward_fused", "composite_backward_fused_stage",
+                      [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 2)()
+    kernels.check(fn(statics.ncoeff, _num_positions(statics),
+                     ctypes.cast(out, ctypes.c_void_p)), "composite_backward_fused_stage")
+    return out[0], out[1]
+
+
 def position_to_vertex_cotangent(dpos: torch.Tensor, nvert: int, P: int) -> torch.Tensor:
     """The interior lerp's adjoint: position j = (1 - f) vertex[j // P] +
     f vertex[min(j // P + 1, nvert - 1)] with f = (j % P) / P, so the vertex
