@@ -71,7 +71,6 @@ from thr3ed_atom_tpu_torch.utils.constants import (
 from thr3ed_atom_tpu_torch.utils.logging import log
 from thr3ed_atom_tpu_torch.utils.metrics import mse2psnr
 from thr3ed_atom_tpu_torch.utils.misc import compute_thre3d_grid_sizes
-from thr3ed_atom_tpu_torch.utils.profiling import ThroughputMeter
 
 # minimum training views averaged per whole-pose step (the JAX trainer's
 # measured floor: single-view steps at lr 0.03 thrash the grid)
@@ -789,8 +788,8 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                      f"training images resolution: [{intr.height} x {intr.width}]")
             log.info(f"current stage learning rate: {current_stage_lr}")
 
-        rays_meter = ThroughputMeter(window=8)
         steps_since_sync = 0
+        trained_at_summary = time_spent_actually_training
         last_time = time.perf_counter()
         first = start_iteration if stage == start_stage else 1
         for stage_iteration in range(first, num_iterations_per_stage + 1):
@@ -876,10 +875,13 @@ def train_sh_vox_grid_vol_mod_with_posed_images(
                     raise RuntimeError(f"the ranks' grids differ after step {global_step}")
             if (global_step % summary_freq == 0 or is_edge) and writer:
                 metrics_host = {k: float(v) for k, v in metrics.items()}  # syncs
-                rays_meter.tick(rays_per_step * steps_since_sync)
-                steps_since_sync = 0
+                # the rays of the steps since the last summary over their
+                # training time: feedback renders, tests and saves stay out
+                trained = time_spent_actually_training + time.perf_counter() - last_time
                 metrics_host["num_epochs"] = rays_per_step * global_step / dataset_size
-                metrics_host["train_rays_per_sec"] = rays_meter.per_sec
+                metrics_host["train_rays_per_sec"] = (
+                    rays_per_step * steps_since_sync / max(trained - trained_at_summary, 1e-9))
+                steps_since_sync, trained_at_summary = 0, trained
                 for name, value in metrics_host.items():
                     summaries.add_scalar(name, value, global_step=global_step)
                 log.info(f"Stage: {stage} Global Iteration: {global_step} "

@@ -68,6 +68,7 @@ from thr3ed_atom_tpu_torch.utils.constants import (
     EXTRA_DISPARITY,
     ZERO_PLUS,
 )
+from thr3ed_atom_tpu_torch.utils.profiling import span
 
 F32 = torch.float32
 
@@ -1246,35 +1247,41 @@ def _cached_slices(voxel_grid, statics, cache):
         entry = cache.get(key)
         if entry is not None and entry[0] == stamp:
             return entry[1]
-    slices = repack_position_slices(voxel_grid, statics, vertex_only=vertex)
+    with span("repack"):
+        slices = repack_position_slices(voxel_grid, statics, vertex_only=vertex)
     if cache is not None:
         cache[key] = (stamp, slices)
     return slices
 
 
-def _march_gnomonic(slices, rot, origin, statics: GnomonicStatics, height: int,
-                    width: int, focal, supersample: float, plain: bool = False):
-    """The march of one pose through the variant's pipeline: (state
-    [SROWS, Pn, Qn], x range, y range). ``slices`` are the vertex stack
-    (fused) or every position (v2)."""
-    Pn, Qn, PB, Pb = gnomonic_frame(None, height, width, focal, supersample, statics)
+def _march_geometry(slices, rot, origin, statics: GnomonicStatics, frame, height: int,
+                    width: int, focal, supersample: float):
+    """The pose's geometry and occupancy flags for the variant's pipeline
+    (``slices`` the vertex stack for the fused composite, every position
+    for v2; ``frame`` the pose's ``gnomonic_frame``): (geo, occupancy)."""
+    Pn, Qn, PB, Pb = frame
     if use_fused_composite(statics):
         QB, Qb = _qb_blocks(statics, Qn)
         geo = gnomonic_geometry(rot, origin, statics, height, width, focal, supersample)
-        occupancy = gnomonic_occupancy_lite(slices, geo.geom, statics, Pn, Qn, PB,
-                                            Pb, QB, Qb)
-        composite = composite_positions_fused_plain if plain else composite_positions_fused
-        state = composite(slices, None, None, geo.geom, statics, Pn, Qn, PB, Pb,
-                          occupancy, xr=geo.xr, yr=geo.yr)
-        return state, geo.xr, geo.yr
+        return geo, gnomonic_occupancy_lite(slices, geo.geom, statics, Pn, Qn, PB, Pb, QB, Qb)
     geo = gnomonic_geometry(rot, origin, statics, height, width, focal, supersample,
                             lite=False, skip_basis=False)
+    return geo, gnomonic_occupancy(slices, geo.Ru, statics, PB, Pb)
+
+
+def _march_composite(slices, geo, occupancy, statics: GnomonicStatics, frame,
+                     plain: bool = False):
+    """The march of one pose through the variant's composite: the state
+    [SROWS, Pn, Qn]."""
+    Pn, Qn, PB, Pb = frame
+    if use_fused_composite(statics):
+        composite = composite_positions_fused_plain if plain else composite_positions_fused
+        return composite(slices, None, None, geo.geom, statics, Pn, Qn, PB, Pb,
+                         occupancy, xr=geo.xr, yr=geo.yr)
     t1 = resample_u(slices, geo.Ru)
-    occupancy = gnomonic_occupancy(slices, geo.Ru, statics, PB, Pb)
     composite = composite_positions_plain if plain else composite_positions
-    state = composite(t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm,
-                      geo.geom, statics, Pn, Qn, PB, Pb, occupancy)
-    return state, geo.xr, geo.yr
+    return composite(t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm,
+                     geo.geom, statics, Pn, Qn, PB, Pb, occupancy)
 
 
 @torch.no_grad()
@@ -1287,33 +1294,39 @@ def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
     card); ``cache`` keeps each march variant's vertex slices."""
     from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_swap_for_pose
 
-    _strict_f32()
-    rotation = np.asarray(camera_pose.rotation, np.float32).reshape(3, 3)
-    origin = np.asarray(camera_pose.translation, np.float32).reshape(3)
-    axis, flip = dominant_axis_for_pose(rotation)
-    statics = _variant_statics(voxel_grid, axis, flip, config)
-    slices = _cached_slices(voxel_grid, statics, cache)
+    with span("frame"):
+        with span("geometry"):
+            _strict_f32()
+            rotation = np.asarray(camera_pose.rotation, np.float32).reshape(3, 3)
+            origin = np.asarray(camera_pose.translation, np.float32).reshape(3)
+            axis, flip = dominant_axis_for_pose(rotation)
+            statics = _variant_statics(voxel_grid, axis, flip, config)
+            slices = _cached_slices(voxel_grid, statics, cache)
 
-    dev = voxel_grid.device
-    height, width = int(camera_intrinsics.height), int(camera_intrinsics.width)
-    focal_f = float(camera_intrinsics.focal)
-    supersample = effective_supersample(
-        float(getattr(config, "gnomonic_supersample", DEFAULT_SUPERSAMPLE)),
-        statics, height, width,
-    )
-    rot = torch.as_tensor(rotation).to(dev)
-    focal = torch.tensor(focal_f, dtype=F32, device=dev)
-    state, xr, yr = _march_gnomonic(slices, rot, torch.as_tensor(origin).to(dev),
-                                    statics, height, width, focal, supersample, plain)
-    warp_impl = str(getattr(config, "gnomonic_warp_impl", "auto"))
-    swap = warp_swap_for_pose(rotation, axis, flip, height, width, focal_f)
-    return _warp_to_camera(
-        state, xr, yr, rot, statics, height, width, focal, supersample,
-        bool(config.white_bkgd),
-        warp_order=int(getattr(config, "gnomonic_warp_order", 3)),
-        warp_impl="matmul" if warp_impl == "auto" else warp_impl,
-        warp_swap=swap, plain=plain,
-    )
+            dev = voxel_grid.device
+            height, width = int(camera_intrinsics.height), int(camera_intrinsics.width)
+            focal_f = float(camera_intrinsics.focal)
+            supersample = effective_supersample(
+                float(getattr(config, "gnomonic_supersample", DEFAULT_SUPERSAMPLE)),
+                statics, height, width,
+            )
+            rot = torch.as_tensor(rotation).to(dev)
+            focal = torch.tensor(focal_f, dtype=F32, device=dev)
+            frame = gnomonic_frame(None, height, width, focal, supersample, statics)
+            geo, occupancy = _march_geometry(slices, rot, torch.as_tensor(origin).to(dev),
+                                             statics, frame, height, width, focal, supersample)
+        with span("composite"):
+            state = _march_composite(slices, geo, occupancy, statics, frame, plain)
+        with span("warp"):
+            warp_impl = str(getattr(config, "gnomonic_warp_impl", "auto"))
+            swap = warp_swap_for_pose(rotation, axis, flip, height, width, focal_f)
+            return _warp_to_camera(
+                state, geo.xr, geo.yr, rot, statics, height, width, focal, supersample,
+                bool(config.white_bkgd),
+                warp_order=int(getattr(config, "gnomonic_warp_order", 3)),
+                warp_impl="matmul" if warp_impl == "auto" else warp_impl,
+                warp_swap=swap, plain=plain,
+            )
 
 
 @torch.no_grad()
@@ -1322,15 +1335,16 @@ def render_poses_gnomonic(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics
                           plain: bool = False) -> RenderOut:
     """Render a sequence of poses; every output gains a leading pose axis.
     Poses of one march variant share one repack of the grid."""
-    cache = {} if cache is None else cache
-    outs = [render_image_gnomonic(voxel_grid, pose, camera_intrinsics, config,
-                                  cache=cache, plain=plain)
-            for pose in camera_poses]
-    return RenderOut(
-        colour=torch.stack([o.colour for o in outs]),
-        depth=torch.stack([o.depth for o in outs]),
-        extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
-    )
+    with span("path"):
+        cache = {} if cache is None else cache
+        outs = [render_image_gnomonic(voxel_grid, pose, camera_intrinsics, config,
+                                      cache=cache, plain=plain)
+                for pose in camera_poses]
+        return RenderOut(
+            colour=torch.stack([o.colour for o in outs]),
+            depth=torch.stack([o.depth for o in outs]),
+            extra={k: torch.stack([o.extra[k] for o in outs]) for k in outs[0].extra},
+        )
 
 
 class _GnomonicProcedure(FlatRaysToFast):

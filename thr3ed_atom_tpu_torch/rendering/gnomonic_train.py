@@ -78,6 +78,7 @@ from thr3ed_atom_tpu_torch.rendering.gnomonic import (
 )
 from thr3ed_atom_tpu_torch.utils.constants import EXTRA_DIFFUSE_COLOUR
 from thr3ed_atom_tpu_torch.utils.metrics import mse2psnr
+from thr3ed_atom_tpu_torch.utils.profiling import span
 
 F32 = torch.float32
 
@@ -795,8 +796,8 @@ def render_pose_from_slices(slices, rotation, origin, focal,
     if phase is None and generator is not None:
         phase = draw_phase(generator)
     slices = slices.to(torch.bfloat16)
-    rot, org, foc = _f32(rotation, dev), _f32(origin, dev), _f32(focal, dev)
-    with torch.no_grad():
+    with span("geometry"), torch.no_grad():
+        rot, org, foc = _f32(rotation, dev), _f32(origin, dev), _f32(focal, dev)
         geo = gnomonic_geometry(rot, org, statics, tstat.height, tstat.width,
                                 foc, tstat.supersample, phase=phase,
                                 lite=tstat.fused, skip_basis=False)
@@ -807,22 +808,24 @@ def render_pose_from_slices(slices, rotation, origin, focal,
         else:
             occupancy = gnomonic_occupancy(slices.detach(), geo.Ru, statics, PB, Pb,
                                            RvT=geo.RvT, QB=_qb_blocks(statics, Qn)[0])
-    if tstat.fused:
-        state = composite_positions_fused_diff(
-            slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,
-            PB, Pb, plain=plain,
+    with span("composite"):
+        if tstat.fused:
+            state = composite_positions_fused_diff(
+                slices, geo.ybasis, geo.norm, geo.geom, *occupancy, statics, Pn, Qn,
+                PB, Pb, plain=plain,
+            )
+        else:
+            t1 = resample_u(slices, geo.Ru)
+            state = composite_positions_diff(
+                t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom,
+                *occupancy, statics, Pn, Qn, PB, Pb, plain=plain,
+            )
+    with span("warp"):
+        return _warp_to_camera(
+            state, geo.xr, geo.yr, rot, statics, tstat.height, tstat.width, foc,
+            tstat.supersample, tstat.white_bkgd, warp_order=tstat.warp_order,
+            warp_impl=tstat.warp_impl, warp_swap=tstat.warp_swap, plain=plain,
         )
-    else:
-        t1 = resample_u(slices, geo.Ru)
-        state = composite_positions_diff(
-            t1, geo.RvT, geo.ybasis, geo.live_u, geo.live_v, geo.norm, geo.geom,
-            *occupancy, statics, Pn, Qn, PB, Pb, plain=plain,
-        )
-    return _warp_to_camera(
-        state, geo.xr, geo.yr, rot, statics, tstat.height, tstat.width, foc,
-        tstat.supersample, tstat.white_bkgd, warp_order=tstat.warp_order,
-        warp_impl=tstat.warp_impl, warp_swap=tstat.warp_swap, plain=plain,
-    )
 
 
 def render_pose_diff(voxel_grid: VoxelGrid, rotation, origin, focal,
@@ -867,15 +870,17 @@ def _pose_loss_from_slices(tstat: GnomonicTrainStatics, slices, image, rotation,
 def _pose_loss(tstat: GnomonicTrainStatics, grid: VoxelGrid, image, rotation,
                origin, focal, generator=None, phase=None, plain: bool = False):
     """Whole-pose objective on the grid (repack + ``_pose_loss_from_slices``)."""
-    slices = repack_position_slices(grid, tstat.statics, vertex_only=tstat.fused)
+    with span("repack"):
+        slices = repack_position_slices(grid, tstat.statics, vertex_only=tstat.fused)
     return _pose_loss_from_slices(tstat, slices, image, rotation, origin, focal,
                                   generator=generator, phase=phase, plain=plain)
 
 
 def _step(optimizer, scheduler):
-    optimizer.step()
-    if scheduler is not None:
-        scheduler.step()
+    with span("optimizer"):
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
 
 
 def gnomonic_train_step(tstat: GnomonicTrainStatics, optimizer: torch.optim.Optimizer,
@@ -887,14 +892,16 @@ def gnomonic_train_step(tstat: GnomonicTrainStatics, optimizer: torch.optim.Opti
     the grid's densities and features, then ``optimizer.step()`` (and
     ``scheduler.step()``) in place. ``generator`` jitters the frame's phase.
     Returns the metrics (0-d tensors)."""
-    _strict_f32()
-    optimizer.zero_grad(set_to_none=True)
-    with grid.trainable():
-        loss, aux = _pose_loss(tstat, grid, image, rotation, origin, focal,
-                               generator=generator, phase=phase, plain=plain)
-        loss.backward()
-        _step(optimizer, scheduler)
-    return {k: v.detach() for k, v in aux.items()}
+    with span("step"):
+        _strict_f32()
+        optimizer.zero_grad(set_to_none=True)
+        with grid.trainable():
+            loss, aux = _pose_loss(tstat, grid, image, rotation, origin, focal,
+                                   generator=generator, phase=phase, plain=plain)
+            with span("backward"):
+                loss.backward()
+            _step(optimizer, scheduler)
+        return {k: v.detach() for k, v in aux.items()}
 
 
 def _multi_pose_grads(tstat: GnomonicTrainStatics, grid: VoxelGrid, images,
@@ -909,24 +916,27 @@ def _multi_pose_grads(tstat: GnomonicTrainStatics, grid: VoxelGrid, images,
     Each pose's graph is freed before the next. Returns the averaged
     metrics."""
     k = len(phases)
-    slices_f32 = repack_position_slices(grid, tstat.statics, round_output=False,
-                                        vertex_only=tstat.fused)
-    big = slices_f32.numel() * slices_f32.element_size() > _BF16_SLICES_BYTES
-    leaf = slices_f32.detach()
-    if big:
-        leaf = leaf.to(torch.bfloat16)
-    leaf.requires_grad_(True)
-    dsl_sum = torch.zeros_like(slices_f32, dtype=F32)
+    with span("repack"):
+        slices_f32 = repack_position_slices(grid, tstat.statics, round_output=False,
+                                            vertex_only=tstat.fused)
+        big = slices_f32.numel() * slices_f32.element_size() > _BF16_SLICES_BYTES
+        leaf = slices_f32.detach()
+        if big:
+            leaf = leaf.to(torch.bfloat16)
+        leaf.requires_grad_(True)
+        dsl_sum = torch.zeros_like(slices_f32, dtype=F32)
     sums: Dict[str, torch.Tensor] = {}
     for i in range(k):
         loss, aux = _pose_loss_from_slices(tstat, leaf, images[i], rotations[i],
                                            origins[i], focal, phase=phases[i],
                                            plain=plain)
-        (dsl,) = torch.autograd.grad(loss, leaf)
-        dsl_sum += dsl.to(F32)
+        with span("backward"):
+            (dsl,) = torch.autograd.grad(loss, leaf)
+            dsl_sum += dsl.to(F32)
         for name, v in aux.items():
             sums[name] = sums[name] + v.detach() if name in sums else v.detach()
-    slices_f32.backward(dsl_sum / k)
+    with span("repack"):
+        slices_f32.backward(dsl_sum / k)
     return {name: v / k for name, v in sums.items()}
 
 
@@ -941,17 +951,18 @@ def gnomonic_train_step_multi(tstat: GnomonicTrainStatics,
     of one march variant), the trainer's step. ``generator`` draws each
     pose's phase jitter in turn (``phases`` [k, 2] gives them directly). The
     optimizer (and scheduler) step in place; returns the averaged metrics."""
-    _strict_f32()
-    k = len(images)
-    if phases is None:
-        phases = [None if generator is None else draw_phase(generator)
-                  for _ in range(k)]
-    optimizer.zero_grad(set_to_none=True)
-    with grid.trainable():
-        metrics = _multi_pose_grads(tstat, grid, images, rotations, origins,
-                                    focal, phases, plain=plain)
-        _step(optimizer, scheduler)
-    return metrics
+    with span("step"):
+        _strict_f32()
+        k = len(images)
+        if phases is None:
+            phases = [None if generator is None else draw_phase(generator)
+                      for _ in range(k)]
+        optimizer.zero_grad(set_to_none=True)
+        with grid.trainable():
+            metrics = _multi_pose_grads(tstat, grid, images, rotations, origins,
+                                        focal, phases, plain=plain)
+            _step(optimizer, scheduler)
+        return metrics
 
 
 def _metric_names(tstat: GnomonicTrainStatics) -> Tuple[str, ...]:
@@ -990,26 +1001,27 @@ def gnomonic_train_step_mesh(tstat: GnomonicTrainStatics,
     world, rank = dist.get_world_size(), dist.get_rank()
     if world < n_dev:
         raise RuntimeError(f"gnomonic_train_step_mesh: {n_dev} ranks asked, the world has {world}")
-    active = rank < n_dev
-    if active and phases is None:
-        phases = [None] * len(images)
-    optimizer.zero_grad(set_to_none=True)
-    names = _metric_names(tstat)
-    with grid.trainable():
-        if active:
-            metrics = _multi_pose_grads(tstat, grid, images, rotations, origins, focal,
-                                        phases)
-        else:
-            metrics = {}
-        for p in (grid.densities, grid.features):
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        zero = torch.zeros((), dtype=F32, device=grid.device)
-        stacked = torch.stack([metrics.get(name, zero).to(F32) for name in names])
-        all_reduce_([grid.densities.grad, grid.features.grad, stacked])
-        n = torch.full((), float(n_dev), dtype=F32, device=grid.device)
-        for p in (grid.densities, grid.features):
-            p.grad.div_(n)
-        stacked = stacked / n
-        _step(optimizer, scheduler)
-    return {name: stacked[i] for i, name in enumerate(names)}
+    with span("step"):
+        active = rank < n_dev
+        if active and phases is None:
+            phases = [None] * len(images)
+        optimizer.zero_grad(set_to_none=True)
+        names = _metric_names(tstat)
+        with grid.trainable():
+            if active:
+                metrics = _multi_pose_grads(tstat, grid, images, rotations, origins, focal,
+                                            phases)
+            else:
+                metrics = {}
+            for p in (grid.densities, grid.features):
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            zero = torch.zeros((), dtype=F32, device=grid.device)
+            stacked = torch.stack([metrics.get(name, zero).to(F32) for name in names])
+            all_reduce_([grid.densities.grad, grid.features.grad, stacked])
+            n = torch.full((), float(n_dev), dtype=F32, device=grid.device)
+            for p in (grid.densities, grid.features):
+                p.grad.div_(n)
+            stacked = stacked / n
+            _step(optimizer, scheduler)
+        return {name: stacked[i] for i, name in enumerate(names)}

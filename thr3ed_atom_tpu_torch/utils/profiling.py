@@ -1,14 +1,27 @@
 """Profiling utilities (counterpart of thr3ed_atom_tpu/utils/profiling.py): a
 ``torch.profiler`` trace of a run, written as a Chrome trace (open it in
-Perfetto or chrome://tracing), and a throughput meter for the train loop."""
+Perfetto or chrome://tracing), and the program's named spans in it."""
 import contextlib
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from thr3ed_atom_tpu_torch.utils.logging import log
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler`` range named ``t3.<name>`` while a profiler
+    records, so the span shares the trace's clock with the kernels and
+    runtime calls it encloses; otherwise one shared no-op context (a single
+    check, nothing allocated)."""
+    if not _profiler_enabled():
+        return _NO_SPAN
+    return record_function("t3." + name)
 
 
 @contextlib.contextmanager
@@ -29,24 +42,3 @@ def profile_trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(path / "trace.json"))
-
-
-class ThroughputMeter:
-    """Sliding-window rays/sec (or any unit/sec) meter for the hot loop."""
-
-    def __init__(self, window: int = 50):
-        self._window = window
-        self._events = []  # (timestamp, units)
-
-    def tick(self, units: float) -> None:
-        self._events.append((time.perf_counter(), units))
-        if len(self._events) > self._window:
-            self._events.pop(0)
-
-    @property
-    def per_sec(self) -> float:
-        if len(self._events) < 2:
-            return 0.0
-        span = self._events[-1][0] - self._events[0][0]
-        units = sum(u for _, u in self._events[1:])
-        return units / span if span > 0 else 0.0
