@@ -2815,8 +2815,8 @@ def recipe_view_kernels(torch, port, rec):
     Pn, Qn, PB, Pb = tstat.frame
     _, rots, orgs, focal, phases = rec["views"]
     slices = gn.repack_position_slices(grid, st, vertex_only=tstat.fused).to(torch.bfloat16)
-    geo = gn.gnomonic_geometry(gt._f32(rots[0], dev), gt._f32(orgs[0], dev), st,
-                               tstat.height, tstat.width, gt._f32(focal, dev),
+    rot, org, foc = gn.stage_f32([rots[0], orgs[0], focal], dev)
+    geo = gn.gnomonic_geometry(rot, org, st, tstat.height, tstat.width, foc,
                                tstat.supersample, phase=phases[0], lite=tstat.fused,
                                skip_basis=False)
     occ = gn.gnomonic_occupancy_lite(slices, geo.geom, st, Pn, Qn, PB, Pb,
@@ -3840,6 +3840,7 @@ def run(torch, workdir: Path) -> int:
     # per-texel bf16 cotangent buffer (dvals) that the design before it wrote
     # and read back
     _, _, n_dt1, n_edge = gt.fold_records(occ_t[1], stt, Pb_t, gn._qb_blocks(stt, Qn_t)[1])
+    n_dt1, n_edge = int(n_dt1), int(n_edge)
     records_bytes = n_dt1 * 2 + n_edge * 4
     _, n_slots = gt.dvals_slots(occ_t[1])
     dvals_bytes = n_slots * used_t * Pb_t * 128 * 2
@@ -3941,6 +3942,7 @@ def run(torch, workdir: Path) -> int:
         _, slots8 = gt.dvals_slots(occ8[1])
         _, _, dt1_8, edge8 = gt.fold_records(occ8[1], st8, tstat8.frame[3],
                                              gn._qb_blocks(st8, tstat8.frame[1])[1])
+        dt1_8, edge8 = int(dt1_8), int(edge8)
     print(f"# training grid: {slots8} of {occ8[1].numel()} (u-block, q-block, position) "
           f"slots needed; K3's v-fold output {dt1_8 * 2 + edge8 * 4} bytes (dt1 rows "
           f"{dt1_8 * 2}, edge records {edge8 * 4}; a per-texel cotangent buffer: "

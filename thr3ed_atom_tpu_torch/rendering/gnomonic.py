@@ -239,13 +239,52 @@ def _qb_blocks(statics: GnomonicStatics, Qn: int) -> Tuple[int, int]:
     return Qn // qb, qb
 
 
+# f32 elements of a staging slot: 512 bytes, the alignment of an allocation
+# of its own on the device
+_STAGE_SLOT = 128
+
+
+def stage_f32(parts, device) -> list:
+    """Each of ``parts`` (numpy arrays, sequences, numbers or tensors) as an
+    f32 tensor on ``device``, bit for bit ``torch.as_tensor(x,
+    dtype=float32).to(device)``. On a CUDA device the parts on the host go
+    over without a host sync: packed into one pinned buffer, each in slots
+    of its own, and sent in one non-blocking copy (PyTorch's caching host
+    allocator keeps the buffer from reuse until the copy has run); parts
+    already on a device are copied as they are. Elsewhere nothing is
+    pinned: each part is copied as it is."""
+    device = torch.device(device)
+    host = [torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
+                            dtype=F32) for x in parts]
+    staged = [i for i, t in enumerate(host) if t.device.type == "cpu"]
+    if device.type != "cuda" or not staged:
+        return [t.to(device) for t in host]
+    slots = [-(-max(host[i].numel(), 1) // _STAGE_SLOT) for i in staged]
+    buf = torch.empty((sum(slots), _STAGE_SLOT), dtype=F32, pin_memory=True)
+    starts = np.cumsum([0] + slots[:-1]).tolist()
+    for i, s in zip(staged, starts):
+        buf[s:].view(-1)[:host[i].numel()].copy_(host[i].detach().reshape(-1))
+    sent = buf.to(device, non_blocking=True)
+    out = [t.to(device) if t.device.type != "cpu" else None for t in host]
+    for i, s in zip(staged, starts):
+        out[i] = sent[s:].view(-1)[:host[i].numel()].view(host[i].shape)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _corner_pixels(height: int, width: int, device: str):
+    """The image corners' pixel x [0, W, 0, W] and y [0, 0, H, H], f32 on
+    ``device``, made there (no host-to-device copy), once per frame size."""
+    i = torch.arange(4, dtype=F32, device=device)
+    return torch.remainder(i, 2.0) * width, torch.floor(i / 2.0) * height
+
+
 def _corner_ranges(rotation, height, width, focal, statics):
     """Gnomonic (x, y) ranges of the image corners."""
     axis, (u_ax, v_ax) = statics.axis, _uv_axes(statics.axis)
     g = -1.0 if statics.flip else 1.0
     dev = rotation.device
-    cx = torch.tensor([0.0, width, 0.0, width], dtype=F32, device=dev)
-    cy = torch.tensor([0.0, 0.0, height, height], dtype=F32, device=dev)
+    cx, cy = _corner_pixels(height, width, str(dev))
     dirs_cam = torch.stack(
         [(cx - width / 2) / focal, -(cy - height / 2) / focal,
          -torch.ones(4, dtype=F32, device=dev)], dim=-1,
@@ -1284,6 +1323,19 @@ def _march_composite(slices, geo, occupancy, statics: GnomonicStatics, frame,
                      geo.geom, statics, Pn, Qn, PB, Pb, occupancy)
 
 
+def _pose_arrays(camera_pose):
+    """A camera pose's rotation [3, 3] and origin [3], f32 numpy."""
+    return (np.asarray(camera_pose.rotation, np.float32).reshape(3, 3),
+            np.asarray(camera_pose.translation, np.float32).reshape(3))
+
+
+def _stage_poses(poses, focal: float, device):
+    """The poses' (rotation, origin) arrays and the focal (0-d) as f32
+    tensors on ``device``, in one ``stage_f32``: ([(rot, origin)], focal)."""
+    staged = stage_f32([a for pose in poses for a in pose] + [focal], device)
+    return list(zip(staged[0:-1:2], staged[1:-1:2])), staged[-1]
+
+
 @torch.no_grad()
 def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
                           config, cache: Optional[dict] = None,
@@ -1292,13 +1344,21 @@ def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
     grid's device. Outputs are [H, W, .]. ``plain`` runs the kernels' plain
     PyTorch versions instead (a reference for checking the kernels on the
     card); ``cache`` keeps each march variant's vertex slices."""
+    return _render_frame(voxel_grid, _pose_arrays(camera_pose), None, camera_intrinsics,
+                         config, cache, plain)
+
+
+def _render_frame(voxel_grid: VoxelGrid, pose, staged, camera_intrinsics, config,
+                  cache: Optional[dict], plain: bool) -> RenderOut:
+    """``render_image_gnomonic`` of ``pose`` (``_pose_arrays``); ``staged``
+    holds its operands on the device (((rot, origin), focal), as
+    ``_stage_poses`` gives them), None stages them here."""
     from thr3ed_atom_tpu_torch.rendering.warp_matmul import warp_swap_for_pose
 
     with span("frame"):
         with span("geometry"):
             _strict_f32()
-            rotation = np.asarray(camera_pose.rotation, np.float32).reshape(3, 3)
-            origin = np.asarray(camera_pose.translation, np.float32).reshape(3)
+            rotation, _ = pose
             axis, flip = dominant_axis_for_pose(rotation)
             statics = _variant_statics(voxel_grid, axis, flip, config)
             slices = _cached_slices(voxel_grid, statics, cache)
@@ -1310,11 +1370,13 @@ def render_image_gnomonic(voxel_grid: VoxelGrid, camera_pose, camera_intrinsics,
                 float(getattr(config, "gnomonic_supersample", DEFAULT_SUPERSAMPLE)),
                 statics, height, width,
             )
-            rot = torch.as_tensor(rotation).to(dev)
-            focal = torch.tensor(focal_f, dtype=F32, device=dev)
+            if staged is None:
+                ((rot, origin),), focal = _stage_poses([pose], focal_f, dev)
+            else:
+                (rot, origin), focal = staged
             frame = gnomonic_frame(None, height, width, focal, supersample, statics)
-            geo, occupancy = _march_geometry(slices, rot, torch.as_tensor(origin).to(dev),
-                                             statics, frame, height, width, focal, supersample)
+            geo, occupancy = _march_geometry(slices, rot, origin, statics, frame, height,
+                                             width, focal, supersample)
         with span("composite"):
             state = _march_composite(slices, geo, occupancy, statics, frame, plain)
         with span("warp"):
@@ -1334,12 +1396,17 @@ def render_poses_gnomonic(voxel_grid: VoxelGrid, camera_poses, camera_intrinsics
                           config, cache: Optional[dict] = None,
                           plain: bool = False) -> RenderOut:
     """Render a sequence of poses; every output gains a leading pose axis.
-    Poses of one march variant share one repack of the grid."""
+    Poses of one march variant share one repack of the grid; the path's
+    rotations, origins and focal go to the device together
+    (``_stage_poses``)."""
     with span("path"):
         cache = {} if cache is None else cache
-        outs = [render_image_gnomonic(voxel_grid, pose, camera_intrinsics, config,
-                                      cache=cache, plain=plain)
-                for pose in camera_poses]
+        poses = [_pose_arrays(pose) for pose in camera_poses]
+        staged, focal = _stage_poses(poses, float(camera_intrinsics.focal),
+                                     voxel_grid.device)
+        outs = [_render_frame(voxel_grid, pose, (ops, focal), camera_intrinsics, config,
+                              cache, plain)
+                for pose, ops in zip(poses, staged)]
         return RenderOut(
             colour=torch.stack([o.colour for o in outs]),
             depth=torch.stack([o.depth for o in outs]),

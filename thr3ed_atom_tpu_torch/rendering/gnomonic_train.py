@@ -40,7 +40,6 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from thr3ed_atom_tpu_torch import kernels
@@ -74,6 +73,7 @@ from thr3ed_atom_tpu_torch.rendering.gnomonic import (
     gnomonic_occupancy_lite,
     repack_position_slices,
     resample_u,
+    stage_f32,
     statics_for_grid,
 )
 from thr3ed_atom_tpu_torch.utils.constants import EXTRA_DIFFUSE_COLOUR
@@ -235,29 +235,46 @@ def _backward_fn():
                         [ctypes.c_void_p] * 13 + [ctypes.c_int] * 14 + [ctypes.c_void_p])
 
 
+def _fold_slot_sizes(statics: GnomonicStatics, Pb: int, Qb: int) -> Tuple[int, int]:
+    """Elements of a dt1 slot (a (u-block, position)) and of an edge slot (a
+    (u-block, q-block, position)) of the replay backward's v-fold output."""
+    TP, TQ = CUDA_EXIT_TILE
+    nv = statics.dims[_uv_axes(statics.axis)[1]]
+    used = 3 * statics.ncoeff + 1
+    return Pb * used * nv, (Pb // TP) * (Qb // TQ) * used * TP * 4
+
+
 def fold_records(pos_needed: torch.Tensor, statics: GnomonicStatics, Pb: int,
-                 Qb: int) -> Tuple[torch.Tensor, torch.Tensor, int, int]:
+                 Qb: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The replay backward's v-fold output, sized by the occupancy flags
     ``pos_needed`` [PB, QB, NP]: dense bf16 dt1 rows [Pb, 3 ncoeff + 1, nv]
     per (u-block, position) with a needed q-block, and an f32 edge record
     [3 ncoeff + 1, TP, 4] per (``CUDA_EXIT_TILE`` tile, needed position).
     Returns (d_off [PB, NP] int64 and s_off [PB, QB, NP] int64, the element
     offsets of each slot, -1 where none; the dt1 and edge element counts,
-    read on the host)."""
-    TP, TQ = CUDA_EXIT_TILE
-    nv = statics.dims[_uv_axes(statics.axis)[1]]
-    used = 3 * statics.ncoeff + 1
+    0-d int64 tensors on the flags' device: nothing is read on the host)."""
+    d_size, s_size = _fold_slot_sizes(statics, Pb, Qb)
     needed = pos_needed > 0
 
     def offsets(flags, size):
         sizes = flags.to(torch.int64).reshape(-1) * size
-        off = torch.where(flags.reshape(-1), torch.cumsum(sizes, 0) - sizes, -1)
-        return off.reshape(flags.shape).contiguous(), sizes.sum()
+        ends = torch.cumsum(sizes, 0)
+        off = torch.where(flags.reshape(-1), ends - sizes, -1)
+        return off.reshape(flags.shape).contiguous(), ends[-1]
 
-    d_off, n_dt1 = offsets(needed.any(dim=1), Pb * used * nv)
-    s_off, n_edge = offsets(needed, (Pb // TP) * (Qb // TQ) * used * TP * 4)
-    n_dt1, n_edge = torch.stack([n_dt1, n_edge]).tolist()
+    d_off, n_dt1 = offsets(needed.any(dim=1), d_size)
+    s_off, n_edge = offsets(needed, s_size)
     return d_off, s_off, n_dt1, n_edge
+
+
+def fold_records_capacity(statics: GnomonicStatics, PB: int, QB: int, Pb: int,
+                          Qb: int) -> Tuple[int, int]:
+    """The dt1 and edge element counts of ``fold_records`` with every (u-block,
+    q-block, position) needed: the frame's worst case, known on the host,
+    which sizes K3's scratch without reading the flags."""
+    d_size, s_size = _fold_slot_sizes(statics, Pb, Qb)
+    NP = _num_positions(statics)
+    return PB * NP * d_size, PB * QB * NP * s_size
 
 
 def dvals_slots(pos_needed: torch.Tensor) -> Tuple[torch.Tensor, int]:
@@ -280,8 +297,9 @@ def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
     csrc/composite_backward_fused.cu (a march over texel tiles that folds
     each position's cotangent through its v-tents, then a tensor-core fold
     through the u-tents); on a CPU tensor the plain version. The march's
-    v-fold output takes ``fold_records`` scratch (bf16 dt1 rows, f32 edge
-    records); ``direct_tiles`` (a one-element int32 CUDA tensor) counts the tiles that
+    v-fold output takes ``fold_records`` slots (bf16 dt1 rows, f32 edge
+    records) in scratch of the frame's worst case (``fold_records_capacity``:
+    no host sync); ``direct_tiles`` (a one-element int32 CUDA tensor) counts the tiles that
     gathered a position's footprint directly."""
     if slices.device.type == "cpu":
         return composite_backward_fused_plain(slices, ybasis, norm, geom, gaux,
@@ -303,9 +321,10 @@ def composite_backward_fused(slices, ybasis, norm, geom, gaux, occupancy,
     if any(fl.shape != (PB, QB, NP) for fl in flags):
         raise ValueError("composite_backward_fused: flags shape")
     ops = [t.to(F32).contiguous() for t in (geom, ybasis, norm, gaux)]
-    d_off, s_off, n_dt1, n_edge = fold_records(flags[1], statics, Pb, Qb)
-    dt1 = torch.empty((max(n_dt1, 1),), dtype=torch.bfloat16, device=dev)
-    edge = torch.empty((max(n_edge, 1),), dtype=F32, device=dev)
+    d_off, s_off, _, _ = fold_records(flags[1], statics, Pb, Qb)
+    n_dt1, n_edge = fold_records_capacity(statics, PB, QB, Pb, Qb)
+    dt1 = torch.empty((n_dt1,), dtype=torch.bfloat16, device=dev)
+    edge = torch.empty((n_edge,), dtype=F32, device=dev)
     dsl = torch.empty((NP, nu, C, nv), dtype=torch.bfloat16, device=dev)
     err = _backward_fn()(
         vert.data_ptr(), ops[0].data_ptr(), flags[0].data_ptr(), flags[1].data_ptr(),
@@ -775,11 +794,6 @@ def draw_phase(generator: torch.Generator) -> torch.Tensor:
     return torch.rand(2, generator=generator, device=generator.device) - 0.5
 
 
-def _f32(x, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x, np.float32) if not torch.is_tensor(x) else x,
-                           dtype=F32).to(dev)
-
-
 def render_pose_from_slices(slices, rotation, origin, focal,
                             tstat: GnomonicTrainStatics,
                             generator: Optional[torch.Generator] = None,
@@ -797,7 +811,7 @@ def render_pose_from_slices(slices, rotation, origin, focal,
         phase = draw_phase(generator)
     slices = slices.to(torch.bfloat16)
     with span("geometry"), torch.no_grad():
-        rot, org, foc = _f32(rotation, dev), _f32(origin, dev), _f32(focal, dev)
+        rot, org, foc = stage_f32([rotation, origin, focal], dev)
         geo = gnomonic_geometry(rot, org, statics, tstat.height, tstat.width,
                                 foc, tstat.supersample, phase=phase,
                                 lite=tstat.fused, skip_basis=False)
@@ -847,7 +861,7 @@ def _pose_loss_from_slices(tstat: GnomonicTrainStatics, slices, image, rotation,
     Returns (total, metrics) with 0-d tensors."""
     out = render_pose_from_slices(slices, rotation, origin, focal, tstat,
                                   generator=generator, phase=phase, plain=plain)
-    image = _f32(image, slices.device)
+    (image,) = stage_f32([image], slices.device)
     colour = out.colour
     specular_loss = torch.mean(torch.abs(colour - image))
     specular_mse = torch.mean((colour - image) ** 2)
@@ -925,6 +939,10 @@ def _multi_pose_grads(tstat: GnomonicTrainStatics, grid: VoxelGrid, images,
             leaf = leaf.to(torch.bfloat16)
         leaf.requires_grad_(True)
         dsl_sum = torch.zeros_like(slices_f32, dtype=F32)
+    # every pose's rotation, origin and the focal in one copy
+    staged = stage_f32([*(rotations[i] for i in range(k)), *(origins[i] for i in range(k)),
+                        focal], leaf.device)
+    rotations, origins, focal = staged[:k], staged[k:2 * k], staged[2 * k]
     sums: Dict[str, torch.Tensor] = {}
     for i in range(k):
         loss, aux = _pose_loss_from_slices(tstat, leaf, images[i], rotations[i],
