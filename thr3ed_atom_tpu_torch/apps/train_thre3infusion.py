@@ -10,6 +10,19 @@ bottleneck attention, scale-shift norm), a EPSILON / FIXED_SMALL / MSE
 diffusion. The UNet's input and output width is the scene's: density plus
 every SH feature channel. Checkpoints (``saved_models/model_<step>``) load
 in either package; the sample mosaics are GIFs (``generated_samples/``).
+Further options select ADM's UNet (Dhariwal & Nichol, guided-diffusion's
+flags: ``--channel_mult``, ``--attention_resolutions`` as downsample
+factors, ``--num_head_channels``, ``--resblock_updown``, ``--dropout``,
+``--learn_sigma`` (LEARNED_RANGE variance and the RESCALED_MSE hybrid loss,
+twice the output channels), ``--use_fp16``, ``--norm_groups`` and
+``--ema_rate``, whose EMA is saved as ``saved_models/ema_<step>``);
+their defaults leave the JAX package's recipe as it is. ADM's ImageNet-64
+model on 64^3 crops of a 128^3 scene:
+``--model_channels 192 --num_res_blocks 3 --channel_mult 1 2 3 4
+--attention_resolutions 2 4 8 --num_head_channels 64 --resblock_updown true
+--dropout 0.1 --learn_sigma true --use_fp16 true --norm_groups 32
+--ema_rate 0.9999 --num_timesteps 1000 --learning_rate 1e-4 --crop_ratio
+0.125 --batch_size 8``.
 ``main(argv, device="cpu")`` runs on the CPU (tests); without ``device``
 everything runs on the card.
 """
@@ -60,6 +73,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="gradient checkpointing (torch.utils.checkpoint) in the UNet resblocks")
     add("--visualization_samples", type=int, default=9,
         help="number of grids sampled (sequentially) for the periodic mosaic video")
+    add("--channel_mult", type=int, nargs="+", default=[1, 2, 4, 8])
+    add("--attention_resolutions", type=int, nargs="*", default=[],
+        help="downsample factors of the levels with attention blocks (the middle has one)")
+    add("--num_head_channels", type=int, default=-1,
+        help="channels a head (-1: --num_heads heads)")
+    add("--resblock_updown", type=str2bool, default=False,
+        help="resample inside residual blocks (else strided / nearest convolutions)")
+    add("--dropout", type=float, default=0.0)
+    add("--learn_sigma", type=str2bool, default=False,
+        help="LEARNED_RANGE variance with the RESCALED_MSE hybrid loss")
+    add("--use_fp16", type=str2bool, default=False,
+        help="fp16 blocks with f32 master weights and a dynamic loss scale")
+    add("--norm_groups", type=int, default=16)
+    add("--ema_rate", type=float, default=None, help="EMA rate of the weights (none: no EMA)")
     return p
 
 
@@ -74,22 +101,26 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Thre3inFusionMode
     del vol_mod
     log.info(f"scene grid has {grid_channels} channels (density + SH features)")
 
+    learn_sigma = config["learn_sigma"]
     unet = UNetModel(
         in_channels=grid_channels,
         model_channels=config["model_channels"],
-        out_channels=grid_channels,
+        out_channels=2 * grid_channels if learn_sigma else grid_channels,
         num_res_blocks=config["num_res_blocks"],
-        attention_resolutions=(),
+        attention_resolutions=tuple(config["attention_resolutions"]),
         use_bottleneck_attn=True,
-        channel_mult=(1, 2, 4, 8),
+        channel_mult=tuple(config["channel_mult"]),
         conv_resample=True,
         dims=3,
         num_classes=None,
         use_checkpoint=config["use_checkpoint"],
         num_heads=config["num_heads"],
-        num_head_channels=-1,
+        num_head_channels=config["num_head_channels"],
         use_scale_shift_norm=True,
-        resblock_updown=False,
+        resblock_updown=config["resblock_updown"],
+        dropout=config["dropout"],
+        norm_groups=config["norm_groups"],
+        use_fp16=config["use_fp16"],
     )
     log.info("UNet model has been created ...")
 
@@ -99,12 +130,13 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Thre3inFusionMode
             num_diffusion_timesteps=config["num_timesteps"],
         ),
         model_mean_type=ModelMeanType.EPSILON,
-        model_var_type=ModelVarType.FIXED_SMALL,
-        loss_type=LossType.MSE,
+        model_var_type=ModelVarType.LEARNED_RANGE if learn_sigma else ModelVarType.FIXED_SMALL,
+        loss_type=LossType.RESCALED_MSE if learn_sigma else LossType.MSE,
         rescale_timesteps=False,
     )
 
-    model = Thre3inFusionModel(unet=unet, diffusion=diffusion, device=device)
+    model = Thre3inFusionModel(unet=unet, diffusion=diffusion, device=device,
+                               ema_rate=config["ema_rate"])
     return model.train(
         volume_model_path=Path(config["model_path"]),
         output_path=Path(config["output_path"]),

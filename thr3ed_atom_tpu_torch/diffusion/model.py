@@ -13,13 +13,27 @@ leaves ``param_i`` in ``jax.tree_util`` order, ``<path>.json`` the UNet and
 diffusion config and the normalization ranges; either package loads the
 other's. The scalar ``loss`` goes to ``tensorboard_logs/summaries.jsonl``
 and to a TensorBoard event file beside it (utils/tensorboard.py). The whole path runs in
-true f32 (no TF32), as the JAX package's reference does.
+true f32 (no TF32), as the JAX package's reference does, unless the UNet
+computes in half precision (``UNetModel(use_fp16=True)``): the step then
+trains as ADM's ``fp16_util.MixedPrecisionTrainer`` does (Dhariwal & Nichol,
+guided-diffusion): the f32 parameters are the master weights, the loss is
+scaled by 2 ** ``lg_loss_scale`` before the backward, the gradients'
+norm is checked (one host sync), and a non-finite norm halves the scale and
+skips the step; else the gradients are unscaled, Adam steps, the EMA (if
+``ema_rate``) follows and the scale grows by ``FP16_SCALE_GROWTH`` in log2.
+The scale starts at 2 ** ``INITIAL_LG_LOSS_SCALE``; both are ADM's.
+Training runs the UNet with dropout on (``deterministic=False``); sampling
+and the bits-per-dim loop stay deterministic. Spans (utils/profiling.py):
+``t3.step`` around a train step, its phases ``t3.forward`` (UNet and loss),
+``t3.backward`` and ``t3.optimizer`` (the loss scale's check, Adam, EMA),
+and ``t3.skip`` once on each skipped step.
 """
 from __future__ import annotations
 
 import json
+import math
 from pathlib import Path
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +64,11 @@ from thr3ed_atom_tpu_torch.utils.camera import (
 )
 from thr3ed_atom_tpu_torch.utils.constants import CAMERA_INTRINSICS, HEMISPHERICAL_RADIUS
 from thr3ed_atom_tpu_torch.utils.logging import log
+from thr3ed_atom_tpu_torch.utils.profiling import span
+
+# MixedPrecisionTrainer's loss scale: 2 ** 20 to start, + 1e-3 in log2 a step
+INITIAL_LG_LOSS_SCALE = 20.0
+FP16_SCALE_GROWTH = 1e-3
 
 
 def strict_f32() -> None:
@@ -136,13 +155,20 @@ def draw_train_step(generator: torch.Generator, grid_shape: Sequence[int],
 class Thre3inFusionModel:
     """UNet + diffusion over a scene's voxel grid on one device (None: the
     CUDA card); trains on random 3D crops and samples full grids that
-    deserialize back into renderable VolumetricModels."""
+    deserialize back into renderable VolumetricModels. ``ema_rate`` keeps an
+    EMA of the parameters (None: none); a half-precision UNet trains under
+    the dynamic loss scale, as the module says."""
 
-    def __init__(self, unet: UNetModel, diffusion: GaussianDiffusion, device=None):
+    def __init__(self, unet: UNetModel, diffusion: GaussianDiffusion, device=None,
+                 ema_rate: Optional[float] = None):
         self.device = resolve_device(device)
         self.unet = unet.to(self.device)
         self.diffusion = diffusion
         self._params_set = False
+        self.ema_rate = ema_rate
+        self.ema: Optional[List[torch.Tensor]] = None  # by unet.parameters()
+        self.lg_loss_scale = INITIAL_LG_LOSS_SCALE if unet.use_fp16 else None
+        self.took_step = True  # whether the last train step stepped
 
         self.density_scale_range: Tuple[float, float] = (1.0, 1.0)
         self.features_scale_range: Tuple[float, float] = (1.0, 1.0)
@@ -187,6 +213,10 @@ class Thre3inFusionModel:
     def model_fn(self):
         """The diffusion's model function (x, t) -> output: the UNet itself."""
         return self.unet
+
+    def _train_model_fn(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The model function of training: the UNet with dropout on."""
+        return self.unet(x, t, deterministic=False)
 
     # ------------------------------------------------------------------ serialization
 
@@ -312,6 +342,12 @@ class Thre3inFusionModel:
                 "use_scale_shift_norm": unet.use_scale_shift_norm,
                 "use_bottleneck_attn": unet.use_bottleneck_attn,
                 "use_checkpoint": unet.use_checkpoint,
+                # ADM's options where set (the JAX package's file has none of them)
+                **{k: v for k, v, default in (
+                    ("num_head_channels", unet.num_head_channels, -1),
+                    ("resblock_updown", unet.resblock_updown, False),
+                    ("dropout", unet.dropout, 0.0), ("norm_groups", unet.norm_groups, 16),
+                    ("use_fp16", unet.use_fp16, False)) if v != default},
             },
             "num_timesteps": self.diffusion.num_timesteps,
             "density_scale_range": list(self.density_scale_range),
@@ -336,13 +372,58 @@ class Thre3inFusionModel:
 
     def train_step(self, optimizer: torch.optim.Optimizer, batch: torch.Tensor,
                    timesteps: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
-        """One Adam step on the mean diffusion loss of ``batch``; returns the loss."""
-        optimizer.zero_grad(set_to_none=True)
-        terms = self.diffusion.training_losses(self.model_fn(), batch, timesteps, noise=noise)
-        loss = terms["loss"].mean()
-        loss.backward()
-        optimizer.step()
+        """One optimizer step on the mean diffusion loss of ``batch`` (a half-
+        precision UNet's under the loss scale; ``took_step`` says whether it
+        stepped); returns the loss. The unscaled gradients stay in ``.grad``
+        until the next step."""
+        with span("step"):
+            optimizer.zero_grad(set_to_none=True)
+            if self.ema_rate is not None and self.ema is None:
+                self.ema = [p.detach().clone() for p in self.unet.parameters()]
+            with span("forward"):
+                terms = self.diffusion.training_losses(self._train_model_fn, batch, timesteps,
+                                                       noise=noise)
+                loss = terms["loss"].mean()
+            with span("backward"):
+                if self.lg_loss_scale is None:
+                    loss.backward()
+                else:
+                    (loss * 2.0 ** self.lg_loss_scale).backward()
+            with span("optimizer"):
+                self.took_step = self._optimize(optimizer)
         return loss.detach()
+
+    def _optimize(self, optimizer: torch.optim.Optimizer) -> bool:
+        """MixedPrecisionTrainer.optimize's policy where a loss scale is kept,
+        then the step and the EMA; False when the step was skipped."""
+        if self.lg_loss_scale is not None:
+            grads = [p.grad for p in self.unet.parameters() if p.grad is not None]
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            if not math.isfinite(float(norm)):  # the step's one host sync
+                self.lg_loss_scale -= 1.0
+                with span("skip"):
+                    log.info(f"non-finite gradient: lg_loss_scale -> {self.lg_loss_scale}")
+                return False
+            torch._foreach_mul_(grads, 1.0 / 2.0 ** self.lg_loss_scale)
+        optimizer.step()
+        if self.ema is not None:
+            params = [p.detach() for p in self.unet.parameters()]
+            torch._foreach_mul_(self.ema, self.ema_rate)
+            torch._foreach_add_(self.ema, params, alpha=1.0 - self.ema_rate)
+        if self.lg_loss_scale is not None:
+            self.lg_loss_scale += FP16_SCALE_GROWTH
+        return True
+
+    def save_ema(self, save_path: Path) -> None:
+        """``save_model`` of the EMA's parameters (the UNet's own are put back)."""
+        params = [p.detach() for p in self.unet.parameters()]
+        own = [p.clone() for p in params]
+        with torch.no_grad():
+            torch._foreach_copy_(params, self.ema)
+            try:
+                self.save_model(save_path)
+            finally:
+                torch._foreach_copy_(params, own)
 
     def train(
         self,
@@ -420,6 +501,8 @@ class Thre3inFusionModel:
             if step % save_frequency == 0:
                 log.info("Saving the model ...")
                 self.save_model(model_dir / f"model_{step}")
+                if self.ema is not None:
+                    self.save_ema(model_dir / f"ema_{step}")
 
             if step % sample_frequency == 0:
                 log.info("Creating intermediate samples for visualization ...")
@@ -437,4 +520,6 @@ class Thre3inFusionModel:
                              "continuing training", exc_info=True)
 
         self.save_model(model_dir / "model_final")
+        if self.ema is not None:
+            self.save_ema(model_dir / "ema_final")
         return self

@@ -7,7 +7,10 @@ as flax does (``flax_tree``: a nested dict of (tensor, layout) leaves), so
 ``diffusion/unet.py`` can carry a flax parameter tree across both ways.
 Initialisation is flax's: lecun-normal kernels (a normal truncated at two
 standard deviations, scaled to unit variance over fan-in), zero biases, unit
-GroupNorm scales; ``zero_init`` convs start at zero.
+GroupNorm scales; ``zero_init`` convs start at zero. Parameters are f32;
+``ConvNd`` and ``Dense`` compute in their input's dtype, rounding the f32
+weights to it per call (a half-precision UNet's f32 master weights), and
+take the f32 path unchanged.
 """
 import math
 from typing import Dict, Mapping, Optional, Sequence
@@ -117,12 +120,13 @@ class ConvNd(nn.Module):
         self._conv = (F.conv1d, F.conv2d, F.conv3d)[dims - 1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
         pads = [same_padding(s, self.kernel, self.stride) for s in x.shape[2:]]
         if self.stride == 1 and all(lo == hi for lo, hi in pads):
-            return self._conv(x, self.weight, self.bias, 1, [lo for lo, _ in pads])
+            return self._conv(x, weight, bias, 1, [lo for lo, _ in pads])
         # F.pad lists the last axis first
         x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
-        return self._conv(x, self.weight, self.bias, self.stride)
+        return self._conv(x, weight, bias, self.stride)
 
     def flax_tree(self) -> Dict:
         return {"kernel": (self.weight, "conv"), "bias": (self.bias, "vector")}
@@ -150,13 +154,21 @@ class Dense(nn.Linear):
     def reset_parameters(self) -> None:
         """Leave torch's default init (and the global generator) alone."""
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
     def flax_tree(self) -> Dict:
         return {"kernel": (self.weight, "dense"), "bias": (self.bias, "vector")}
 
 
 def avg_pool_nd(x: torch.Tensor, dims: int, window: int = 2) -> torch.Tensor:
-    """1/2/3-D average pooling with stride == window (channels-first; VALID)."""
-    return (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[dims - 1](x, window, window)
+    """1/2/3-D average pooling with stride == window (channels-first; VALID).
+    The CPU has no half-precision kernel: it pools in f32 and rounds once,
+    as the CUDA kernel, which sums in f32, does."""
+    pool = (F.avg_pool1d, F.avg_pool2d, F.avg_pool3d)[dims - 1]
+    if x.dtype in (torch.float16, torch.bfloat16) and not x.is_cuda:
+        return pool(x.float(), window, window).to(x.dtype)
+    return pool(x, window, window)
 
 
 def mean_flat(tensor: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,20 @@ and its blocks (``ResBlock``, ``Upsample``, ``Downsample``,
 ResBlock in the backward (``torch.utils.checkpoint``, the JAX package's
 ``nn.remat``). Attention splits qkv into q, k and v along channels and then
 each into (heads, head_dim), scales q and k by head_dim ** -0.25 and takes
-the softmax in f32, as the JAX package does.
+the softmax in f32, as the JAX package does (``_attention``); a
+half-precision UNet takes ``fused_attention`` instead.
+
+``use_fp16`` splits the precision as ADM's ``convert_to_fp16`` does (Dhariwal
+& Nichol, guided-diffusion ``unet.py``): the input, middle and output blocks
+(their convolutions, attention's qkv and proj and its products) run in
+``compute_dtype`` (float16) on the f32 parameters rounded per call, so the
+parameters are the f32 master weights; GroupNorm computes in f32 and rounds
+its output, and the time embedding, each block's ``emb_dense`` and the
+output head (``out_norm``, ``conv_out``) stay f32. ``norm_groups`` is
+GroupNorm's group count (ADM: 32; the JAX package: 16). Dropout acts only
+with ``deterministic=False`` (training), through the module function
+``dropout``; under ``use_checkpoint`` the recomputed block redraws the same
+mask (``torch.utils.checkpoint`` restores the RNG state).
 
 Parameters carry across from and to the JAX package's flax tree:
 ``flax_params(unet)`` builds the tree (nested dicts of numpy, flax's names:
@@ -25,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 from torch.utils.checkpoint import checkpoint
 
 from thr3ed_atom_tpu_torch.diffusion.nn import (
@@ -34,11 +48,21 @@ from thr3ed_atom_tpu_torch.diffusion.nn import (
     conv_nd,
     timestep_embedding,
 )
+from thr3ed_atom_tpu_torch.utils.profiling import span
+
+# the SDPA kernels that hold no [N, N] logits
+_FUSED_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
 
 
 def _qk_scale(head_dim: int) -> float:
     """1 / sqrt(sqrt(head_dim)) rounded through f32 as the JAX package rounds it."""
     return float(np.float32(1.0) / np.sqrt(np.sqrt(np.float32(head_dim))))
+
+
+def dropout(h: torch.Tensor, p: float) -> torch.Tensor:
+    """Training dropout of a ResBlock (``F.dropout``: on CUDA one
+    ``native_dropout`` kernel that scales the kept values by 1 / (1 - p))."""
+    return F.dropout(h, p, training=True)
 
 
 class ResBlock(nn.Module):
@@ -48,18 +72,18 @@ class ResBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, emb_channels: int, dims: int = 2,
                  use_scale_shift_norm: bool = False, up: bool = False, down: bool = False,
                  dropout: float = 0.0, use_checkpoint: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, norm_groups: int = 16):
         super().__init__()
         self.dims, self.up, self.down = dims, up, down
         self.use_scale_shift_norm = use_scale_shift_norm
         self.dropout = dropout
         self.use_checkpoint = use_checkpoint
-        self.in_norm = GroupNorm32(in_channels)
+        self.in_norm = GroupNorm32(in_channels, norm_groups)
         self.in_conv = conv_nd(dims, in_channels, out_channels, generator=generator)
         self.emb_dense = Dense(emb_channels,
                                2 * out_channels if use_scale_shift_norm else out_channels,
                                generator=generator)
-        self.out_norm = GroupNorm32(out_channels)
+        self.out_norm = GroupNorm32(out_channels, norm_groups)
         self.out_conv = conv_nd(dims, out_channels, out_channels, zero_init=True)
         self.skip = (conv_nd(dims, in_channels, out_channels, kernel=1, generator=generator)
                      if in_channels != out_channels else None)
@@ -79,14 +103,15 @@ class ResBlock(nn.Module):
             h, x = avg_pool_nd(h, self.dims), avg_pool_nd(x, self.dims)
         h = self.in_conv(h)
 
-        emb_out = self.emb_dense(F.silu(emb))
+        emb_out = self.emb_dense(F.silu(emb)).to(h.dtype)
         emb_out = emb_out.reshape(*emb_out.shape, *([1] * self.dims))
         if self.use_scale_shift_norm:
             scale, shift = torch.chunk(emb_out, 2, dim=1)
             h = F.silu(self.out_norm(h) * (1.0 + scale) + shift)
         else:
             h = F.silu(self.out_norm(h + emb_out))
-        h = F.dropout(h, self.dropout, training=not deterministic)
+        if self.dropout and not deterministic:
+            h = dropout(h, self.dropout)
         h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)
@@ -151,11 +176,30 @@ def _attention(q, k, v, heads: int) -> torch.Tensor:
     return torch.matmul(weights, v).transpose(1, 2).reshape(batch, -1, channels)
 
 
+def fused_attention(q, k, v, heads: int) -> torch.Tensor:
+    """``_attention`` in one fused kernel that never holds the [N, N]
+    logits: ``F.scaled_dot_product_attention`` restricted to its flash and
+    memory-efficient kernels (on CUDA in fp16 / bf16 with heads of 64, the
+    flash kernel). It departs from ADM's half-precision ``QKVAttention``:
+    the scale 1 / sqrt(head_dim) is applied once, in f32, to the logits,
+    where ADM scales q and k by head_dim ** -0.25 each in fp16; and the
+    softmax's statistics stay f32 throughout, where ADM rounds the logits
+    to fp16 before its f32 softmax."""
+    batch, _, channels = q.shape
+    head_dim = channels // heads
+    q, k, v = (t.reshape(batch, -1, heads, head_dim).transpose(1, 2) for t in (q, k, v))
+    with sdpa_kernel(_FUSED_BACKENDS):
+        out = F.scaled_dot_product_attention(q, k, v)
+    return out.transpose(1, 2).reshape(batch, -1, channels)
+
+
 class AttentionBlock(nn.Module):
-    """Multi-head self-attention over flattened spatial positions (channels-first)."""
+    """Multi-head self-attention over flattened spatial positions
+    (channels-first): ``_attention`` in f32, ``fused_attention`` in a half
+    precision."""
 
     def __init__(self, channels: int, num_heads: int = 1, num_head_channels: int = -1,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, norm_groups: int = 16):
         super().__init__()
         if num_head_channels == -1:
             self.heads = num_heads
@@ -164,7 +208,7 @@ class AttentionBlock(nn.Module):
                 raise ValueError(f"{channels} channels do not split into heads of "
                                  f"{num_head_channels}")
             self.heads = channels // num_head_channels
-        self.norm = GroupNorm32(channels)
+        self.norm = GroupNorm32(channels, norm_groups)
         self.qkv = Dense(channels, 3 * channels, generator=generator)
         self.proj = Dense(channels, channels, zero_init=True)
 
@@ -172,7 +216,12 @@ class AttentionBlock(nn.Module):
         batch, channels = x.shape[:2]
         h = self.norm(x).reshape(batch, channels, -1).transpose(1, 2)  # [B, N, C]
         q, k, v = torch.chunk(self.qkv(h), 3, dim=-1)
-        out = self.proj(_attention(q, k, v, self.heads))
+        if h.dtype == torch.float32:
+            a = _attention(q, k, v, self.heads)
+        else:
+            with span("attention"):
+                a = fused_attention(q, k, v, self.heads)
+        out = self.proj(a)
         return x + out.transpose(1, 2).reshape(x.shape)
 
     def flax_tree(self) -> Dict:
@@ -235,7 +284,8 @@ class _Step(nn.Module):
 class UNetModel(nn.Module):
     """The full UNet. The arguments are the JAX package's (``attention_resolutions``
     lists the downsample factors at which attention blocks are inserted);
-    ``generator`` seeds the flax-style initialisation."""
+    ``generator`` seeds the flax-style initialisation; ``norm_groups`` and
+    ``use_fp16`` as the module's docstring says."""
 
     def __init__(
         self,
@@ -256,6 +306,8 @@ class UNetModel(nn.Module):
         resblock_updown: bool = False,
         dropout: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        norm_groups: int = 16,
+        use_fp16: bool = False,
     ):
         super().__init__()
         self.in_channels, self.model_channels = in_channels, model_channels
@@ -269,6 +321,8 @@ class UNetModel(nn.Module):
         self.use_bottleneck_attn = use_bottleneck_attn
         self.conv_resample, self.resblock_updown = conv_resample, resblock_updown
         self.dropout = dropout
+        self.norm_groups, self.use_fp16 = norm_groups, use_fp16
+        self.compute_dtype = torch.float16 if use_fp16 else torch.float32
 
         # flax's names: one counter a module type, in call order
         counters: Dict[str, int] = {}
@@ -288,10 +342,11 @@ class UNetModel(nn.Module):
         def res(cin, cout, **kw):
             return named("ResBlock", ResBlock(
                 cin, cout, emb_dim, dims, use_scale_shift_norm, dropout=dropout,
-                use_checkpoint=use_checkpoint, generator=gen, **kw))
+                use_checkpoint=use_checkpoint, generator=gen, norm_groups=norm_groups, **kw))
 
         def attn(ch):
-            return named("AttentionBlock", AttentionBlock(ch, num_heads, num_head_channels, gen))
+            return named("AttentionBlock", AttentionBlock(ch, num_heads, num_head_channels, gen,
+                                                          norm_groups))
 
         self.time_embed = nn.ModuleList([named("Dense", Dense(model_channels, emb_dim,
                                                               generator=gen)),
@@ -340,11 +395,15 @@ class UNetModel(nn.Module):
                     ds //= 2
                 self.output_blocks.append(_Step(*layers))
 
-        self.out_norm = named("GroupNorm32", GroupNorm32(ch))
+        self.out_norm = named("GroupNorm32", GroupNorm32(ch, norm_groups))
         self.conv_out = named("Conv", conv_nd(dims, ch, out_channels, zero_init=True))
 
     def config(self) -> Dict[str, Any]:
-        """The constructor's arguments (without the generator)."""
+        """The constructor's arguments (without the generator; ``norm_groups``
+        and ``use_fp16``, which the JAX package's UNet lacks, only where they
+        are not the default)."""
+        extra = {k: v for k, v, default in (("norm_groups", self.norm_groups, 16),
+                                            ("use_fp16", self.use_fp16, False)) if v != default}
         return dict(
             in_channels=self.in_channels, model_channels=self.model_channels,
             out_channels=self.out_channels, num_res_blocks=self.num_res_blocks,
@@ -353,7 +412,7 @@ class UNetModel(nn.Module):
             num_heads=self.num_heads, num_head_channels=self.num_head_channels,
             use_scale_shift_norm=self.use_scale_shift_norm,
             use_bottleneck_attn=self.use_bottleneck_attn, conv_resample=self.conv_resample,
-            resblock_updown=self.resblock_updown, dropout=self.dropout)
+            resblock_updown=self.resblock_updown, dropout=self.dropout, **extra)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 y: Optional[torch.Tensor] = None, deterministic: bool = True
@@ -368,7 +427,7 @@ class UNetModel(nn.Module):
             emb = emb + self.label_emb(y)
 
         last = x.dim() - 1
-        h = self.conv_in(x.movedim(last, 1).contiguous())
+        h = self.conv_in(x.movedim(last, 1).contiguous().to(self.compute_dtype))
         skips = [h]
         for block in self.input_blocks:
             h = block(h, emb, deterministic)
@@ -376,7 +435,7 @@ class UNetModel(nn.Module):
         h = self.middle_block(h, emb, deterministic)
         for block in self.output_blocks:
             h = block(torch.cat([h, skips.pop()], dim=1), emb, deterministic)
-        h = self.conv_out(F.silu(self.out_norm(h)))
+        h = self.conv_out(F.silu(self.out_norm(h.to(x.dtype))))
         return h.movedim(1, last)
 
     def flax_tree(self) -> Dict:
